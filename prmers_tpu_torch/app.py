@@ -1,0 +1,55 @@
+"""`python -m prmers_tpu_torch <p> [-ll]`: a PRP or LL run on the port.
+
+Counterpart of prmers_tpu/core/app.py:92-124. It parses with the shared
+CLI (prmers_tpu/io/cli.parse_args), runs the shared PRP/LL driver
+(prmers_tpu/modes/prp_ll.run_prp_or_ll) on the port's engine, and prints
+the shared PrimeNet result JSON. Other modes and PRP proofs are not ported
+yet and stop with a message saying so.
+"""
+
+from __future__ import annotations
+
+import os
+
+from .engine.factory import create_engine
+from .host import json_out, parse_args, run_prp_or_ll
+
+
+def run(opts, device=None, log=print):
+    """One PRP/LL run; returns (result, json_line)."""
+    if opts.mode not in ("prp", "ll"):
+        raise SystemExit(f"mode {opts.mode!r} is not yet ported to "
+                         "prmers_tpu_torch (PRP and LL only)")
+    if (opts.mode == "prp" and opts.proof and not opts.wagstaff
+            and opts.exponent > 128):
+        raise SystemExit("PRP proof generation is not yet ported to "
+                         "prmers_tpu_torch; pass -noproof")
+    if opts.save_dir:
+        os.makedirs(opts.save_dir, exist_ok=True)
+    eng = create_engine(opts.exponent, 8, device=device)
+    r = run_prp_or_ll(opts, eng=eng, proof_set=None, log=log)
+    if opts.mode == "prp" and opts.known_factors:
+        status = "PRP" if r.cofactor_prp else "C"
+    else:
+        status = "P" if r.is_prime else "C"
+    if opts.wagstaff:
+        status = "PRP" if r.wagstaff_prp else "C"
+    j = json_out.build_result_json(
+        exponent=opts.exponent,
+        worktype="PRP-3" if opts.mode == "prp" else "LL",
+        status=status, res64=r.res64.upper(), res2048=r.res2048.upper(),
+        gerbicz_errors=r.gerbicz_errors, fft_length=r.transform_size,
+        known_factors=opts.known_factors,
+        user=opts.user, computer=opts.computer, aid=opts.aid)
+    return r, j
+
+
+def main(argv=None) -> int:
+    opts = parse_args(argv)
+    if opts.exponent == 0:
+        print("usage: python -m prmers_tpu_torch <p> [-ll] [-noproof]")
+        return 2
+    r, j = run(opts)
+    print(j)
+    prime = bool(r.is_prime or r.wagstaff_prp or r.cofactor_prp)
+    return 0 if prime else 1

@@ -1,0 +1,120 @@
+// Length-L DFT down one axis of the (R1, R2, C) register, as a direct
+// mod-P matrix product on a shared-memory tile. Shared by K1 (the r1 axis,
+// one matrix per r2), the two r2 launches of K2 (the r2 axis, one matrix,
+// or one per r1) and the first launch of K3 (the r1 axis again).
+//
+// The array is viewed as (O, L, S, C): element (o, j, s, c) at
+// ((o*L + j)*S + s)*C + c, the transform runs over j. A block owns one
+// (o, s) pair and a slab of AX_TC consecutive columns, so every global
+// access is a run of AX_TC u64 words. It stages the L x L matrix and the
+// L x AX_TC input slab (after the mode's prologue) in shared memory, then
+// each thread forms L/AX_TY outputs of one column: out[k] = sum_j M[k][j]
+// x[j], the L full products summed in a 192-bit accumulator and reduced
+// once. The block reads and writes the same element set, so the kernel
+// may run in place (out == x).
+#pragma once
+
+#include "gl64.cuh"
+
+#define AX_TC 32
+#define AX_TY 8
+
+enum AxisMode {
+    AX_K1 = 0,   // carry inject + wrap halve, matrix per s (= r2)
+    AX_K2A = 1,  // single matrix, then x mf
+    AX_K2C = 2,  // x mi first, matrix per o (= r1)
+    AX_K3A = 3   // matrix per s, then wrap double, canon, optional x a
+};
+
+struct AxisArgs {
+    const u64* x;
+    u64* out;
+    const u64* mats;     // (V, L, L)
+    const u64* tab;      // K2A: mf, K2C: mi; same layout as x
+    // K1: the previous step's per-row carries (R,), unrolled, and the
+    // per-row spread tables (R, kk)
+    const u64* co;
+    const u32* wt;
+    const u32* cum;
+    int kk;
+    // K1 / K3A: wrap residues er (R,) and ec (C,)
+    const u32* er;
+    const u32* ec;
+    u32 n;
+    // K3A: small multiplier
+    u64 a;
+    int with_a;
+    int O, L, S, C;
+};
+
+template <int MODE>
+__global__ void __launch_bounds__(AX_TC * AX_TY)
+axis_dft_kernel(AxisArgs g) {
+    extern __shared__ u64 ax_smem[];
+    const int L = g.L, S = g.S, C = g.C;
+    u64* Ms = ax_smem;              // L * L
+    u64* xs = ax_smem + L * L;      // L * AX_TC
+    const int o = blockIdx.z;
+    const int s = blockIdx.y;
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int tid = ty * AX_TC + tx;
+    const int c = blockIdx.x * AX_TC + tx;
+
+    int var = 0;
+    if (MODE == AX_K1 || MODE == AX_K3A) var = s;
+    if (MODE == AX_K2C) var = o;
+    const u64* M = g.mats + (size_t)var * L * L;
+    for (int i = tid; i < L * L; i += AX_TC * AX_TY) Ms[i] = M[i];
+
+    for (int j = ty; j < L; j += AX_TY) {
+        const size_t idx = ((size_t)(o * L + j) * S + s) * C + c;
+        u64 v = g.x[idx];
+        if (MODE == AX_K1) {
+            // flat row f = r1*R2 + r2; the roll by one flat row (row f takes
+            // row f-1's carry, row 0 the last row's) is folded in here
+            const int R = L * S;
+            const int f = j * S + s;
+            if (c < g.kk) {
+                const u64 cin = g.co[(f + R - 1) % R];
+                const u32 cm = g.cum[f * g.kk + c];
+                u32 part = cm < 64 ? (u32)(cin >> cm) : 0u;
+                if (c < g.kk - 1) part &= (1u << g.wt[f * g.kk + c]) - 1u;
+                v += part;
+            }
+            if (g.er[f] + g.ec[c] >= g.n) v = gl_halve(v);
+        }
+        if (MODE == AX_K2C) v = gl_mul(v, g.tab[idx]);
+        xs[j * AX_TC + tx] = v;
+    }
+    __syncthreads();
+
+    for (int k = ty; k < L; k += AX_TY) {
+        const u64* Mk = Ms + k * L;
+        GlAcc sum = gl_acc_zero();
+        for (int j = 0; j < L; ++j)
+            gl_acc_madd(sum, Mk[j], xs[j * AX_TC + tx]);
+        u64 acc = gl_acc_reduce(sum);
+        const size_t idx = ((size_t)(o * L + k) * S + s) * C + c;
+        if (MODE == AX_K2A) acc = gl_mul(acc, g.tab[idx]);
+        if (MODE == AX_K3A) {
+            if (g.er[k * S + s] + g.ec[c] >= g.n) acc = gl_double(acc);
+            acc = gl_canon(acc);
+            if (g.with_a) acc = gl_canon(gl_mul(acc, g.a));
+        }
+        g.out[idx] = acc;
+    }
+}
+
+// Launch over the whole (O, L, S, C) array; returns cudaGetLastError().
+template <int MODE>
+static int axis_dft_launch(const AxisArgs& g, cudaStream_t stream) {
+    const size_t smem = (size_t)(g.L * g.L + g.L * AX_TC) * sizeof(u64);
+    cudaError_t err = cudaFuncSetAttribute(
+        axis_dft_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(g.C / AX_TC, g.S, g.O);
+    dim3 block(AX_TC, AX_TY);
+    axis_dft_kernel<MODE><<<grid, block, smem, stream>>>(g);
+    return (int)cudaGetLastError();
+}

@@ -1,0 +1,122 @@
+// K3: the r1 inverse DFT and the carry of one step.
+//
+// Replaces prmers_tpu/ops/pallas/kernels.py:_p7c_kernel (:612, launched by
+// p7_carry_pass :799). The steps are
+//   1. the length-L1 inverse DFT down axis 0 with the r2's folded matrix
+//      iw_inv (inverse weights' r-part and 1/n folded in);
+//   2. double where er + ec >= n, then canon;
+//   3. optionally x a, then canon (with_a);
+//   4. optionally + (M_p - 2) for the LL step (sub2: every digit + its
+//      mask, minus s2 at global digit 0, :655-667);
+//   5. the digit/carry split by width, a fixed number of lane-ripple
+//      rounds (_carry_rounds :681) and the residual added unsplit
+//      (_carry_phase_math :562-609);
+//   6. the row's out-carry, left for the next step's K1.
+// The DFT follows columns (an r1 slab of each r2) while the carry follows
+// a whole row of C digits, so this is two launches with the seam between
+// steps 3 and 4: K3a = steps 1-3 (axis_dft.cuh, in place), K3b = steps
+// 4-6, one block per row.
+//
+// What bounds it on the H100: K3a does 64 mod-P products per digit (the
+// integer pipe); K3b is a memory pass (8 B in, 8 B out and 4 B of widths
+// per digit) with a few shared-memory rounds. The design keeps a row's
+// carries in shared memory between rounds, so each round is one
+// __syncthreads and no device traffic.
+
+#include <cuda_runtime.h>
+
+#include "axis_dft.cuh"
+
+#define K3B_THREADS 256
+
+// One block per row; thread t owns digits t, t + 256, ... (PER of them, in
+// registers), so loads and stores are coalesced and each round's shifted
+// carry comes from shared memory.
+template <int PER>
+__global__ void __launch_bounds__(K3B_THREADS)
+k3b_kernel(u64* x, u64* co, const u32* widths, int rounds, int sub2,
+           u64 s2) {
+    __shared__ u64 k3_cs[PER * K3B_THREADS];
+    const int C = PER * K3B_THREADS;
+    const int f = blockIdx.x;
+    const int tid = threadIdx.x;
+    const size_t base = (size_t)f * C;
+    u64 d[PER], c[PER];
+    u32 w[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+        const int l = tid + i * K3B_THREADS;
+        u64 y = x[base + l];
+        w[i] = widths[base + l];
+        const u64 mk = (1ULL << w[i]) - 1ULL;
+        if (sub2) y += (f == 0 && l == 0) ? mk - s2 : mk;
+        d[i] = y & mk;
+        c[i] = y >> w[i];
+    }
+    u64 acc = 0;
+    for (int r = 0; r <= rounds; ++r) {
+#pragma unroll
+        for (int i = 0; i < PER; ++i) k3_cs[tid + i * K3B_THREADS] = c[i];
+        __syncthreads();
+        if (tid == K3B_THREADS - 1) acc += c[PER - 1];   // leaves the row
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+            const int l = tid + i * K3B_THREADS;
+            const u64 sh = l > 0 ? k3_cs[l - 1] : 0ULL;
+            if (r < rounds) {
+                const u64 y = d[i] + sh;
+                d[i] = y & ((1ULL << w[i]) - 1ULL);
+                c[i] = y >> w[i];
+            } else {
+                // the residual (< 2^(wmin-1)) goes in unsplit
+                d[i] = (u64)(u32)(d[i] + (u32)sh);
+            }
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) x[base + tid + i * K3B_THREADS] = d[i];
+    if (tid == K3B_THREADS - 1) co[f] = acc;
+}
+
+extern "C" int prmers_k3_p7c(const u64* x, u64* out, u64* co,
+                             const u64* mats, const u32* er, const u32* ec,
+                             u32 n, const u32* widths, int rounds, u64 a,
+                             int with_a, int sub2, u64 s2, int L1, int R2,
+                             int C, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (C != 1024 && C != 2048 && C != 4096) return -1;   // no K3b for C
+    AxisArgs g = {};
+    g.x = x;
+    g.out = out;
+    g.mats = mats;
+    g.er = er;
+    g.ec = ec;
+    g.n = n;
+    g.a = a;
+    g.with_a = with_a;
+    g.O = 1;
+    g.L = L1;
+    g.S = R2;
+    g.C = C;
+    int err = axis_dft_launch<AX_K3A>(g, st);
+    if (err) return err;
+    const int rows = L1 * R2;
+    switch (C) {
+    case 1024:
+        k3b_kernel<4><<<rows, K3B_THREADS, 0, st>>>(out, co, widths, rounds,
+                                                   sub2, s2);
+        break;
+    case 2048:
+        k3b_kernel<8><<<rows, K3B_THREADS, 0, st>>>(out, co, widths, rounds,
+                                                   sub2, s2);
+        break;
+    case 4096:
+        k3b_kernel<16><<<rows, K3B_THREADS, 0, st>>>(out, co, widths, rounds,
+                                                    sub2, s2);
+        break;
+    default:
+        return -1;
+    }
+    return (int)cudaGetLastError();
+}

@@ -1,0 +1,238 @@
+"""The four-step kernel engine: the Engine register API on K1-K3.
+
+Counterpart of prmers_tpu/engine/pallas_engine.py:PallasEngine on its
+row-carry pipeline. A register is [x, co, spectral]: x the (R1, R2, C)
+int64 digit tensor (u64 bit patterns), co the (R1, R2) int64 out-carries
+of the last step, not yet rolled (they enter the next step's K1, or are
+folded by `op_settle`), and the spectral flag of a multiplicand.
+
+The hot ops update their register's tensors in place (the kernels read
+each element before writing it), so `copy` always makes real copies and no
+two registers ever share storage. Settle and the linear ops (get/set,
+add/sub) are torch code on the device around ops/carry.carry_full.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import torchconf
+from ..host import Engine, Plan, Reg, cached_plan
+from ..host import digits as dg
+from ..ops import carry as carry_ops
+from ..ops import fourstep as tfs
+from ..ops import gl64 as gl
+from ..ops import kernels as tk
+
+_HOST_TABLES: dict = {}
+_DEV_TABLES: dict = {}
+
+
+def check_shape(fp: tfs.FourStepPlan) -> None:
+    """The shapes this engine covers: n = 2^k, 2^15 <= n <= 2^24, the r2
+    passes folded into K2 (use_r2fold), one C-transform kernel
+    (not fc_split) and whole-row carries (carry_tiles == 1). Anything else
+    raises: the port never falls back to another pipeline."""
+    n = fp.n
+    ok = (n & (n - 1) == 0 and (1 << 15) <= n <= (1 << 24)
+          and fp.rs.L1 >= 32 and fp.rs.L2 & (fp.rs.L2 - 1) == 0
+          and tfs.use_r2fold(fp) and not tfs.fc_split(fp)
+          and tfs.carry_tiles(fp) == 1)
+    if not ok:
+        raise NotImplementedError(
+            f"prmers_tpu_torch covers n = 2^k with 2^15 <= n <= 2^24 on the "
+            f"r2fold / whole-row-carry pipeline; this plan has n={n} "
+            f"(R1={fp.rs.L1}, R2={fp.rs.L2}, C={fp.C}, "
+            f"r2fold={tfs.use_r2fold(fp)}, fc_split={tfs.fc_split(fp)}, "
+            f"carry_tiles={tfs.carry_tiles(fp)})")
+
+
+def get_tables(plan: Plan, device: torch.device):
+    key = (plan.p, plan.n)
+    if key not in _HOST_TABLES:
+        try:
+            fp = tfs.FourStepPlan.from_plan(plan)
+        except AssertionError as e:
+            raise NotImplementedError(
+                f"prmers_tpu_torch has no four-step plan for n={plan.n}: "
+                f"{e}") from None
+        check_shape(fp)
+        _HOST_TABLES[key] = tfs.build_tables(fp)
+    dkey = key + (str(device),)
+    if dkey not in _DEV_TABLES:
+        _DEV_TABLES[dkey] = tk.DevTables.from_host(_HOST_TABLES[key], device)
+    return _DEV_TABLES[dkey]
+
+
+def op_settle(t: tk.DevTables, x: torch.Tensor,
+              co: torch.Tensor) -> torch.Tensor:
+    """Fold the pending row carries (row f's carry enters the first digit
+    of row f+1, the last row's wraps to digit 0) and renormalize
+    (pallas_engine.py:161-183)."""
+    R1, R2, C = t.shape
+    n = R1 * R2 * C
+    y = x.reshape(n).clone()
+    cin = torch.roll(co.reshape(-1), 1)
+    y[::C] += cin
+    return carry_ops.carry_full(y, t.widths.reshape(n)).reshape(t.shape)
+
+
+def op_linear(t: tk.DevTables, x: torch.Tensor, y: torch.Tensor,
+              coef_y: int, const: torch.Tensor | None = None):
+    """digits(x) + coef_y * digits(y) (coef -1: add masks - y) + const,
+    renormalized (pallas_engine.py:186-202); x and y are settled."""
+    n = x.numel()
+    w = t.widths.reshape(n).to(torch.int64)
+    masks = (1 << w) - 1
+    a = x.reshape(n)
+    b = y.reshape(n)
+    if coef_y < 0:
+        b = masks - b
+    elif coef_y == 0:
+        b = torch.zeros_like(b)
+    s = a + b
+    if const is not None:
+        s = s + const
+    return carry_ops.carry_full(s, w, masks).reshape(t.shape)
+
+
+class FourStepEngine(Engine):
+    """Engine backed by the port's K1-K3 (CUDA on a card, plain torch on
+    the CPU)."""
+
+    def __init__(self, p: int, reg_count: int, plan: Plan | None = None,
+                 device=None):
+        super().__init__(p, reg_count)
+        self.device = torchconf.device(device)
+        self.plan = plan if plan is not None else cached_plan(p)
+        self.n = self.plan.n
+        self.t = get_tables(self.plan, self.device)
+        self._sh = self.t.shape
+        self.regs = [[self._zx(), self._zc(), False]
+                     for _ in range(reg_count)]
+        self._delta_cache: dict[int, torch.Tensor] = {}
+
+    # -- helpers ----------------------------------------------------------
+    def _zx(self):
+        return torch.zeros(self._sh, dtype=torch.int64, device=self.device)
+
+    def _zc(self):
+        return torch.zeros(self._sh[:2], dtype=torch.int64,
+                           device=self.device)
+
+    def _settled(self, r: Reg) -> torch.Tensor:
+        st = self.regs[r]
+        assert not st[2], "spectral register used as digits"
+        x = op_settle(self.t, st[0], st[1])
+        self.regs[r] = [x, self._zc(), False]
+        return x
+
+    def get_size(self) -> int:
+        return self.n
+
+    @property
+    def widths(self) -> np.ndarray:
+        return self.plan.widths
+
+    # -- core ops ---------------------------------------------------------
+    def set(self, dst: Reg, a: int) -> None:
+        self.set_int(dst, a)
+
+    def copy(self, dst: Reg, src: Reg) -> None:
+        if dst == src:
+            return
+        st = self.regs[src]
+        self.regs[dst] = [st[0].clone(), st[1].clone(), st[2]]
+
+    def square_mul(self, src: Reg, a: int = 1) -> None:
+        st = self.regs[src]
+        assert not st[2], "spectral register used as digits"
+        tk.square_step(self.t, st[0], st[1], a=int(a), out=st[0],
+                       co_out=st[1])
+
+    # square_mul_seq is the base class's loop over square_mul: with a = 1
+    # K3 skips its multiplier, which is the PRP chain's fast case.
+
+    def square_sub2_seq(self, src: Reg, count: int) -> None:
+        st = self.regs[src]
+        assert not st[2], "spectral register used as digits"
+        t, x, co = self.t, st[0], st[1]
+        for _ in range(count):
+            tk.square_step(t, x, co, sub2=True, out=x, co_out=co)
+
+    def set_multiplicand(self, dst: Reg, src: Reg) -> None:
+        st = self.regs[src]
+        assert not st[2], "spectral register used as digits"
+        u = tk.fwd_step(self.t, st[0], st[1])
+        self.regs[dst] = [u, self._zc(), True]
+
+    def mul(self, dst: Reg, src: Reg, a: int = 1) -> None:
+        st = self.regs[dst]
+        u = self.regs[src]
+        assert u[2], "mul src must hold a multiplicand"
+        assert not st[2], "mul dst must hold digits"
+        tk.mul_step(self.t, st[0], st[1], u[0], a=int(a), out=st[0],
+                    co_out=st[1])
+
+    def add(self, dst: Reg, src: Reg) -> None:
+        x = self._settled(dst)
+        y = self._settled(src)
+        self.regs[dst] = [op_linear(self.t, x, y, 1), self._zc(), False]
+
+    def sub_reg(self, dst: Reg, src: Reg) -> None:
+        x = self._settled(dst)
+        y = self._settled(src)
+        self.regs[dst] = [op_linear(self.t, x, y, -1), self._zc(), False]
+
+    def _delta_vec(self, a: int) -> torch.Tensor:
+        if a not in self._delta_cache:
+            mp = (1 << self.p) - 1
+            d = dg.int_to_digits(a % mp, self.widths)
+            self._delta_cache[a] = gl.from_numpy_u64(d, self.device)
+        return self._delta_cache[a]
+
+    def sub(self, src: Reg, a: int) -> None:
+        mp = (1 << self.p) - 1
+        self.add_small(src, mp - (a % mp))
+
+    def add_small(self, src: Reg, a: int) -> None:
+        x = self._settled(src)
+        self.regs[src] = [op_linear(self.t, x, x, 0, self._delta_vec(a)),
+                          self._zc(), False]
+
+    def sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- host exchange ----------------------------------------------------
+    def get_digits(self, src: Reg) -> np.ndarray:
+        return gl.to_numpy_u64(self._settled(src)).reshape(self.n)
+
+    def set_digits(self, dst: Reg, digits: np.ndarray) -> None:
+        x = gl.from_numpy_u64(np.asarray(digits, dtype=np.uint64),
+                              self.device).reshape(self._sh)
+        self.regs[dst] = [x, self._zc(), False]
+
+    def get_raw(self, src: Reg) -> np.ndarray:
+        """Checkpoint dump: settled digits, or a multiplicand's spectral
+        values (canonical mod P, flat (R1, R2, C) order: the JAX layout)."""
+        st = self.regs[src]
+        if st[2]:
+            return gl.to_numpy_u64(gl.canon64(st[0])).reshape(self.n)
+        return self.get_digits(src)
+
+    def get_raw_tagged(self, src: Reg) -> tuple[np.ndarray, bool]:
+        return self.get_raw(src), bool(self.regs[src][2])
+
+    def set_raw(self, dst: Reg, data: np.ndarray) -> None:
+        self.set_digits(dst, data)
+
+    def set_raw_tagged(self, dst: Reg, data: np.ndarray,
+                       spectral: bool = False) -> None:
+        if not spectral:
+            self.set_digits(dst, data)
+            return
+        u = gl.from_numpy_u64(np.asarray(data, dtype=np.uint64),
+                              self.device).reshape(self._sh)
+        self.regs[dst] = [u, self._zc(), True]

@@ -1,0 +1,442 @@
+"""Four-step IBDWT plan and host-side tables (numpy) for the port's kernels.
+
+Counterpart of prmers_tpu/ops/pallas/fourstep.py (plan, base tables, the
+folded-table builders) and mxu_dft.py (the DFT matrices). The length-n
+weighted transform is n = R*C with R = R1*R2; a register is (R1, R2, C)
+and digit [r1, r2, c] is x[(r1*R2 + r2)*C + c].
+
+The JAX package stores its folded matrices as int8 limb planes for the
+TPU's matrix unit. The port keeps them as u64 mod-P matrices, BEFORE that
+split: the CUDA kernels multiply natively in 64 bits. Every matrix, twiddle
+and weight is the same element of GF(P) as the JAX table it replaces, and
+every transform keeps the JAX's DIF output order, so each stage boundary
+(and the spectral multiplicand) agrees with the JAX pipeline mod P.
+
+Tables built here, all canonical u64 numpy arrays unless noted:
+
+  k1_mats (R2, L1, L1)  tr_fwd_w: DFT_L1 with row scale t_r and column
+                        scale wr (the weights' r-part), one per r2
+  g2      (L2, L2)      the generic forward r2 DFT
+  mf, mi  (R1, R2, C)   mid / mid_inv with the weights' ca-part and the
+                        root-of-2 wrap folded in
+  lane_f, lane_i (ca, ca)  the lane-tile DFT over ca = c >> 7
+  Mf, Mi  (ca, 128, 128)   per-slot right-side matrices: omega_C twiddles
+                        and the weights' lane part
+  tri     (R1, L2, L2)  tr_inv: inverse r2 DFT with row scale t_r_inv
+  k3_mats (R2, L1, L1)  iw_inv: inverse DFT_L1 with row scale iwr / n
+  er (R1, R2), ec (C,)  u32 wrap residues: halve/double where er+ec >= n
+  wt, cum (R1, R2, k)   u32 per-row carry spread widths / bit offsets
+  widths  (R1, R2, C)   u32 digit widths
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..host import Plan, field
+
+P = field.P
+LANES = 128
+
+_M32 = np.uint64(0xFFFFFFFF)
+_S32 = np.uint64(32)
+_EPS = np.uint64(0xFFFFFFFF)
+_P64 = np.uint64(P)
+
+
+# ---------------------------------------------------------------------------
+# numpy Goldilocks helpers (u64 arrays, canonical out)
+# ---------------------------------------------------------------------------
+
+def _reduce128(lo, hi):
+    """(hi:lo) mod P with 2^64 = 2^32 - 1 and 2^96 = -1, canonical out."""
+    hh = hi >> _S32
+    hl = hi & _M32
+    t0 = lo - hh
+    t0 = np.where(lo < hh, t0 - _EPS, t0)
+    t1 = hl * _EPS
+    r = t0 + t1
+    r = np.where(r < t0, r + _EPS, r)
+    return np.where(r >= _P64, r - _P64, r)
+
+
+def mulmod(a, b) -> np.ndarray:
+    """Elementwise a*b mod P of u64 arrays (broadcasting)."""
+    a = np.asarray(a, dtype=np.uint64)
+    b = np.asarray(b, dtype=np.uint64)
+    a0, a1 = a & _M32, a >> _S32
+    b0, b1 = b & _M32, b >> _S32
+    ll = a0 * b0
+    lh = a0 * b1
+    hl = a1 * b0
+    hh = a1 * b1
+    mid = lh + hl
+    mc = (mid < lh).astype(np.uint64)
+    lo = ll + (mid << _S32)
+    lc = (lo < ll).astype(np.uint64)
+    hi = hh + (mid >> _S32) + (mc << _S32) + lc
+    return _reduce128(lo, hi)
+
+
+def pow_table(base: int, count: int) -> np.ndarray:
+    """[base^0, base^1, ..., base^(count-1)] mod P by block doubling."""
+    out = np.empty(count, dtype=np.uint64)
+    out[0] = 1
+    m = 1
+    while m < count:
+        step = min(m, count - m)
+        out[m:m + step] = mulmod(out[:step], np.uint64(pow(base, m, P)))
+        m += step
+    return out
+
+
+def powv(base: int, exps) -> np.ndarray:
+    return np.array([pow(base, int(e), P) for e in exps], dtype=np.uint64)
+
+
+# ---------------------------------------------------------------------------
+# Plan
+# ---------------------------------------------------------------------------
+
+def root_554(m: int) -> int:
+    """The m-th root of unity 554^((P-1)/m); 554^((P-1)/192) = 2, so every
+    root of order m | 192 is a power of two (fourstep.py:42)."""
+    assert (P - 1) % m == 0
+    return pow(field.ROOT_TWO_BASE, (P - 1) // m, P)
+
+
+def dif_freq_of_pos(L: int) -> np.ndarray:
+    """Output order of the radix-2 DIF cascade: the frequency at position
+    p is the bit reversal of p."""
+    bits = L.bit_length() - 1
+    out = np.zeros(L, dtype=np.int64)
+    for p in range(L):
+        f, x = 0, p
+        for _ in range(bits):
+            f = (f << 1) | (x & 1)
+            x >>= 1
+        out[p] = f
+    return out
+
+
+def shift_exponents(L1: int) -> list[tuple[int, list[int]]]:
+    """Per DIF level (m, [e_j]): level half-size m has twiddles
+    omega_{2m}^j = 2^(192/(2m) * j), j < m."""
+    assert L1 <= 64 and 192 % max(2 * (L1 // 2), 1) == 0, \
+        f"no shift-twiddle family for L={L1} (needs L | 64)"
+    out = []
+    m = L1 // 2
+    while m >= 1:
+        step = 192 // (2 * m)
+        out.append((m, [step * j for j in range(m)]))
+        m //= 2
+    return out
+
+
+@dataclasses.dataclass(eq=False)
+class SplitSpec:
+    """Column split L = L1 * L2: L1 on the slow axis, L2 on the next."""
+    L: int
+    L1: int
+    L2: int
+    freq1: np.ndarray
+    freq2: np.ndarray
+
+    @property
+    def freq(self) -> np.ndarray:
+        return self.freq1[:, None] + self.L1 * self.freq2[None, :]
+
+
+def make_split(L: int) -> SplitSpec:
+    if L & (L - 1) == 0:
+        assert 4 <= L <= 16384, L
+        L1 = min(L, 64)
+        L2 = L // L1
+        assert L2 <= 256, f"column length {L} too large for one kernel"
+        return SplitSpec(L, L1, L2, dif_freq_of_pos(L1),
+                         dif_freq_of_pos(L2))
+    assert L % 5 == 0 and (L // 5) & (L // 5 - 1) == 0, L
+    m = (L // 5).bit_length() - 1
+    a = min(m, 6)
+    L1 = 1 << a
+    L2 = 5 << (m - a)
+    assert L2 <= 320, f"column length {L} too large for one kernel"
+    return SplitSpec(L, L1, L2, dif_freq_of_pos(L1),
+                     np.arange(L2, dtype=np.int64))
+
+
+@dataclasses.dataclass(eq=False)
+class FourStepPlan:
+    """Kernel-level plan for n = R*C (fourstep.py:115-154)."""
+    p: int
+    n: int
+    R: int
+    C: int
+    rs: SplitSpec
+    cs: SplitSpec
+    widths: np.ndarray
+    max_word: int
+
+    @classmethod
+    def from_plan(cls, plan: Plan):
+        n = plan.n
+        five = n % 5 == 0
+        base = n // 5 if five else n
+        assert base & (base - 1) == 0, \
+            "four-step path requires n in {2^k, 5*2^k}"
+        r_cap = 20480 if five else 4096
+        C = 1024
+        while n // C > r_cap and C < 8192:
+            C *= 2
+        R = n // C
+        if not five and R > r_cap:
+            r_cap = 8192
+        assert 4 <= R <= r_cap, \
+            f"transform out of range for the four-step path (n={n})"
+        return cls(p=plan.p, n=n, R=R, C=C, rs=make_split(R),
+                   cs=make_split(C), widths=plan.widths,
+                   max_word=plan.max_word)
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return (self.rs.L1, self.rs.L2, self.C)
+
+    @property
+    def ca_count(self) -> int:
+        return self.C // LANES
+
+
+# Shape predicates of the JAX pipeline (kernels.py:936-977), without its
+# env overrides: the port covers exactly the branch they select here.
+
+R2FOLD_MAX = 1 << 19     # kernels.py:933 default
+CARRY_MAX = 1 << 21      # kernels.py:952 default
+
+
+def use_r2fold(fp: FourStepPlan) -> bool:
+    return fp.rs.L2 * fp.C <= R2FOLD_MAX
+
+
+def fc_split(fp: FourStepPlan) -> bool:
+    return fp.C // LANES > 32
+
+
+def carry_ct(fp: FourStepPlan) -> int:
+    S = 8 if fp.rs.L2 % 8 == 0 else fp.rs.L2
+    ct = fp.C
+    while fp.rs.L1 * S * ct > CARRY_MAX and ct % 256 == 0 and ct > 256:
+        ct //= 2
+    return ct
+
+
+def carry_tiles(fp: FourStepPlan) -> int:
+    return fp.C // carry_ct(fp)
+
+
+def carry_rounds(fp: FourStepPlan) -> int:
+    """Lane-ripple rounds of the carry phase (kernels.py:681)."""
+    wmin = int(fp.widths.min())
+    rounds = 1
+    bound = fp.max_word * 4
+    while bound >> (rounds * wmin) > (1 << max(wmin - 1, 1)):
+        rounds += 1
+    return max(rounds, 2)
+
+
+def cin_row_k(fp: FourStepPlan) -> int:
+    """Spread parts per row: the smallest k whose leading k digit widths
+    cover >= 64 bits in every row (kernels.py:690, one carry unit = one
+    row)."""
+    wmat = fp.widths.reshape(fp.R, fp.C).astype(np.int64)
+    k = 1
+    while int(wmat[:, :k].sum(axis=1).min()) < 64:
+        k += 1
+    return k
+
+
+def row_cin_plan(fp: FourStepPlan):
+    """(k, wt, cum): per-row spread widths and bit offsets, (R1, R2, k)
+    u32 (kernels.py:702, T == 1)."""
+    k = cin_row_k(fp)
+    wmat = fp.widths.reshape(fp.R, fp.C).astype(np.int64)
+    wt = wmat[:, :k].astype(np.uint32)
+    cum = np.zeros((fp.R, k), dtype=np.uint32)
+    cum[:, 1:] = np.cumsum(wt[:, :-1], axis=1)
+    sh = (fp.rs.L1, fp.rs.L2, k)
+    return k, wt.reshape(sh), cum.reshape(sh)
+
+
+# ---------------------------------------------------------------------------
+# DFT matrices
+# ---------------------------------------------------------------------------
+
+def dft_matrix(L: int, inverse: bool) -> np.ndarray:
+    """(L, L) u64 power-of-two DFT matrix in the DIF order of
+    fourstep.dft_axis0 (mxu_dft.py:53-92, closed form). Forward: output
+    position k holds frequency freq(k), M[k][j] = w^(freq(k) * j).
+    Inverse (mirrored DIT, consumes the forward order, natural out):
+    M[k][j] = w^(-k * freq(j))."""
+    assert L & (L - 1) == 0, "power-of-two DFT lengths only"
+    freq = dif_freq_of_pos(L)
+    w = root_554(L)
+    if inverse:
+        w = field.inv(w)
+    pw = pow_table(w, L)
+    k = np.arange(L, dtype=np.int64)
+    if not inverse:
+        e = (freq[:, None] * k[None, :]) % L
+    else:
+        e = (k[:, None] * freq[None, :]) % L
+    return pw[e]
+
+
+# ---------------------------------------------------------------------------
+# Tables
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class FourStepTables:
+    """Base tables (fourstep.py:230-303, numpy only): the R-pass T layer
+    t_r / t_r_inv (R1, R2) and the mid layer mid / mid_inv (R1, R2, C)."""
+    fp: FourStepPlan
+    t_r: np.ndarray
+    t_r_inv: np.ndarray
+    mid: np.ndarray
+    mid_inv: np.ndarray
+
+    @classmethod
+    def build(cls, fp: FourStepPlan):
+        n, R, C = fp.n, fp.R, fp.C
+        R1, R2 = fp.rs.L1, fp.rs.L2
+        wR = root_554(R)
+        f1 = np.asarray(fp.rs.freq1, dtype=np.int64)
+        r2 = np.arange(R2, dtype=np.int64)
+        e_tr = (f1[:, None] * r2[None, :]) % R
+        pr = pow_table(wR, R)
+        t_r = pr[e_tr]
+        t_r_inv = pr[(-e_tr) % R]
+        # mid: omega_n^(c * kR(r)); one power table of omega_n, gathered
+        kR = np.asarray(fp.rs.freq.reshape(R), dtype=np.int64)
+        c = np.arange(C, dtype=np.int64)
+        e_mid = ((kR[:, None] % n) * c[None, :]) % n
+        pn = pow_table(root_554(n), n)
+        mid = pn[e_mid].reshape(R1, R2, C)
+        mid_inv = pn[(-e_mid) % n].reshape(R1, R2, C)
+        return cls(fp=fp, t_r=t_r, t_r_inv=t_r_inv, mid=mid,
+                   mid_inv=mid_inv)
+
+
+@dataclasses.dataclass(eq=False)
+class KernelTables:
+    """Everything the port's K1-K3 read (see the module docstring)."""
+    fp: FourStepPlan
+    k1_mats: np.ndarray
+    g2: np.ndarray
+    mf: np.ndarray
+    mi: np.ndarray
+    lane_f: np.ndarray
+    lane_i: np.ndarray
+    Mf: np.ndarray
+    Mi: np.ndarray
+    tri: np.ndarray
+    k3_mats: np.ndarray
+    er: np.ndarray
+    ec: np.ndarray
+    wt: np.ndarray
+    cum: np.ndarray
+    widths: np.ndarray
+    k: int
+    rounds: int
+
+
+def _fold_rows(M: np.ndarray, row_scale: np.ndarray,
+               col_scale: np.ndarray | None = None) -> np.ndarray:
+    """Variants diag(row_scale[v]) @ M @ diag(col_scale[v]):
+    (V, L) scales -> (V, L, L) (mxu_dft.build_mxu_tables' fold)."""
+    Mk = mulmod(row_scale[:, :, None], M[None])
+    if col_scale is not None:
+        Mk = mulmod(Mk, col_scale[:, None, :])
+    return Mk
+
+
+def fused_c_mats(fp: FourStepPlan):
+    """Per-slot right-side matrices Mf/Mi (ca, 128, 128), out[b, k] =
+    sum_l x[b, l] * M[l, k], and the per-column folds of the mids
+    (fourstep.py:602-722 before the int8 split)."""
+    n, C = fp.n, fp.C
+    ca = fp.ca_count
+    assert C % LANES == 0 and 2 <= ca <= 64 and ca & (ca - 1) == 0, \
+        f"no fused C-transform for C={C}"
+    pn = fp.p % n
+    wC = root_554(C)
+    nr2 = field.root_two_nth(n)
+    nr2i = field.inv(nr2)
+    wpow = pow_table(wC, C)
+    wipow = pow_table(field.inv(wC), C)
+    ecl = np.array([(-pn * ll) % n for ll in range(LANES)], dtype=np.int64)
+    eca = np.array([(-pn * LANES * j) % n for j in range(ca)],
+                   dtype=np.int64)
+    wcl = powv(nr2, ecl)
+    iwcl = powv(nr2i, ecl)
+    freqs = dif_freq_of_pos(ca)
+    ll = np.arange(LANES, dtype=np.int64)
+    Mf = np.empty((ca, LANES, LANES), dtype=np.uint64)
+    Mi = np.empty((ca, LANES, LANES), dtype=np.uint64)
+    for j in range(ca):
+        kl = int(freqs[j])
+        e = (ll[:, None] * (kl + ca * ll[None, :])) % C
+        Mf[j] = mulmod(wpow[e], wcl[:, None])
+        ei = (ll[None, :] * (kl + ca * ll[:, None])) % C
+        Mi[j] = mulmod(wipow[ei], iwcl[None, :])
+    # the root-of-2 wrap between the ca / lane exponent parts, folded
+    # into the mids as 1/2 (forward) and 2 (inverse)
+    wrap = (np.repeat(eca, LANES) + np.tile(ecl, ca)) >= n
+    wfac = np.where(wrap, np.uint64(field.inv(2)), np.uint64(1))
+    ifac = np.where(wrap, np.uint64(2), np.uint64(1))
+    wca_c = mulmod(np.repeat(powv(nr2, eca), LANES), wfac)
+    iwca_c = mulmod(np.repeat(powv(nr2i, eca), LANES), ifac)
+    return Mf, Mi, wca_c, iwca_c
+
+
+def build_tables(fp: FourStepPlan) -> KernelTables:
+    """All of the port's kernel tables for one plan (numpy, host)."""
+    assert fp.rs.L1 >= 32, "weight folds need rs.L1 >= 32"
+    assert fp.rs.L2 & (fp.rs.L2 - 1) == 0, "power-of-two R2 only"
+    assert int(fp.widths.max()) < 32, "digit widths must fit one u32 word"
+    base = FourStepTables.build(fp)
+    n, R, C = fp.n, fp.R, fp.C
+    R1, R2 = fp.rs.L1, fp.rs.L2
+    pn = fp.p % n
+
+    # IBDWT weight r-part: w(r*C + c) = wr(r) * wc(c) * 2^-k, k the wrap
+    er = np.array([(-pn * r * C) % n for r in range(R)], dtype=np.int64)
+    ec = np.array([(-pn * c) % n for c in range(C)], dtype=np.int64)
+    nr2 = field.root_two_nth(n)
+    wr = powv(nr2, er)
+    iwr = mulmod(powv(field.inv(nr2), er), np.uint64(field.inv(n)))
+
+    d1f = dft_matrix(R1, False)
+    d1i = dft_matrix(R1, True)
+    k1_mats = _fold_rows(d1f, base.t_r.T.copy(),
+                         wr.reshape(R1, R2).T.copy())
+    k3_mats = _fold_rows(d1i, iwr.reshape(R1, R2).T.copy())
+    g2 = dft_matrix(R2, False)
+    tri = _fold_rows(dft_matrix(R2, True), base.t_r_inv)
+
+    Mf, Mi, wca_c, iwca_c = fused_c_mats(fp)
+    mf = mulmod(base.mid, wca_c.reshape(1, 1, C))
+    mi = mulmod(base.mid_inv, iwca_c.reshape(1, 1, C))
+
+    k, wt, cum = row_cin_plan(fp)
+    return KernelTables(
+        fp=fp, k1_mats=k1_mats, g2=g2, mf=mf, mi=mi,
+        lane_f=dft_matrix(fp.ca_count, False),
+        lane_i=dft_matrix(fp.ca_count, True),
+        Mf=Mf, Mi=Mi, tri=tri, k3_mats=k3_mats,
+        er=er.reshape(R1, R2).astype(np.uint32),
+        ec=ec.astype(np.uint32),
+        wt=wt, cum=cum,
+        widths=fp.widths.reshape(R1, R2, C).astype(np.uint32),
+        k=k, rounds=carry_rounds(fp))

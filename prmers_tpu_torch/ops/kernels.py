@@ -1,0 +1,364 @@
+"""The three kernels of one squaring: wrappers, plain versions, counters.
+
+Counterpart of prmers_tpu/ops/pallas/kernels.py on its row-carry branch
+(:474-916, :1164-1308, :1665-1743). A register is one int64 tensor
+(R1, R2, C) holding u64 bit patterns (digits, or lazy values mod P between
+kernels); the carry state is one int64 tensor (R1, R2): the out-carry of
+each row, NOT yet rolled (the JAX keeps (R1, R2, 128) u32 pairs with the
+value in lane 0; convert.py maps between them).
+
+Each wrapper takes its plain torch version for a CPU tensor, and launches
+its CUDA kernel (csrc/, ops/build.py) for a CUDA tensor; there is no other
+branch. `calls` counts, per wrapper, the calls that launched its CUDA
+kernel: one per call, however many grid launches the kernel takes (K1
+one; K2 three, two in mode "fwd"; K3 two).
+
+  K1 p1_carry_pass  csrc/k1_p1c.cu     carry inject, wrap halve, r1 DFT
+  K2 fused_c_pass   csrc/k2_fused_c.cu r2 DFT x mf, C-transform with the
+                                       mode (sqr/mul/fwd), mirror
+  K3 p7_carry_pass  csrc/k3_p7c.cu     r1 inverse DFT, double, canon,
+                                       x a or + (M_p - 2), carry
+
+All three may run in place (out is x): each CUDA block reads the elements
+it writes before writing them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import build
+from . import gl64 as gl
+from .fourstep import KernelTables
+
+KERNELS = ("k1_p1c", "k2_fused_c", "k3_p7c")
+SOURCES = {
+    "k1_p1c": "prmers_tpu_torch/csrc/k1_p1c.cu",
+    "k2_fused_c": "prmers_tpu_torch/csrc/k2_fused_c.cu",
+    "k3_p7c": "prmers_tpu_torch/csrc/k3_p7c.cu",
+}
+REPLACES = {
+    "k1_p1c": "prmers_tpu/ops/pallas/kernels.py:512",
+    "k2_fused_c": "prmers_tpu/ops/pallas/kernels.py:991",
+    "k3_p7c": "prmers_tpu/ops/pallas/kernels.py:612",
+}
+calls = {name: 0 for name in KERNELS}
+
+MODES = {"sqr": 0, "mul": 1, "fwd": 2}
+
+
+def reset_calls() -> None:
+    for name in KERNELS:
+        calls[name] = 0
+
+
+@dataclasses.dataclass(eq=False)
+class DevTables:
+    """The kernel tables on one device: u64 matrices and mids as int64 bit
+    patterns, residues and widths as int32."""
+    fp: object
+    k1_mats: torch.Tensor
+    g2: torch.Tensor
+    mf: torch.Tensor
+    mi: torch.Tensor
+    lane_f: torch.Tensor
+    lane_i: torch.Tensor
+    Mf: torch.Tensor
+    Mi: torch.Tensor
+    tri: torch.Tensor
+    k3_mats: torch.Tensor
+    er: torch.Tensor
+    ec: torch.Tensor
+    wt: torch.Tensor
+    cum: torch.Tensor
+    widths: torch.Tensor
+    k: int
+    rounds: int
+
+    @classmethod
+    def from_host(cls, kt: KernelTables, device) -> "DevTables":
+        def u64(a):
+            return gl.from_numpy_u64(a, device)
+
+        def i32(a):
+            return torch.from_numpy(a.astype("int32")).to(device)
+
+        return cls(fp=kt.fp, k1_mats=u64(kt.k1_mats), g2=u64(kt.g2),
+                   mf=u64(kt.mf), mi=u64(kt.mi), lane_f=u64(kt.lane_f),
+                   lane_i=u64(kt.lane_i), Mf=u64(kt.Mf), Mi=u64(kt.Mi),
+                   tri=u64(kt.tri), k3_mats=u64(kt.k3_mats), er=i32(kt.er),
+                   ec=i32(kt.ec), wt=i32(kt.wt), cum=i32(kt.cum),
+                   widths=i32(kt.widths), k=kt.k, rounds=kt.rounds)
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return tuple(self.mf.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.mf.device
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return False
+
+
+def _check(t: DevTables, regs=(), carries=()) -> None:
+    """Registers must be (R1, R2, C) and carries (R1, R2), all contiguous
+    int64 on the tables' device: the kernels index them from the shape."""
+    for shape, tensors in ((t.shape, regs), (t.shape[:2], carries)):
+        for x in tensors:
+            if x is None:
+                continue
+            if x.dtype != torch.int64 or not x.is_contiguous() or \
+                    x.device != t.device or tuple(x.shape) != shape:
+                raise ValueError(
+                    f"kernel operand must be contiguous int64 {shape} on "
+                    f"{t.device} (got {x.dtype} {tuple(x.shape)} on "
+                    f"{x.device})")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _wrap_mask(t: DevTables) -> torch.Tensor:
+    """(R1, R2, C) bool: er + ec >= n (the weight's root-of-2 wrap)."""
+    R1, R2, C = t.shape
+    er = t.er.to(torch.int64).reshape(R1, R2, 1)
+    ec = t.ec.to(torch.int64).reshape(1, 1, C)
+    return (er + ec) >= t.fp.n
+
+
+def roll_row_carries(co: torch.Tensor) -> torch.Tensor:
+    """Roll the per-row carries by one flat row: row f receives row f-1's
+    carry, row 0 the last row's (the mod-M_p fold); kernels.py:889."""
+    return torch.roll(co.reshape(-1), 1).reshape(co.shape)
+
+
+# ---------------------------------------------------------------------------
+# K1
+# ---------------------------------------------------------------------------
+
+def inject_parts(t: DevTables, cin: torch.Tensor) -> torch.Tensor:
+    """Each row's incoming carry (already rolled) spread base-2^width over
+    its first k digits: (R1, R2, k) parts < 2^32 (kernels.py:474)."""
+    c0, c1 = gl.split(cin.unsqueeze(-1))
+    cm = t.cum.to(torch.int64)
+    w = t.wt.to(torch.int64)
+    lo_sh = torch.clamp(cm, max=31)
+    hi_sh = torch.clamp(cm - 32, min=0, max=31)
+    lo_part = ((c0 >> lo_sh) | (c1 << (32 - lo_sh))) & gl.M32
+    part = torch.where(cm < 32, lo_part, c1 >> hi_sh)
+    part = torch.where(cm >= 64, 0, part)
+    masked = part & ((1 << w) - 1)
+    last = torch.zeros_like(part, dtype=torch.bool)
+    last[..., -1] = True
+    return torch.where(last, part, masked)
+
+
+def p1_carry_plain(t: DevTables, x: torch.Tensor,
+                   co: torch.Tensor) -> torch.Tensor:
+    """Plain K1: inject the rolled row carries, halve where wrapped, then
+    the per-r2 folded r1 DFT."""
+    k = t.k
+    parts = inject_parts(t, roll_row_carries(co))
+    head = x[..., :k] + parts           # digits < 2^32: no u64 wrap
+    y = torch.cat([head, x[..., k:]], dim=-1)
+    y = gl.join(*gl.halve_where(*gl.split(y), _wrap_mask(t)))
+    # out[k1, r2, c] = sum_j k1_mats[r2][k1][j] * y[j, r2, c]
+    out = gl.matmul_mod(t.k1_mats, y.permute(1, 0, 2))
+    return out.permute(1, 0, 2).contiguous()
+
+
+def p1_carry_pass(t: DevTables, x: torch.Tensor, co: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """K1 on register x with the previous step's (unrolled) carries co."""
+    _check(t, (x, out), (co,))
+    if _on_cpu(x):
+        r = p1_carry_plain(t, x, co)
+        return r if out is None else out.copy_(r)
+    R1, R2, C = t.shape
+    if out is None:
+        out = torch.empty_like(x)
+    err = build.lib().prmers_k1_p1c(
+        x.data_ptr(), out.data_ptr(), co.data_ptr(), t.wt.data_ptr(),
+        t.cum.data_ptr(), t.k, t.er.data_ptr(), t.ec.data_ptr(), t.fp.n,
+        t.k1_mats.data_ptr(), R1, R2, C, _stream())
+    calls["k1_p1c"] += 1
+    build.check(err, "k1_p1c")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2
+# ---------------------------------------------------------------------------
+
+def _slot_mat(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """v (R, ca, 128): out[b, j, k] = sum_l v[b, j, l] * M[j][l][k]."""
+    return gl.matmul_mod(v.permute(1, 0, 2), M).permute(1, 0, 2)
+
+
+def fused_c_plain(t: DevTables, x: torch.Tensor, mode: str,
+                  u: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain K2 (r2fold form): r2 DFT x mf, lane DFT, slot products, the
+    mode, and (unless "fwd") the mirror back through the r2 inverse."""
+    R1, R2, C = t.shape
+    R = R1 * R2
+    ca = C // 128
+    y = gl.mulmod(gl.matmul_mod(t.g2, x), t.mf)
+    v = gl.matmul_mod(t.lane_f, y.reshape(R, ca, 128))
+    v = _slot_mat(v, t.Mf)
+    if mode == "fwd":
+        return v.reshape(R1, R2, C).contiguous()
+    if mode == "sqr":
+        v = gl.mulmod(v, v)
+    elif mode == "mul":
+        v = gl.mulmod(v, u.reshape(R, ca, 128))
+    else:
+        raise ValueError(mode)
+    v = gl.matmul_mod(t.lane_i, _slot_mat(v, t.Mi))
+    y = gl.mulmod(v.reshape(R1, R2, C), t.mi)
+    return gl.matmul_mod(t.tri, y).contiguous()
+
+
+def fused_c_pass(t: DevTables, x: torch.Tensor, mode: str,
+                 u: torch.Tensor | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """K2 on the K1 output; mode "sqr", "mul" (u = spectral multiplicand)
+    or "fwd" (stop after the forward C-transform)."""
+    if mode not in MODES:
+        raise ValueError(mode)
+    if (mode == "mul") != (u is not None):
+        raise ValueError("u is the operand of mode 'mul' only")
+    _check(t, (x, u, out))
+    if _on_cpu(x):
+        r = fused_c_plain(t, x, mode, u)
+        return r if out is None else out.copy_(r)
+    R1, R2, C = t.shape
+    if out is None:
+        out = torch.empty_like(x)
+    err = build.lib().prmers_k2_fused_c(
+        x.data_ptr(), out.data_ptr(), u.data_ptr() if u is not None else None,
+        MODES[mode], t.g2.data_ptr(), t.mf.data_ptr(), t.lane_f.data_ptr(),
+        t.lane_i.data_ptr(), t.Mf.data_ptr(), t.Mi.data_ptr(),
+        t.mi.data_ptr(), t.tri.data_ptr(), R1, R2, C, _stream())
+    calls["k2_fused_c"] += 1
+    build.check(err, "k2_fused_c")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3
+# ---------------------------------------------------------------------------
+
+def p7_dft_plain(t: DevTables, x: torch.Tensor, a: int = 1) -> torch.Tensor:
+    """K3's first half: per-r2 folded r1 inverse DFT, double where
+    wrapped, canon, optional x a and canon. Canonical out."""
+    y = gl.matmul_mod(t.k3_mats, x.permute(1, 0, 2)).permute(1, 0, 2)
+    y0, y1 = gl.canon(*gl.double_where(*gl.split(y), _wrap_mask(t)))
+    if a != 1:
+        y0, y1 = gl.canon(*gl.mul_small(y0, y1, a))
+    return gl.join(y0, y1)
+
+
+def carry_plain(t: DevTables, y: torch.Tensor, sub2: bool = False,
+                s2: int = 2):
+    """K3's second half on canonical y: optional + (M_p - s2), the
+    digit/carry split, the lane-ripple rounds, the residual added unsplit;
+    returns (digits, row out-carries) (kernels.py:562-609, :655-667)."""
+    R1, R2, C = t.shape
+    w = t.widths.to(torch.int64)
+    mk = (1 << w) - 1
+    y0, y1 = gl.split(y)
+    if sub2:
+        add = mk.clone()
+        add.view(-1)[0] -= s2
+        y0, y1 = gl.norm(y0 + add, y1)   # y < P, so y + add < 2^64: exact
+    d = y0 & mk
+    # y >> w with w in [1, 32): < 2^(64-w), a non-negative int64
+    c = gl.join(((y0 >> w) | (y1 << (32 - w))) & gl.M32, y1 >> w)
+    acc = torch.zeros((R1, R2), dtype=torch.int64, device=y.device)
+
+    def shift(c):
+        sh = torch.zeros_like(c)
+        sh[..., 1:] = c[..., :-1]
+        return sh, c[..., -1]
+
+    for _ in range(t.rounds):
+        sh, out = shift(c)
+        acc = acc + out
+        yy = d + sh
+        d = yy & mk
+        c = yy >> w
+    sh, out = shift(c)
+    acc = acc + out
+    d = (d + (sh & gl.M32)) & gl.M32
+    return d, acc
+
+
+def p7_carry_plain(t: DevTables, x: torch.Tensor, a: int = 1,
+                   sub2: bool = False):
+    return carry_plain(t, p7_dft_plain(t, x, a), sub2)
+
+
+def p7_carry_pass(t: DevTables, x: torch.Tensor, a: int = 1,
+                  sub2: bool = False, out: torch.Tensor | None = None,
+                  co_out: torch.Tensor | None = None):
+    """K3 on the K2 output: returns (digits, out-carries (R1, R2))."""
+    if sub2 and a != 1:
+        raise ValueError("the LL sub2 step never rides the x a path")
+    if not 0 < a < (1 << 32):
+        raise ValueError(f"multiplier a={a} must be in [1, 2^32)")
+    _check(t, (x, out), (co_out,))
+    if _on_cpu(x):
+        d, co = p7_carry_plain(t, x, a, sub2)
+        if out is not None:
+            d = out.copy_(d)
+        if co_out is not None:
+            co = co_out.copy_(co)
+        return d, co
+    R1, R2, C = t.shape
+    if out is None:
+        out = torch.empty_like(x)
+    if co_out is None:
+        co_out = torch.empty((R1, R2), dtype=torch.int64, device=x.device)
+    err = build.lib().prmers_k3_p7c(
+        x.data_ptr(), out.data_ptr(), co_out.data_ptr(),
+        t.k3_mats.data_ptr(), t.er.data_ptr(), t.ec.data_ptr(), t.fp.n,
+        t.widths.data_ptr(), t.rounds, a, int(a != 1), int(sub2), 2,
+        R1, R2, C, _stream())
+    calls["k3_p7c"] += 1
+    build.check(err, "k3_p7c")
+    return out, co_out
+
+
+# ---------------------------------------------------------------------------
+# Steps (kernels.py:1665-1743, row-carry branch)
+# ---------------------------------------------------------------------------
+
+def square_step(t: DevTables, x, co, a: int = 1, sub2: bool = False,
+                out=None, co_out=None):
+    """One x^2 * a (or x^2 - 2 with sub2) iteration; returns (x, co)."""
+    s = p1_carry_pass(t, x, co, out=out)
+    s = fused_c_pass(t, s, "sqr", out=s)
+    return p7_carry_pass(t, s, a, sub2, out=s, co_out=co_out)
+
+
+def mul_step(t: DevTables, x, co, u, a: int = 1, out=None, co_out=None):
+    """x * multiplicand(u) * a; u is fwd_step's spectral output."""
+    s = p1_carry_pass(t, x, co, out=out)
+    s = fused_c_pass(t, s, "mul", u=u, out=s)
+    return p7_carry_pass(t, s, a, out=s, co_out=co_out)
+
+
+def fwd_step(t: DevTables, x, co, out=None):
+    """Forward transform only: the spectral multiplicand of (x, co)."""
+    s = p1_carry_pass(t, x, co, out=out)
+    return fused_c_pass(t, s, "fwd", out=s)

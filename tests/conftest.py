@@ -34,6 +34,8 @@ def pytest_configure(config):
         "markers",
         "heavy: multi-minute compile/e2e tests (--run-heavy; "
         "make test-heavy). The default tier is the <5-min smoke suite.")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips where there is none")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,190 @@
+"""FourStepEngine (prmers_tpu_torch) on the CPU against big-int and the
+JAX PallasEngine (Pallas interpret mode, PRMERS_NO_CHAIN=1 so the JAX side
+runs the same three-kernel pipeline per step), at n = 2^15.
+
+Covers the Gerbicz-block op sequence of tests/test_pallas_engine.py:44-60,
+LL square_sub2_seq steps, the linear ops, copy aliasing, and checkpoints
+crossing between the two engines in both directions (spectral
+multiplicands included).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from prmers_tpu.core.plan import build_plan
+from prmers_tpu.utils import gmp
+from prmers_tpu_torch.engine.fourstep_engine import FourStepEngine
+
+N = 1 << 15
+P_EXP = int(N * 16.5) | 1
+MP = (1 << P_EXP) - 1
+
+
+def _port():
+    return FourStepEngine(P_EXP, 8, plan=build_plan(P_EXP, n=N),
+                          device="cpu")
+
+
+@pytest.fixture(scope="module")
+def port():
+    return _port()
+
+
+@pytest.fixture(scope="module")
+def jax_eng():
+    saved = {k: os.environ.get(k) for k in
+             ("PRMERS_PALLAS_INTERPRET", "PRMERS_NO_CHAIN")}
+    os.environ["PRMERS_PALLAS_INTERPRET"] = "1"
+    os.environ["PRMERS_NO_CHAIN"] = "1"
+    from prmers_tpu.engine.pallas_engine import PallasEngine
+    e = PallasEngine(P_EXP, 8, plan=build_plan(P_EXP, n=N))
+    assert not e._chain and e._rc
+    yield e
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def test_copy_never_aliases(port):
+    port.set(0, 3)
+    port.copy(3, 0)
+    a, b = port.regs[0], port.regs[3]
+    ptrs = {a[0].data_ptr(), a[1].data_ptr()}
+    assert not ptrs & {b[0].data_ptr(), b[1].data_ptr()}
+    port.square_mul(0)
+    assert port.get_int(3) == 3 and port.get_int(0) == 9
+
+
+def test_gerbicz_block_sequence_bigint(port):
+    """tests/test_pallas_engine.py:44-60 on the port."""
+    B = 24
+    e = port
+    e.set(0, 3)
+    e.set(1, 3)
+    e.square_mul_seq(0, [1] * B)
+    e.copy(3, 1)
+    e.set_multiplicand(2, 0)
+    e.mul(1, 2)
+    e.square_mul_seq(3, [1] * (B - 1))
+    e.square_mul(3, 3)
+    assert e.get_int(3) % MP == gmp.powmod(3, (1 << B) + 1, MP)
+    assert e.get_int(1) % MP == 3 * gmp.powmod(3, 1 << B, MP) % MP
+    e.copy(4, 0)
+    e.square_mul(0, 1)
+    assert e.get_int(4) % MP == gmp.powmod(3, 1 << B, MP)
+    assert e.get_int(0) % MP == gmp.powmod(3, 1 << (B + 1), MP)
+
+
+def test_linear_ops_and_ll_bigint(port):
+    e = port
+    e.set(5, 4)
+    e.square_sub2_seq(5, 6)
+    v = 4
+    for _ in range(6):
+        v = (v * v - 2) % MP
+    assert e.get_int(5) == v
+    e.set(6, 12345)
+    e.sub(6, 12346)                       # a saturated all-ones ripple
+    assert e.get_int(6) == MP - 1
+    assert e.digit_equal_to_mp(6) is False
+    e.add(6, 5)
+    assert e.get_int(6) == (v - 1) % MP
+    e.sub_reg(6, 5)
+    assert e.get_int(6) == MP - 1
+    e.add_small(6, 1)                     # M_p: the all-ones digits
+    assert e.get_int(6) == 0 and e.digit_equal_to_mp(6)
+
+
+def test_matches_pallas_engine(port, jax_eng):
+    """The same op mix on both engines: equal values, equal to big-int,
+    and multiplicands equal mod P."""
+    rng = np.random.default_rng(31)
+    v = int.from_bytes(rng.bytes(P_EXP // 8), "little") % MP
+    for e in (port, jax_eng):
+        e.set(0, 3)
+        e.set(1, v)
+        e.square_mul_seq(0, [1] * 3)
+        e.set_multiplicand(2, 0)
+        e.mul(1, 2)
+        e.set(5, v)
+        e.square_sub2_seq(5, 2)
+    x0 = gmp.powmod(3, 8, MP)
+    assert port.get_int(0) == jax_eng.get_int(0) == x0
+    assert port.get_int(1) == jax_eng.get_int(1) == v * x0 % MP
+    ll = v
+    for _ in range(2):
+        ll = (ll * ll - 2) % MP
+    assert port.get_int(5) == jax_eng.get_int(5) == ll
+    GP = (1 << 64) - (1 << 32) + 1
+    pu, ps = port.get_raw_tagged(2)
+    ju, js = jax_eng.get_raw_tagged(2)
+    assert ps and js
+    assert (pu % np.uint64(GP) == ju % np.uint64(GP)).all()
+
+
+def test_checkpoints_cross_both_ways(port, jax_eng):
+    """port.get_checkpoint -> PallasEngine.set_checkpoint and back: every
+    register's value, and a carried multiplicand still multiplies."""
+    e = _port()
+    rng = np.random.default_rng(37)
+    vals = [int.from_bytes(rng.bytes(P_EXP // 8), "little") % MP
+            for _ in range(8)]
+    for r, v in enumerate(vals):
+        e.set(r, v)
+    e.square_mul(4)                     # leaves pending row carries
+    vals[4] = vals[4] * vals[4] % MP
+    e.set_multiplicand(7, 6)            # a spectral register
+    jax_eng.set_checkpoint(e.get_checkpoint())
+    for r in range(7):
+        assert jax_eng.get_int(r) == vals[r], r
+    jax_eng.mul(0, 7)
+    assert jax_eng.get_int(0) == vals[0] * vals[6] % MP
+
+    jax_eng.set(1, 5)
+    jax_eng.set_multiplicand(3, 2)
+    f = _port()
+    f.set_checkpoint(jax_eng.get_checkpoint())
+    assert f.get_int(0) == vals[0] * vals[6] % MP
+    assert f.get_int(1) == 5
+    assert f.regs[3][2] and f.regs[7][2]
+    f.mul(1, 3)
+    assert f.get_int(1) == 5 * vals[2] % MP
+    f.mul(1, 7)
+    assert f.get_int(1) == 5 * vals[2] * vals[6] % MP
+
+
+def test_factory_raises_on_uncovered_shapes():
+    from prmers_tpu_torch.engine.factory import create_engine
+    with pytest.raises(NotImplementedError):
+        create_engine(9941, 2, device="cpu")        # n < 2^15
+    with pytest.raises(NotImplementedError):
+        FourStepEngine(P_EXP, 2, plan=build_plan(P_EXP, n=5 << 14),
+                       device="cpu")
+
+
+def test_cli_refuses_what_is_not_ported():
+    from prmers_tpu.io.cli import parse_args
+    from prmers_tpu_torch import app
+    with pytest.raises(SystemExit, match="-noproof"):
+        app.run(parse_args([str(P_EXP)]), device="cpu")
+    with pytest.raises(SystemExit, match="not yet ported"):
+        app.run(parse_args([str(P_EXP), "-pm1", "-b1", "100"]),
+                device="cpu")
+
+
+def test_default_device_is_cuda():
+    """No silent CPU fallback: without a card and without device='cpu'
+    the port raises."""
+    from prmers_tpu_torch import torchconf
+    if torch.cuda.is_available():
+        assert torchconf.device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            torchconf.device()
+        with pytest.raises(RuntimeError):
+            FourStepEngine(P_EXP, 2, plan=build_plan(P_EXP, n=N))

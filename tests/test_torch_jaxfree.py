@@ -1,0 +1,70 @@
+"""The port never imports jax: in a fresh interpreter (tests/conftest.py
+imports jax into this one), importing every module of prmers_tpu_torch
+(the shared host modules of prmers_tpu/ with them, through
+prmers_tpu_torch/host.py) and running one CPU squaring through the engine
+leaves jax out of sys.modules. The machine with the CUDA card has no jax
+at all."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import pkgutil, importlib, sys
+import prmers_tpu_torch
+for m in pkgutil.walk_packages(prmers_tpu_torch.__path__, "prmers_tpu_torch."):
+    if m.name.endswith("__main__"):
+        continue
+    importlib.import_module(m.name)
+from prmers_tpu.core.plan import build_plan
+from prmers_tpu_torch.engine.fourstep_engine import FourStepEngine
+p, n = 540673, 1 << 15
+e = FourStepEngine(p, 2, plan=build_plan(p, n=n), device="cpu")
+e.set(0, 3)
+e.square_mul(0)
+assert e.get_int(0) == 9
+bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
+print("JAXMODS", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "JAXMODS []" in r.stdout, r.stdout
+
+
+def _sources():
+    """(path, stripped line) of every line of the port and chip_smoke.py."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _dirs, files in os.walk(os.path.join(ROOT,
+                                                      "prmers_tpu_torch")):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    for path in sorted(paths):
+        with open(path) as fh:
+            for line in fh:
+                yield os.path.relpath(path, ROOT), line.strip()
+
+
+def test_no_jax_import_in_sources():
+    for f, s in _sources():
+        assert not (s.startswith(("import jax", "from jax"))
+                    or "import jax" in s), (f, s)
+
+
+def test_jax_package_reached_only_through_host():
+    """prmers_tpu_torch/host.py is the one list of shared host modules:
+    no other module of the port, and not chip_smoke.py, imports from
+    prmers_tpu directly."""
+    for f, s in _sources():
+        if f == os.path.join("prmers_tpu_torch", "host.py"):
+            continue
+        assert not s.startswith(("from prmers_tpu.", "from prmers_tpu ",
+                                 "import prmers_tpu.",
+                                 "import prmers_tpu ")), (f, s)

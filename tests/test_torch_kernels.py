@@ -1,0 +1,254 @@
+"""The port's K1-K3 (prmers_tpu_torch.ops.kernels) against the JAX
+package's Pallas kernels in interpret mode, on the CPU.
+
+At n = 2^15 (p = 540673, as tests/test_pallas_rowcarry.py) each plain
+kernel takes the same numpy-seeded inputs as p1_carry_pass /
+fused_c_pass(r2fold=True) / p7_carry_pass: K1 and K2 must agree mod P
+(both sides are lazy), K3 exactly on digits and carry values. At n = 2^18
+(L2 = 4, so the r2 DFT is not trivial) the port's pre-carry pipeline must
+equal fourstep.square_ref. A CUDA twin compares each kernel with its plain
+version on the card and skips on a machine without one.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from prmers_tpu.core.plan import build_plan
+from prmers_tpu.utils import digits as dg
+from prmers_tpu_torch import convert
+from prmers_tpu_torch.ops import fourstep as tfs
+from prmers_tpu_torch.ops import gl64 as tgl
+from prmers_tpu_torch.ops import kernels as tk
+
+N = 1 << 15
+P_EXP = int(N * 16.5) | 1
+GP = (1 << 64) - (1 << 32) + 1
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    saved = {k: os.environ.get(k) for k in
+             ("PRMERS_PALLAS_INTERPRET", "PRMERS_NO_CHAIN")}
+    os.environ["PRMERS_PALLAS_INTERPRET"] = "1"
+    os.environ["PRMERS_NO_CHAIN"] = "1"
+    import jax.numpy as jnp
+    from prmers_tpu.ops.pallas import fourstep as fs
+    from prmers_tpu.ops.pallas import kernels as kn
+    plan = build_plan(P_EXP, n=N)
+    fp = fs.FourStepPlan.from_plan(plan)
+    tbl = fs.FourStepTables.build(fp, jnp, G=8, lanes=128)
+    fs.attach_mxu_tables(tbl)
+    fs.attach_fused_c_tables(tbl)
+    kn.attach_cinrow(tbl)
+    assert kn.use_rowcarry(fp, tbl) and kn.use_r2fold(fp)
+    yield plan, fp, tbl, kn
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+@pytest.fixture(scope="module")
+def port():
+    plan = build_plan(P_EXP, n=N)
+    fp = tfs.FourStepPlan.from_plan(plan)
+    return plan, tk.DevTables.from_host(tfs.build_tables(fp), "cpu")
+
+
+def _digits(plan, rng):
+    mp = (1 << plan.p) - 1
+    v = int.from_bytes(rng.bytes(plan.p // 8 + 1), "little") % mp
+    return dg.int_to_digits(v, plan.widths)
+
+
+def _pairs(a64, shape):
+    return convert.to_pairs(np.asarray(a64, dtype=np.uint64).reshape(shape))
+
+
+_u64 = convert.from_pairs
+
+
+def _canon(a64):
+    a64 = np.asarray(a64, dtype=np.uint64)
+    return np.where(a64 >= np.uint64(GP), a64 - np.uint64(GP), a64)
+
+
+def _t(a64):
+    return tgl.from_numpy_u64(a64, "cpu")
+
+
+def _np(x):
+    return tgl.to_numpy_u64(x)
+
+
+@pytest.fixture(scope="module")
+def stages(jax_side, port):
+    """One set of inputs threaded through both pipelines stage by stage."""
+    plan, t = port
+    _plan, fp, tbl, kn = jax_side
+    import jax.numpy as jnp
+    sh = t.shape
+    rng = np.random.default_rng(11)
+    x = _digits(plan, rng).reshape(sh)
+    co = rng.integers(0, 1 << 40, size=sh[:2], dtype=np.uint64)
+    co[0, 0] = (1 << 45) + 12345          # a wide carry in the last-row wrap
+    co[-1, -1] = (1 << 46) - 1
+    return dict(x=x, co=co, sh=sh, jnp=jnp)
+
+
+def test_k1_matches_pallas(jax_side, port, stages):
+    _plan, fp, tbl, kn = jax_side
+    plan, t = port
+    jnp, sh = stages["jnp"], stages["sh"]
+    x, co = stages["x"], stages["co"]
+    rolled = np.roll(co.reshape(-1), 1).reshape(co.shape)
+    (x0, x1), (c0, c1) = convert.state_to_jax(x, rolled)
+    r0, r1 = kn.p1_carry_pass(fp, tbl, jnp.asarray(x0), jnp.asarray(x1),
+                              jnp.asarray(c0), jnp.asarray(c1))
+    mine = tk.p1_carry_pass(t, _t(x), _t(co))
+    assert (_canon(_u64(r0, r1)) == _canon(_np(mine))).all()
+    stages["k1"] = _canon(_np(mine))
+
+
+@pytest.mark.parametrize("mode", ["sqr", "fwd", "mul"])
+def test_k2_matches_pallas(jax_side, port, stages, mode):
+    _plan, fp, tbl, kn = jax_side
+    plan, t = port
+    jnp, sh = stages["jnp"], stages["sh"]
+    if "k1" not in stages:
+        stages["k1"] = _canon(_np(tk.p1_carry_pass(
+            t, _t(stages["x"]), _t(stages["co"]))))
+    s = stages["k1"]
+    u = None
+    if mode == "mul":
+        rng = np.random.default_rng(23)
+        u = rng.integers(0, GP, size=sh, dtype=np.uint64)
+    s0, s1 = _pairs(s, sh)
+    ju = None if u is None else tuple(jnp.asarray(a) for a in _pairs(u, sh))
+    r0, r1 = kn.fused_c_pass(fp, tbl, jnp.asarray(s0), jnp.asarray(s1),
+                             mode, u=ju, r2fold=True)
+    mine = tk.fused_c_pass(t, _t(s), mode, u=None if u is None else _t(u))
+    assert (_canon(_u64(r0, r1)) == _canon(_np(mine))).all()
+    if mode == "sqr":
+        stages["k2"] = _canon(_np(mine))
+
+
+@pytest.mark.parametrize("variant", ["a1", "a3", "sub2"])
+def test_k3_matches_pallas(jax_side, port, stages, variant):
+    _plan, fp, tbl, kn = jax_side
+    plan, t = port
+    jnp, sh = stages["jnp"], stages["sh"]
+    if "k2" not in stages:
+        s = tk.p1_carry_pass(t, _t(stages["x"]), _t(stages["co"]))
+        stages["k2"] = _canon(_np(tk.fused_c_pass(t, s, "sqr")))
+    z = stages["k2"]
+    z0, z1 = _pairs(z, sh)
+    a = 3 if variant == "a3" else 1
+    ap = (jnp.full((1, 1), np.uint32(a)), jnp.zeros((1, 1), jnp.uint32))
+    d0, d1, co0, co1 = kn.p7_carry_pass(
+        fp, tbl, jnp.asarray(z0), jnp.asarray(z1), ap, a == 1,
+        sub2=(variant == "sub2") or None)
+    d, co = tk.p7_carry_pass(t, _t(z), a=a, sub2=(variant == "sub2"))
+    assert (_u64(d0, d1) == _np(d)).all()
+    assert (_u64(co0, co1)[..., 0] == _np(co)).all()
+    assert (np.asarray(co0)[..., 1:] == 0).all()
+
+
+def test_precarry_pipeline_matches_square_ref():
+    """n = 2^18: K1 (no carry) -> K2 sqr -> K3's DFT half equals the numpy
+    oracle of the whole pre-carry squaring."""
+    from prmers_tpu.ops.pallas import fourstep as fs
+    n = 1 << 18
+    p = int(n * 16.5) | 1
+    plan = build_plan(p, n=n)
+    fpj = fs.FourStepPlan.from_plan(plan)
+    tj = fs.FourStepTables.build(fpj, np, G=1, lanes=128)
+    fp = tfs.FourStepPlan.from_plan(plan)
+    assert (fp.rs.L1, fp.rs.L2, fp.C) == (64, 4, 1024)
+    t = tk.DevTables.from_host(tfs.build_tables(fp), "cpu")
+    rng = np.random.default_rng(3)
+    x = _digits(plan, rng)
+    want = fs.square_ref(tj, x)
+    xt = _t(x.reshape(t.shape))
+    zero = torch.zeros(t.shape[:2], dtype=torch.int64)
+    s = tk.p1_carry_plain(t, xt, zero)
+    s = tk.fused_c_plain(t, s, "sqr")
+    got = _np(tk.p7_dft_plain(t, s)).reshape(-1)
+    assert (got == want).all()
+
+
+def test_square_step_value(port):
+    """Two chained steps with a = 3 and the pending row carries equal
+    big-int x^2 * 3 mod M_p."""
+    plan, t = port
+    mp = (1 << plan.p) - 1
+    rng = np.random.default_rng(5)
+    x = _digits(plan, rng)
+    v = dg.digits_to_int(x, plan.widths)
+    xt = _t(x.reshape(t.shape))
+    co = torch.zeros(t.shape[:2], dtype=torch.int64)
+    for _ in range(2):
+        xt, co = tk.square_step(t, xt, co, a=3)
+        v = v * v * 3 % mp
+    q = dg.bit_positions(plan.widths)
+    R, C = t.shape[0] * t.shape[1], t.shape[2]
+    cov = _np(co).reshape(-1)
+    pend = sum(int(cov[b]) << (0 if b == R - 1 else int(q[(b + 1) * C]))
+               for b in range(R))
+    got = (dg.digits_to_int(_np(xt).reshape(-1), plan.widths) + pend) % mp
+    assert got == v
+
+
+def test_wrappers_refuse_bad_operands(port):
+    """The kernels index their operands from the tables' shape, so a wrong
+    shape, dtype or layout raises before any pointer is handed over."""
+    plan, t = port
+    x = torch.zeros(t.shape, dtype=torch.int64)
+    co = torch.zeros(t.shape[:2], dtype=torch.int64)
+    strided = torch.zeros(t.shape[:2] + (2 * t.shape[2],),
+                          dtype=torch.int64)[..., ::2]
+    bad = [(x[:, :, :-128], co), (x.to(torch.int32), co), (strided, co),
+           (x, co[:-1])]
+    for bx, bco in bad:
+        with pytest.raises(ValueError):
+            tk.p1_carry_pass(t, bx, bco)
+    with pytest.raises(ValueError):
+        tk.fused_c_pass(t, x, "mul", u=x[:-1])
+    with pytest.raises(ValueError):
+        tk.p7_carry_pass(t, x, co_out=co.reshape(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logn", range(15, 25))
+def test_cuda_kernels_match_plain(logn):
+    """On the card: every kernel wrapper against its plain version at each
+    n = 2^logn the engine takes, 2^15 ... 2^24 (R2 = 1 ... 64, C = 1024 ...
+    4096, so every rows-per-block branch of K2 and K3). K3 takes K2's lazy
+    output, as on the main path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 1 << logn
+    plan = build_plan(int(n * 16.5) | 1, n=n)
+    t = tk.DevTables.from_host(
+        tfs.build_tables(tfs.FourStepPlan.from_plan(plan)), "cuda")
+    rng = np.random.default_rng(logn)
+    x = _t(_digits(plan, rng).reshape(t.shape)).cuda()
+    co = torch.from_numpy(rng.integers(0, 1 << 40, size=t.shape[:2],
+                                       dtype=np.int64)).cuda()
+    s = tk.p1_carry_pass(t, x, co)
+    assert torch.equal(tgl.canon64(s), tgl.canon64(tk.p1_carry_plain(t, x, co)))
+    for mode in ("sqr", "fwd", "mul"):
+        u = s if mode == "mul" else None
+        got = tk.fused_c_pass(t, s, mode, u=u)
+        want = tk.fused_c_plain(t, s, mode, u)
+        assert torch.equal(tgl.canon64(got), tgl.canon64(want)), mode
+        if mode == "sqr":
+            z = got
+    for a, sub2 in ((1, False), (3, False), (1, True)):
+        d, c = tk.p7_carry_pass(t, z, a=a, sub2=sub2)
+        dw, cw = tk.p7_carry_plain(t, z, a, sub2)
+        assert torch.equal(d, dw) and torch.equal(c, cw), (a, sub2)
