@@ -3,22 +3,32 @@
 
 Run from the repository root with no arguments: python3 chip_smoke.py
 
-Phases; any failure raises and the script exits non-zero with no result:
+It drives two paths of the port: the n = 2^23 path (K1, K2, K3 with
+whole-row carries) and the C = 8192 big-shape path of n = 2^25 and 2^26
+(K1 and K3 with T = 2 carry units per row, K5, K6 "fwd", K6b, K5). Phases;
+any failure raises and the script exits non-zero with no result:
   1. the card (nvidia-smi name and power limit) and the kernel build
-     (nvcc on prmers_tpu_torch/csrc/*.cu, timed);
-  2. every kernel wrapper (K1, K2 in modes sqr/fwd/mul, K3 with a = 1,
+     (one nvcc per prmers_tpu_torch/csrc/*.cu, all at once, timed);
+  2. every kernel wrapper (K1; K2 and K6 in modes sqr/fwd/mul; K5 P2 and
+     P6; K6b with head op sqr/mul/none on K6 "fwd"'s output; K3 with a = 1,
      a = 3 and sub2) against its plain torch version on the same inputs on
-     the card, at n = 2^15, 2^18, 2^23 and 2^24. K3 takes K2's lazy output,
-     as on the main path. Tolerance: none. The arithmetic is exact mod P:
-     K1/K2 outputs are compared after canon, K3's digits and row carries
-     bit for bit;
-  3. the main path at p = 136279841 (n = 2^23), through create_engine and
-     the Engine API the PRP driver calls: squarings, one x3, and one
-     set_multiplicand + mul, checked against GMP big-int. The wrapper
-     call counts of K1-K3 (one per call that launched the kernel) are
-     reset just before and read just after; each must be > 0;
-  4. the timed PRP chain at p = 136279841 (iter/s), and each kernel's time
-     against its plain version at n = 2^23 (CUDA events);
+     the card, at n = 2^15, 2^18, 2^23, 2^25 (p = 600000001) and 2^26
+     (p = 1000000007), and at two forced pipelines (T = 4 carry units at
+     n = 2^16; the split C-transform with T = 2 at 2^18). K3 takes the
+     C-transform's lazy output, as on the main path. Tolerance: none. The
+     arithmetic is exact mod P: K1/K2/K5/K6/K6b outputs are compared after
+     canon, K3's digits and unit carries bit for bit. The host table build
+     time and peak memory are logged at 2^25 and 2^26;
+  3. each path through create_engine and the Engine API the PRP/LL
+     modes call, at p = 136279841 and at p = 600000001: squarings and
+     a x3 of a sparse value 3 * 2^s (its exact value is cheap), a dense x3
+     squaring, set_multiplicand + mul and an LL sub2 step of dense random
+     values, all checked against GMP big-int. The wrapper call counts (one
+     per call that launched a kernel) are reset just before each path and
+     read just after; every kernel of the path must be > 0;
+  4. the timed PRP chain (iter/s) at p = 136279841, 600000001 and
+     1000000007, and each kernel's time against its plain version at
+     n = 2^23 (K1-K3) and 2^25 (the big-shape kernels), by CUDA events;
   5. `python -m prmers_tpu_torch 756839 -noproof` in a subprocess: the
      PRP of M756839 (n = 2^15) must report prime.
 
@@ -28,13 +38,31 @@ the card's name and power limit, and {"ok": true, "device": {...}}.
 
 import json
 import os
+import random
 import shutil
 import subprocess
 import sys
 import time
+import tracemalloc
 
-P_MAIN = 136279841
+P_MAIN = 136279841      # n = 2^23
+P_BIG = 600000001       # n = 2^25
+P_HUGE = 1000000007     # n = 2^26
 P_GOLDEN = 756839
+
+# (name in the JSON line, wrapper counter, the path whose counts it
+# reports); the main path's kernels are timed at n = 2^23, the big path's
+# at 2^25
+ENTRIES = [
+    ("k1_p1c", "k1_p1c", "main"),
+    ("k2_fused_c", "k2_fused_c", "main"),
+    ("k3_p7c", "k3_p7c", "main"),
+    ("k1_p1c[T>1]", "k1_p1c", "big"),
+    ("k3_p7c[T>1]", "k3_p7c", "big"),
+    ("k5_axis1", "k5_axis1", "big"),
+    ("k6_fused_c", "k6_fused_c", "big"),
+    ("k6b_fused_c_invh", "k6b_fused_c_invh", "big"),
+]
 
 
 def log(*args):
@@ -52,8 +80,8 @@ def main() -> int:
 
     from prmers_tpu_torch import bench
     from prmers_tpu_torch.engine.factory import create_engine
-    from prmers_tpu_torch.engine.fourstep_engine import check_shape
-    from prmers_tpu_torch.host import build_plan
+    from prmers_tpu_torch.engine.fourstep_engine import get_tables
+    from prmers_tpu_torch.host import build_plan, cached_plan
     from prmers_tpu_torch.host import digits as dg
     from prmers_tpu_torch.host import gmp
     from prmers_tpu_torch.ops import build
@@ -74,7 +102,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s ({build.library_path()})")
 
     # ---- 2: every kernel against its plain version -----------------------
-    errs = {name: 0.0 for name in tk.KERNELS}
+    errs = {e[0]: 0.0 for e in ENTRIES}
 
     def max_abs_err(a, b) -> float:
         a = gl.to_numpy_u64(a).reshape(-1)
@@ -84,96 +112,147 @@ def main() -> int:
             return 0.0
         return float(max(abs(int(a[i]) - int(b[i])) for i in bad[:4096]))
 
-    def record(name, what, got, want):
+    def record(entry, what, got, want, canon=True):
         torch.cuda.synchronize()
+        if canon:
+            got, want = gl.canon64(got), gl.canon64(want)
         e = max_abs_err(got, want)
-        errs[name] = max(errs[name], e)
-        log(f"[2]   {name} {what}: max_abs_err {e}")
+        errs[entry] = max(errs[entry], e)
+        log(f"[2]   {entry} {what}: max_abs_err {e}")
         if e != 0.0:
-            raise AssertionError(f"{name} {what} disagrees with its plain "
+            raise AssertionError(f"{entry} {what} disagrees with its plain "
                                  f"version (max_abs_err {e})")
 
-    def case(logn):
-        n = 1 << logn
-        p = P_MAIN if n == 1 << 23 else int(n * 16.5) | 1
+    def tables(p, n, pipe=tfs.Pipeline()):
         plan = build_plan(p, n=n)
-        fp = tfs.FourStepPlan.from_plan(plan)
-        check_shape(fp)
         t1 = time.perf_counter()
-        t = tk.DevTables.from_host(tfs.build_tables(fp), dev)
-        log(f"[2] n=2^{logn} p={p} (R1, R2, C)={t.shape}: tables "
-            f"{time.perf_counter() - t1:.3f} s")
-        rng = np.random.default_rng(logn)
+        tracemalloc.start()
+        t = get_tables(plan, dev, pipe)
+        peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        log(f"[2] n=2^{n.bit_length() - 1} p={p} {pipe}: (R1, R2, C)="
+            f"{t.shape}, carry units {t.carry_shape}, ct {t.ct}; tables "
+            f"{time.perf_counter() - t1:.3f} s, host peak "
+            f"{peak / 2**30:.3f} GiB")
+        return plan, t
+
+    def case(label, p, n, pipe=tfs.Pipeline()):
+        plan, t = tables(p, n, pipe)
+        big = t.ct < t.shape[2]
+        k1, k3 = ("k1_p1c[T>1]", "k3_p7c[T>1]") if big else \
+            ("k1_p1c", "k3_p7c")
+        rng = np.random.default_rng(n.bit_length())
         v = int.from_bytes(rng.bytes(p // 8 + 1), "little") % ((1 << p) - 1)
         x = gl.from_numpy_u64(dg.int_to_digits(v, plan.widths),
                               dev).reshape(t.shape)
-        co = torch.from_numpy(rng.integers(0, 1 << 40, size=t.shape[:2],
+        co = torch.from_numpy(rng.integers(0, 1 << 40, size=t.carry_shape,
                                            dtype=np.int64)).to(dev)
-        s = tk.p1_carry_pass(t, x, co)
         sp = tk.p1_carry_plain(t, x, co)
-        record("k1_p1c", f"n=2^{logn}", gl.canon64(s), gl.canon64(sp))
-        for mode in ("sqr", "fwd", "mul"):
-            u = gl.canon64(tk.fused_c_plain(t, sp, "fwd")) \
-                if mode == "mul" else None
-            got = tk.fused_c_pass(t, sp, mode, u=u)
-            want = tk.fused_c_plain(t, sp, mode, u)
-            record("k2_fused_c", f"n=2^{logn} {mode}", gl.canon64(got),
-                   gl.canon64(want))
-            if mode == "sqr":
-                z = got                 # lazy (< 2^64), as K3 gets it
+        record(k1, label, tk.p1_carry_pass(t, x, co), sp)
+        for which in ("p2", "p6"):
+            record("k5_axis1", f"{label} {which}", tk.axis1_pass(t, sp, which),
+                   tk.axis1_plain(t, sp, which))
+        u = gl.canon64(tk.fused_c_plain(t, sp, "fwd"))
+        for r2fold, entry in ((True, "k2_fused_c"), (False, "k6_fused_c")):
+            for mode in ("sqr", "fwd", "mul"):
+                um = u if mode == "mul" else None
+                got = tk.fused_c_pass(t, sp, mode, u=um, r2fold=r2fold)
+                record(entry, f"{label} {mode}", got,
+                       tk.fused_c_plain(t, sp, mode, um, r2fold))
+                if mode == "fwd" and not r2fold:
+                    spec = got
+        for op in ("sqr", "mul", ""):
+            um = u if op == "mul" else None
+            record("k6b_fused_c_invh", f"{label} op={op!r}",
+                   tk.fused_c_invh_pass(t, spec, op, u=um),
+                   tk.fused_c_invh_plain(t, spec, op, um))
+        z = tk.fused_mid(t, sp.clone(), "sqr")   # lazy, as K3 gets it
         for a, sub2 in ((1, False), (3, False), (1, True)):
             d, c = tk.p7_carry_pass(t, z, a=a, sub2=sub2)
             dw, cw = tk.p7_carry_plain(t, z, a, sub2)
-            what = f"n=2^{logn} a={a} sub2={sub2}"
-            record("k3_p7c", what + " digits", d, dw)
-            record("k3_p7c", what + " carries", c, cw)
-        return t, x, co, sp, z
+            what = f"{label} a={a} sub2={sub2}"
+            record(k3, what + " digits", d, dw, canon=False)
+            record(k3, what + " carries", c, cw, canon=False)
+        return t, x, co, sp, spec, z
 
     for logn in (15, 18):
-        case(logn)
-    big = case(23)
-    case(24)
+        n = 1 << logn
+        case(f"n=2^{logn}", int(n * 16.5) | 1, n)
+    case("n=2^16 T=4", int((1 << 16) * 16.5) | 1, 1 << 16,
+         tfs.Pipeline(carry_max=16384))
+    case("n=2^18 split T=2", int((1 << 18) * 16.5) | 1, 1 << 18,
+         tfs.Pipeline(r2fold_max=2048, carry_max=1 << 17, fc_split=True))
+    main_in = case("n=2^23", P_MAIN, 1 << 23)
+    big_in = case("n=2^25", P_BIG, cached_plan(P_BIG).n)
+    case("n=2^26", P_HUGE, cached_plan(P_HUGE).n)
+    torch.cuda.empty_cache()
 
-    # ---- 3: the main path at p = 136279841 -------------------------------
+    # ---- 3: both paths through the Engine API, against GMP ----------------
     log(f"[3] HAVE_GMP {gmp.HAVE_GMP}")
     if not gmp.HAVE_GMP:
-        raise RuntimeError("libgmp is needed for the big-int check at "
-                           f"p = {P_MAIN}")
-    mp = (1 << P_MAIN) - 1
-    K = 6
-    eng = create_engine(P_MAIN, 8, device=dev)
-    assert eng.get_size() == 1 << 23
-    eng.sync()
-    tk.reset_calls()
-    t1 = time.perf_counter()
-    eng.set(0, 3)
-    eng.set(1, 3)
-    eng.square_mul_seq(0, [1] * K)          # 3^(2^K)
-    eng.square_mul(0, 3)                    # 3^(2^(K+1) + 1)
-    eng.set_multiplicand(2, 0)
-    eng.mul(1, 2)                           # 3^(2^(K+1) + 2)
-    eng.sync()
-    counts = dict(tk.calls)
-    log(f"[3] main path: {K + 3} steps in {time.perf_counter() - t1:.3f} s; "
-        f"wrapper calls {counts}")
-    for name in tk.KERNELS:
-        if counts[name] <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    t1 = time.perf_counter()
-    want0 = gmp.powmod(3, (1 << (K + 1)) + 1, mp)
-    want1 = gmp.mulmod(want0, 3, mp)
-    got0 = eng.get_int(0)
-    got1 = eng.get_int(1)
-    log(f"[3] big-int check in {time.perf_counter() - t1:.3f} s: R0 "
-        f"{got0 == want0}, R1 {got1 == want1}")
-    if got0 != want0 or got1 != want1:
-        raise AssertionError("main-path chain disagrees with GMP big-int")
-    del eng
+        raise RuntimeError("libgmp is needed for the big-int checks")
+    K = 8
+    counts = {}
+
+    def drive(p, path, kernels):
+        """The ops of a PRP/LL run on one engine; returns the call counts
+        of the driven ops (reset just before, read just after)."""
+        mp = (1 << p) - 1
+        eng = create_engine(p, 6, device=dev)
+        rnd = random.Random(p)
+        v, w = rnd.getrandbits(p - 1), rnd.getrandbits(p - 1)
+        s = rnd.randrange(p // 2, p)
+        eng.set(0, 3 << s)
+        eng.set(1, v)
+        eng.set(2, w)
+        eng.set(4, w)
+        eng.sync()
+        tk.reset_calls()
+        t1 = time.perf_counter()
+        eng.square_mul_seq(0, [1] * K)          # (3 * 2^s)^(2^K)
+        eng.square_mul(0, 3)                    # ^2 * 3
+        eng.square_mul(1, 3)                    # v^2 * 3
+        eng.set_multiplicand(3, 2)
+        eng.mul(1, 3)                           # v^2 * 3 * w
+        eng.square_sub2_seq(4, 1)               # w^2 - 2
+        eng.sync()
+        got = dict(tk.calls)
+        log(f"[3] {path} path p={p} (n=2^{eng.get_size().bit_length() - 1}"
+            f"): {K + 5} steps in {time.perf_counter() - t1:.3f} s; "
+            f"wrapper calls {got}")
+        for name in kernels:
+            if got[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the {path}"
+                                     " path")
+        t1 = time.perf_counter()
+        c, e = 3, s                             # value c * 2^e mod M_p
+        for _ in range(K + 1):
+            c, e = c * c, 2 * e % p
+        want0 = gmp.mersenne_mod(c * 3 << e, p)
+        vv = gmp.mersenne_mod(gmp.mul(v, v) * 3, p)
+        want1 = gmp.mersenne_mod(gmp.mul(vv, w), p)
+        want4 = (gmp.mersenne_mod(gmp.mul(w, w), p) - 2) % mp
+        ok = [eng.get_int(0) == want0, eng.get_int(1) == want1,
+              eng.get_int(4) == want4]
+        log(f"[3] {path} path big-int check in "
+            f"{time.perf_counter() - t1:.3f} s: sparse chain {ok[0]}, "
+            f"x3 + mul {ok[1]}, sub2 {ok[2]}")
+        if not all(ok):
+            raise AssertionError(f"the {path} path disagrees with GMP")
+        return got
+
+    counts["main"] = drive(P_MAIN, "main", ("k1_p1c", "k2_fused_c",
+                                            "k3_p7c"))
+    counts["big"] = drive(P_BIG, "big", ("k1_p1c", "k3_p7c", "k5_axis1",
+                                         "k6_fused_c", "k6b_fused_c_invh"))
+    torch.cuda.empty_cache()
 
     # ---- 4: timings -------------------------------------------------------
-    ips = bench.measure(P_MAIN, warm=16, iters=192)
-    log(f"[4] PRP {ips:.6f} iter/s @ p={P_MAIN} ({card})")
-    t, x, co, sp, z = big
+    for p, warm, iters in ((P_MAIN, 16, 192), (P_BIG, 4, 48),
+                           (P_HUGE, 4, 24)):
+        ips = bench.measure(p, warm=warm, iters=iters)
+        log(f"[4] PRP {ips:.6f} iter/s @ p={p} ({card})")
+        torch.cuda.empty_cache()
 
     def timed(fn, reps):
         fn()
@@ -187,23 +266,49 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
-    pairs = {
-        "k1_p1c": (lambda: tk.p1_carry_pass(t, x, co),
-                   lambda: tk.p1_carry_plain(t, x, co)),
-        "k2_fused_c": (lambda: tk.fused_c_pass(t, sp, "sqr"),
-                       lambda: tk.fused_c_plain(t, sp, "sqr")),
-        "k3_p7c": (lambda: tk.p7_carry_pass(t, z),
-                   lambda: tk.p7_carry_plain(t, z)),
-    }
     ms = {}
-    for name, (kern, plain) in pairs.items():
+
+    def compare(entry, logn, what, kern, plain, reps):
         p0 = timed(plain, 3)
-        k0 = timed(kern, 20)
-        k1 = timed(kern, 20)
+        k0 = timed(kern, reps)
+        k1 = timed(kern, reps)
         p1 = timed(plain, 3)
-        ms[name] = ((k0 + k1) / 2, (p0 + p1) / 2)
-        log(f"[4] {name} n=2^23: kernel {ms[name][0]:.6f} ms, plain "
-            f"{ms[name][1]:.6f} ms ({card})")
+        got = ((k0 + k1) / 2, (p0 + p1) / 2)
+        log(f"[4] {entry} {what} n=2^{logn}: kernel {got[0]:.6f} ms, plain "
+            f"{got[1]:.6f} ms ({card})")
+        return got
+
+    t, x, co, sp, spec, z = main_in
+    ms["k1_p1c"] = compare("k1_p1c", 23, "", lambda: tk.p1_carry_pass(t, x, co),
+                           lambda: tk.p1_carry_plain(t, x, co), 20)
+    ms["k2_fused_c"] = compare(
+        "k2_fused_c", 23, "sqr", lambda: tk.fused_c_pass(t, sp, "sqr"),
+        lambda: tk.fused_c_plain(t, sp, "sqr"), 20)
+    ms["k3_p7c"] = compare("k3_p7c", 23, "a=1",
+                           lambda: tk.p7_carry_pass(t, z),
+                           lambda: tk.p7_carry_plain(t, z), 20)
+    t, x, co, sp, spec, z = big_in
+    ms["k1_p1c[T>1]"] = compare(
+        "k1_p1c[T>1]", 25, "", lambda: tk.p1_carry_pass(t, x, co),
+        lambda: tk.p1_carry_plain(t, x, co), 10)
+    ms["k3_p7c[T>1]"] = compare(
+        "k3_p7c[T>1]", 25, "a=1", lambda: tk.p7_carry_pass(t, z),
+        lambda: tk.p7_carry_plain(t, z), 10)
+    p2 = compare("k5_axis1", 25, "p2", lambda: tk.axis1_pass(t, sp, "p2"),
+                 lambda: tk.axis1_plain(t, sp, "p2"), 10)
+    p6 = compare("k5_axis1", 25, "p6", lambda: tk.axis1_pass(t, sp, "p6"),
+                 lambda: tk.axis1_plain(t, sp, "p6"), 10)
+    ms["k5_axis1"] = ((p2[0] + p6[0]) / 2, (p2[1] + p6[1]) / 2)
+    ms["k6_fused_c"] = compare(
+        "k6_fused_c", 25, "fwd",
+        lambda: tk.fused_c_pass(t, sp, "fwd", r2fold=False),
+        lambda: tk.fused_c_plain(t, sp, "fwd", r2fold=False), 10)
+    ms["k6b_fused_c_invh"] = compare(
+        "k6b_fused_c_invh", 25, "sqr",
+        lambda: tk.fused_c_invh_pass(t, spec, "sqr"),
+        lambda: tk.fused_c_invh_plain(t, spec, "sqr"), 10)
+    del main_in, big_in, t, x, co, sp, spec, z
+    torch.cuda.empty_cache()
 
     # ---- 5: M756839 through the CLI ---------------------------------------
     run_dir = os.path.join(root, "build", "smoke_run")
@@ -219,10 +324,11 @@ def main() -> int:
         raise AssertionError(f"M{P_GOLDEN} was not reported prime:\n"
                              f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
 
-    kernels = [{"name": name, "route": "cuda", "source": tk.SOURCES[name],
-                "replaces": tk.REPLACES[name], "launches": counts[name],
-                "max_abs_err": errs[name], "ms": ms[name][0],
-                "plain_ms": ms[name][1]} for name in tk.KERNELS]
+    kernels = [{"name": entry, "route": "cuda", "source": tk.SOURCES[name],
+                "replaces": tk.REPLACES[name],
+                "launches": counts[path][name], "max_abs_err": errs[entry],
+                "ms": ms[entry][0], "plain_ms": ms[entry][1]}
+               for entry, name, path in ENTRIES]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

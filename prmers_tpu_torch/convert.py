@@ -1,15 +1,16 @@
 """Carry tables and state between the JAX package and the port.
 
-The JAX pipeline keeps every u64 as a pair of u32 arrays and pads its
-per-row carries to a 128-lane block; the port keeps one u64 (in an int64
-tensor) per value and one carry per row. Everything here works on numpy
+The JAX pipeline keeps every u64 as a pair of u32 arrays and pads each
+carry unit's carry (and, for T > 1 units per row, its spread tables) to a
+128-lane block; the port keeps one u64 (in an int64 tensor) per value and
+one carry per unit. Everything here works on numpy
 arrays (u64 for the port side, u32 pairs for the JAX side) and imports
 no jax: a JAX `FourStepTables` is read through np.asarray.
 
   to_pairs / from_pairs          u64 <-> JAX (lo, hi) u32 pair, e.g. a
                                  spectral multiplicand (mod-P values)
   tables_from_jax                JAX folded n-sized tables -> the port's
-  state_to_jax / state_from_jax  register (x, row carries)
+  state_to_jax / state_from_jax  register (x, unit carries)
 
 Register and carry values cross unchanged (the carries in both are the
 unrolled out-carries of the last K3); multiplicands agree mod P.
@@ -33,11 +34,21 @@ def from_pairs(lo, hi) -> np.ndarray:
             (np.asarray(hi).astype(np.uint64) << _S32))
 
 
-def tables_from_jax(jt) -> dict:
+def _unpad_units(a, k: int) -> np.ndarray:
+    """A JAX spread table (R1, R2, k), or (R1, R2, T*128) padded per unit
+    when T > 1 (kernels.py:721-726) -> (R1, R2, T, k)."""
+    a = np.asarray(a).astype(np.uint32)
+    if a.shape[-1] == k:
+        return a[:, :, None, :]
+    return a.reshape(a.shape[:2] + (-1, 128))[..., :k]
+
+
+def tables_from_jax(jt, k: int) -> dict:
     """A JAX FourStepTables with its fused-C, wcorr and cinrow tables
-    attached (T == 1) -> the port's n-sized tables: mf, mi (R1, R2, C) u64,
-    er (R1, R2) and ec (C,) u32, wt and cum (R1, R2, k) u32, widths
-    (R1, R2, C) u32 (names as in ops/fourstep.KernelTables)."""
+    attached, and the plan's spread-part count k -> the port's n-sized
+    tables: mf, mi (R1, R2, C) u64, er (R1, R2) and ec (C,) u32, wt and cum
+    (R1, R2, T, k) u32, widths (R1, R2, C) u32 (names as in
+    ops/fourstep.KernelTables)."""
     (*_mats, mf0, mf1, mi0, mi1) = jt.fused
     widths = np.asarray(jt.widths32).astype(np.uint32)
     R1, R2, C = widths.shape
@@ -46,26 +57,27 @@ def tables_from_jax(jt) -> dict:
         "mi": from_pairs(mi0, mi1).reshape(R1, R2, C),
         "er": np.asarray(jt.wcorr[0]).astype(np.uint32).reshape(R1, R2),
         "ec": np.asarray(jt.wcorr[1]).astype(np.uint32).reshape(C),
-        "wt": np.asarray(jt.cinrow[0]).astype(np.uint32),
-        "cum": np.asarray(jt.cinrow[1]).astype(np.uint32),
+        "wt": _unpad_units(jt.cinrow[0], k),
+        "cum": _unpad_units(jt.cinrow[1], k),
         "widths": widths,
     }
 
 
 def state_to_jax(x, co):
-    """Port register x (R1, R2, C) u64 and row carries co (R1, R2) u64 ->
-    JAX ((x0, x1), (c0, c1)) with the carry block (R1, R2, 128), the value
-    in lane 0."""
+    """Port register x (R1, R2, C) u64 and unit carries co (R1, R2, T) u64
+    -> JAX ((x0, x1), (c0, c1)) with the carry block (R1, R2, T*128), unit
+    t's value in lane t*128."""
     co = np.asarray(co, dtype=np.uint64)
     block = np.zeros(co.shape + (128,), dtype=np.uint64)
     block[..., 0] = co
-    return to_pairs(x), to_pairs(block)
+    return to_pairs(x), to_pairs(block.reshape(co.shape[:2] + (-1,)))
 
 
 def state_from_jax(x0, x1, c0, c1):
-    """JAX register pairs and (R1, R2, T*128) carry block (T == 1) ->
-    (x (R1, R2, C) u64, co (R1, R2) u64)."""
+    """JAX register pairs and (R1, R2, T*128) carry block -> (x (R1, R2, C)
+    u64, co (R1, R2, T) u64)."""
     c0 = np.asarray(c0)
-    if c0.shape[-1] != 128:
-        raise ValueError("only whole-row carries (carry_tiles == 1) cross")
-    return from_pairs(x0, x1), from_pairs(c0[..., 0], np.asarray(c1)[..., 0])
+    if c0.ndim != 3 or c0.shape[-1] % 128:
+        raise ValueError("the carry block must be (R1, R2, T*128)")
+    return from_pairs(x0, x1), from_pairs(c0[..., ::128],
+                                          np.asarray(c1)[..., ::128])

@@ -1,7 +1,8 @@
 // Length-L DFT down one axis of the (R1, R2, C) register, as a direct
 // mod-P matrix product on a shared-memory tile. Shared by K1 (the r1 axis,
-// one matrix per r2), the two r2 launches of K2 (the r2 axis, one matrix,
-// or one per r1) and the first launch of K3 (the r1 axis again).
+// one matrix per r2), the two r2 launches of K2 and the two K5 passes (the
+// r2 axis, one matrix, or one per r1) and the first launch of K3 (the r1
+// axis again).
 //
 // The array is viewed as (O, L, S, C): element (o, j, s, c) at
 // ((o*L + j)*S + s)*C + c, the transform runs over j. A block owns one
@@ -11,7 +12,8 @@
 // each thread forms L/AX_TY outputs of one column: out[k] = sum_j M[k][j]
 // x[j], the L full products summed in a 192-bit accumulator and reduced
 // once. The block reads and writes the same element set, so the kernel
-// may run in place (out == x).
+// may run in place (out == x). At L = 128 the tile is 160 KiB of shared
+// memory, so one block (8 warps) per SM.
 #pragma once
 
 #include "gl64.cuh"
@@ -21,8 +23,8 @@
 
 enum AxisMode {
     AX_K1 = 0,   // carry inject + wrap halve, matrix per s (= r2)
-    AX_K2A = 1,  // single matrix, then x mf
-    AX_K2C = 2,  // x mi first, matrix per o (= r1)
+    AX_K2A = 1,  // single matrix, then x mf (P2: K2's first launch, K5)
+    AX_K2C = 2,  // x mi first, matrix per o (= r1) (P6: K2's last, K5)
     AX_K3A = 3   // matrix per s, then wrap double, canon, optional x a
 };
 
@@ -31,12 +33,14 @@ struct AxisArgs {
     u64* out;
     const u64* mats;     // (V, L, L)
     const u64* tab;      // K2A: mf, K2C: mi; same layout as x
-    // K1: the previous step's per-row carries (R,), unrolled, and the
-    // per-row spread tables (R, kk)
+    // K1: the previous step's carries (R*T,), one per carry unit of ct
+    // digits (T = C / ct units per row), unrolled, and the per-unit spread
+    // tables (R*T, kk)
     const u64* co;
     const u32* wt;
     const u32* cum;
     int kk;
+    int ct;
     // K1 / K3A: wrap residues er (R,) and ec (C,)
     const u32* er;
     const u32* ec;
@@ -46,6 +50,9 @@ struct AxisArgs {
     int with_a;
     int O, L, S, C;
 };
+
+// Internal linkage: several .cu files instantiate the same modes.
+namespace {
 
 template <int MODE>
 __global__ void __launch_bounds__(AX_TC * AX_TY)
@@ -70,15 +77,19 @@ axis_dft_kernel(AxisArgs g) {
         const size_t idx = ((size_t)(o * L + j) * S + s) * C + c;
         u64 v = g.x[idx];
         if (MODE == AX_K1) {
-            // flat row f = r1*R2 + r2; the roll by one flat row (row f takes
-            // row f-1's carry, row 0 the last row's) is folded in here
-            const int R = L * S;
+            // flat row f = r1*R2 + r2, carry unit u = f*T + c/ct; the roll
+            // by one unit (unit u takes unit u-1's carry, unit 0 the last
+            // one's) is folded in here
+            const int T = C / g.ct;
+            const int U = L * S * T;
             const int f = j * S + s;
-            if (c < g.kk) {
-                const u64 cin = g.co[(f + R - 1) % R];
-                const u32 cm = g.cum[f * g.kk + c];
+            const int cl = c % g.ct;
+            if (cl < g.kk) {
+                const int u = f * T + c / g.ct;
+                const u64 cin = g.co[(u + U - 1) % U];
+                const u32 cm = g.cum[u * g.kk + cl];
                 u32 part = cm < 64 ? (u32)(cin >> cm) : 0u;
-                if (c < g.kk - 1) part &= (1u << g.wt[f * g.kk + c]) - 1u;
+                if (cl < g.kk - 1) part &= (1u << g.wt[u * g.kk + cl]) - 1u;
                 v += part;
             }
             if (g.er[f] + g.ec[c] >= g.n) v = gl_halve(v);
@@ -104,6 +115,8 @@ axis_dft_kernel(AxisArgs g) {
         g.out[idx] = acc;
     }
 }
+
+}  // namespace
 
 // Launch over the whole (O, L, S, C) array; returns cudaGetLastError().
 template <int MODE>

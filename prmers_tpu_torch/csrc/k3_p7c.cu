@@ -1,21 +1,24 @@
 // K3: the r1 inverse DFT and the carry of one step.
 //
 // Replaces prmers_tpu/ops/pallas/kernels.py:_p7c_kernel (:612, launched by
-// p7_carry_pass :799). The steps are
+// p7_carry_pass :799), with whole-row carries (T = 1) and lane-tiled ones
+// (carry units of ct = C / T digits; T = 2 at C = 8192). The steps are
 //   1. the length-L1 inverse DFT down axis 0 with the r2's folded matrix
 //      iw_inv (inverse weights' r-part and 1/n folded in);
 //   2. double where er + ec >= n, then canon;
 //   3. optionally x a, then canon (with_a);
 //   4. optionally + (M_p - 2) for the LL step (sub2: every digit + its
-//      mask, minus s2 at global digit 0, :655-667);
+//      mask, minus s2 at global digit 0 only, :655-667 and the 2-D grid
+//      check :862);
 //   5. the digit/carry split by width, a fixed number of lane-ripple
 //      rounds (_carry_rounds :681) and the residual added unsplit
-//      (_carry_phase_math :562-609);
-//   6. the row's out-carry, left for the next step's K1.
+//      (_carry_phase_math :562-609), each inside its carry unit;
+//   6. the unit's out-carry, left for the next step's K1.
 // The DFT follows columns (an r1 slab of each r2) while the carry follows
-// a whole row of C digits, so this is two launches with the seam between
-// steps 3 and 4: K3a = steps 1-3 (axis_dft.cuh, in place), K3b = steps
-// 4-6, one block per row.
+// a unit of ct consecutive digits, so this is two launches with the seam
+// between steps 3 and 4: K3a = steps 1-3 (axis_dft.cuh, in place), K3b =
+// steps 4-6, one block per carry unit (units are contiguous: unit
+// u = row * T + t holds digits [u * ct, (u + 1) * ct)).
 //
 // What bounds it on the H100: K3a does 64 mod-P products per digit (the
 // integer pipe); K3b is a memory pass (8 B in, 8 B out and 4 B of widths
@@ -29,18 +32,18 @@
 
 #define K3B_THREADS 256
 
-// One block per row; thread t owns digits t, t + 256, ... (PER of them, in
-// registers), so loads and stores are coalesced and each round's shifted
-// carry comes from shared memory.
+// One block per carry unit of PER * 256 digits; thread t owns digits t,
+// t + 256, ... (PER of them, in registers), so loads and stores are
+// coalesced and each round's shifted carry comes from shared memory.
 template <int PER>
 __global__ void __launch_bounds__(K3B_THREADS)
 k3b_kernel(u64* x, u64* co, const u32* widths, int rounds, int sub2,
            u64 s2) {
     __shared__ u64 k3_cs[PER * K3B_THREADS];
-    const int C = PER * K3B_THREADS;
-    const int f = blockIdx.x;
+    const int ct = PER * K3B_THREADS;
+    const int f = blockIdx.x;          // the carry unit
     const int tid = threadIdx.x;
-    const size_t base = (size_t)f * C;
+    const size_t base = (size_t)f * ct;
     u64 d[PER], c[PER];
     u32 w[PER];
 #pragma unroll
@@ -58,7 +61,7 @@ k3b_kernel(u64* x, u64* co, const u32* widths, int rounds, int sub2,
 #pragma unroll
         for (int i = 0; i < PER; ++i) k3_cs[tid + i * K3B_THREADS] = c[i];
         __syncthreads();
-        if (tid == K3B_THREADS - 1) acc += c[PER - 1];   // leaves the row
+        if (tid == K3B_THREADS - 1) acc += c[PER - 1];   // leaves the unit
 #pragma unroll
         for (int i = 0; i < PER; ++i) {
             const int l = tid + i * K3B_THREADS;
@@ -79,13 +82,22 @@ k3b_kernel(u64* x, u64* co, const u32* widths, int rounds, int sub2,
     if (tid == K3B_THREADS - 1) co[f] = acc;
 }
 
+template <int PER>
+static int k3b_launch(u64* x, u64* co, const u32* widths, int units,
+                      int rounds, int sub2, u64 s2, cudaStream_t st) {
+    k3b_kernel<PER><<<units, K3B_THREADS, 0, st>>>(x, co, widths, rounds,
+                                                  sub2, s2);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int prmers_k3_p7c(const u64* x, u64* out, u64* co,
                              const u64* mats, const u32* er, const u32* ec,
                              u32 n, const u32* widths, int rounds, u64 a,
                              int with_a, int sub2, u64 s2, int L1, int R2,
-                             int C, void* stream) {
+                             int C, int ct, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (C != 1024 && C != 2048 && C != 4096) return -1;   // no K3b for C
+    // K3b holds a unit in one block: ct = 256 ... 4096 digits
+    if (ct < 256 || ct > 4096 || (ct & (ct - 1)) || C % ct) return -1;
     AxisArgs g = {};
     g.x = x;
     g.out = out;
@@ -101,22 +113,17 @@ extern "C" int prmers_k3_p7c(const u64* x, u64* out, u64* co,
     g.C = C;
     int err = axis_dft_launch<AX_K3A>(g, st);
     if (err) return err;
-    const int rows = L1 * R2;
-    switch (C) {
+    const int units = L1 * R2 * (C / ct);
+    switch (ct) {
+    case 256:
+        return k3b_launch<1>(out, co, widths, units, rounds, sub2, s2, st);
+    case 512:
+        return k3b_launch<2>(out, co, widths, units, rounds, sub2, s2, st);
     case 1024:
-        k3b_kernel<4><<<rows, K3B_THREADS, 0, st>>>(out, co, widths, rounds,
-                                                   sub2, s2);
-        break;
+        return k3b_launch<4>(out, co, widths, units, rounds, sub2, s2, st);
     case 2048:
-        k3b_kernel<8><<<rows, K3B_THREADS, 0, st>>>(out, co, widths, rounds,
-                                                   sub2, s2);
-        break;
-    case 4096:
-        k3b_kernel<16><<<rows, K3B_THREADS, 0, st>>>(out, co, widths, rounds,
-                                                    sub2, s2);
-        break;
+        return k3b_launch<8>(out, co, widths, units, rounds, sub2, s2, st);
     default:
-        return -1;
+        return k3b_launch<16>(out, co, widths, units, rounds, sub2, s2, st);
     }
-    return (int)cudaGetLastError();
 }

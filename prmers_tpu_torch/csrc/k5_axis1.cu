@@ -1,0 +1,42 @@
+// K5: one r2 pass alone, P2 or P6, for the shapes whose r2 passes do not
+// fold into the C-transform kernel (R2 * C above the r2fold budget: n =
+// 2^26, and the split pipeline at n = 2^25).
+//
+// Replaces prmers_tpu/ops/pallas/kernels.py:_pass_kernel in its axis-1
+// form (:130, launched by _axis1_pass :391 from _p2_pass / _p6_pass
+// :1574-1594):
+//   P2  the length-L2 r2 DFT (the generic DIF matrix g2), then x mf;
+//   P6  x mi, then the r2 inverse DFT with the r1's matrix tr_inv
+//       (t_r_inv folded in as row scales).
+// These are exactly the first and last launches of K2 (axis_dft.cuh modes
+// AX_K2A and AX_K2C), launched alone over the (R1, L2, C) register. The
+// Pallas pass tiles the lane axis to bound VMEM; here a block already
+// takes a slab of 32 columns.
+//
+// What bounds it on the H100: L2 mod-P products per digit (64 at 2^25,
+// 128 at 2^26) on the integer pipe; 16 B of device traffic per digit. At
+// L2 = 128 the L2 x L2 matrix (128 KiB) and the 128 x 32 slab take 160 KiB
+// of shared memory, one block of 8 warps per SM; each block reads the
+// matrix once from L2 for 32 columns.
+
+#include <cuda_runtime.h>
+
+#include "axis_dft.cuh"
+
+extern "C" int prmers_k5_axis1(const u64* x, u64* out, const u64* mats,
+                               const u64* tab, int inverse, int R1, int L2,
+                               int C, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (L2 > 128 || C % AX_TC) return -1;
+    AxisArgs g = {};
+    g.x = x;
+    g.out = out;
+    g.mats = mats;
+    g.tab = tab;
+    g.O = R1;
+    g.L = L2;
+    g.S = 1;
+    g.C = C;
+    return inverse ? axis_dft_launch<AX_K2C>(g, st)
+                   : axis_dft_launch<AX_K2A>(g, st);
+}

@@ -1,10 +1,12 @@
-"""The four-step kernel engine: the Engine register API on K1-K3.
+"""The four-step kernel engine: the Engine register API on the port's
+kernels (ops/kernels.py).
 
 Counterpart of prmers_tpu/engine/pallas_engine.py:PallasEngine on its
 row-carry pipeline. A register is [x, co, spectral]: x the (R1, R2, C)
-int64 digit tensor (u64 bit patterns), co the (R1, R2) int64 out-carries
-of the last step, not yet rolled (they enter the next step's K1, or are
-folded by `op_settle`), and the spectral flag of a multiplicand.
+int64 digit tensor (u64 bit patterns), co the (R1, R2, T) int64
+out-carries of the last step's carry units (T per row), not yet rolled
+(they enter the next step's K1, or are folded by `op_settle`), and the
+spectral flag of a multiplicand.
 
 The hot ops update their register's tensors in place (the kernels read
 each element before writing it), so `copy` always makes real copies and no
@@ -30,29 +32,28 @@ _DEV_TABLES: dict = {}
 
 
 def check_shape(fp: tfs.FourStepPlan) -> None:
-    """The shapes this engine covers: n = 2^k, 2^15 <= n <= 2^24, the r2
-    passes folded into K2 (use_r2fold), one C-transform kernel
-    (not fc_split) and whole-row carries (carry_tiles == 1). Anything else
-    raises: the port never falls back to another pipeline."""
+    """The shapes this engine covers: n = 2^k, 2^15 <= n <= 2^26, with
+    every branch of the JAX row-carry pipeline the plan selects (r2 passes
+    folded or as K5, the C-transform whole or split, carry units of 256 to
+    4096 digits). Anything else (5*2^k, n outside the range) raises: the
+    port never falls back to another pipeline."""
     n = fp.n
-    ok = (n & (n - 1) == 0 and (1 << 15) <= n <= (1 << 24)
+    ok = (n & (n - 1) == 0 and (1 << 15) <= n <= (1 << 26)
           and fp.rs.L1 >= 32 and fp.rs.L2 & (fp.rs.L2 - 1) == 0
-          and tfs.use_r2fold(fp) and not tfs.fc_split(fp)
-          and tfs.carry_tiles(fp) == 1)
+          and 256 <= tfs.carry_ct(fp) <= 4096)
     if not ok:
         raise NotImplementedError(
-            f"prmers_tpu_torch covers n = 2^k with 2^15 <= n <= 2^24 on the "
-            f"r2fold / whole-row-carry pipeline; this plan has n={n} "
-            f"(R1={fp.rs.L1}, R2={fp.rs.L2}, C={fp.C}, "
-            f"r2fold={tfs.use_r2fold(fp)}, fc_split={tfs.fc_split(fp)}, "
-            f"carry_tiles={tfs.carry_tiles(fp)})")
+            f"prmers_tpu_torch covers n = 2^k with 2^15 <= n <= 2^26; this "
+            f"plan has n={n} (R1={fp.rs.L1}, R2={fp.rs.L2}, C={fp.C}, "
+            f"carry_ct={tfs.carry_ct(fp)})")
 
 
-def get_tables(plan: Plan, device: torch.device):
-    key = (plan.p, plan.n)
+def get_tables(plan: Plan, device: torch.device,
+               pipe: tfs.Pipeline = tfs.Pipeline()):
+    key = (plan.p, plan.n, pipe)
     if key not in _HOST_TABLES:
         try:
-            fp = tfs.FourStepPlan.from_plan(plan)
+            fp = tfs.FourStepPlan.from_plan(plan, pipe)
         except AssertionError as e:
             raise NotImplementedError(
                 f"prmers_tpu_torch has no four-step plan for n={plan.n}: "
@@ -67,14 +68,12 @@ def get_tables(plan: Plan, device: torch.device):
 
 def op_settle(t: tk.DevTables, x: torch.Tensor,
               co: torch.Tensor) -> torch.Tensor:
-    """Fold the pending row carries (row f's carry enters the first digit
-    of row f+1, the last row's wraps to digit 0) and renormalize
+    """Fold the pending unit carries (unit u's carry enters the first digit
+    of unit u+1, the last unit's wraps to digit 0) and renormalize
     (pallas_engine.py:161-183)."""
-    R1, R2, C = t.shape
-    n = R1 * R2 * C
+    n = x.numel()
     y = x.reshape(n).clone()
-    cin = torch.roll(co.reshape(-1), 1)
-    y[::C] += cin
+    y[::t.ct] += torch.roll(co.reshape(-1), 1)
     return carry_ops.carry_full(y, t.widths.reshape(n)).reshape(t.shape)
 
 
@@ -98,16 +97,17 @@ def op_linear(t: tk.DevTables, x: torch.Tensor, y: torch.Tensor,
 
 
 class FourStepEngine(Engine):
-    """Engine backed by the port's K1-K3 (CUDA on a card, plain torch on
-    the CPU)."""
+    """Engine backed by the port's kernels (CUDA on a card, plain torch on
+    the CPU). `pipe` overrides the budgets that pick the pipeline's
+    branches (ops/fourstep.Pipeline; the default is the JAX package's)."""
 
     def __init__(self, p: int, reg_count: int, plan: Plan | None = None,
-                 device=None):
+                 device=None, pipe: tfs.Pipeline = tfs.Pipeline()):
         super().__init__(p, reg_count)
         self.device = torchconf.device(device)
         self.plan = plan if plan is not None else cached_plan(p)
         self.n = self.plan.n
-        self.t = get_tables(self.plan, self.device)
+        self.t = get_tables(self.plan, self.device, pipe)
         self._sh = self.t.shape
         self.regs = [[self._zx(), self._zc(), False]
                      for _ in range(reg_count)]
@@ -118,7 +118,7 @@ class FourStepEngine(Engine):
         return torch.zeros(self._sh, dtype=torch.int64, device=self.device)
 
     def _zc(self):
-        return torch.zeros(self._sh[:2], dtype=torch.int64,
+        return torch.zeros(self.t.carry_shape, dtype=torch.int64,
                            device=self.device)
 
     def _settled(self, r: Reg) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 At first use, `nvcc` compiles every `csrc/*.cu` into one shared library
 with a plain C interface (no PyTorch headers, so the build takes seconds),
-under `build/kernels/` at the repository root (listed in .gitignore). The
+under `build/kernels/` at the repository root (listed in .gitignore): one
+`nvcc -c` per source, all started together, then one link. The
 library's name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses it. It is loaded with ctypes; every
 entry point returns the `cudaGetLastError()` of its launches, and
@@ -24,8 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-lineinfo"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _lib = None
 
@@ -37,12 +37,15 @@ _U64 = ctypes.c_uint64
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: a bare Python int would be passed as a 32-bit int)
 SIGNATURES = {
-    "prmers_k1_p1c": [_P, _P, _P, _P, _P, _I, _P, _P, _U32, _P, _I, _I, _I,
-                      _P],
+    "prmers_k1_p1c": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _U32, _P, _I, _I,
+                      _I, _P],
     "prmers_k2_fused_c": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _P],
     "prmers_k3_p7c": [_P, _P, _P, _P, _P, _P, _U32, _P, _I, _U64, _I, _I,
-                      _U64, _I, _I, _I, _P],
+                      _U64, _I, _I, _I, _I, _P],
+    "prmers_k5_axis1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "prmers_k6_fused_c": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
+    "prmers_k6b_fused_c_invh": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
 }
 
 
@@ -72,22 +75,42 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libprmers_kernels_{_digest()}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    for cmd, (out, rc) in zip(cmds, outs):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> str:
     """Compile csrc/*.cu into the hashed library unless it exists; returns
-    its path. Compiles into a temporary name and renames, so concurrent
-    builders never load a half-written file."""
+    its path. Each process compiles under its own temporary names and
+    renames the library into place, so concurrent builds never load a
+    half-written file."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{path}.{os.getpid()}"
     cu = [s for s in _sources() if s.endswith(".cu")]
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + ARCH_FLAGS + NVCC_FLAGS + ["-I", CSRC, "-o", tmp] + cu
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                           f"{r.stdout}{r.stderr}")
-    os.replace(tmp, path)
+    objs = [f"{tag}.{os.path.basename(s)}.o" for s in cu]
+    try:
+        _run_all([[nvcc] + ARCH_FLAGS + NVCC_FLAGS +
+                  ["-I", CSRC, "-c", src, "-o", obj]
+                  for src, obj in zip(cu, objs)])
+        _run_all([[nvcc] + ARCH_FLAGS + ["-shared", "-o", f"{tag}.tmp"] +
+                  objs])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    os.replace(f"{tag}.tmp", path)
     return path
 
 

@@ -25,8 +25,14 @@ Tables built here, all canonical u64 numpy arrays unless noted:
   tri     (R1, L2, L2)  tr_inv: inverse r2 DFT with row scale t_r_inv
   k3_mats (R2, L1, L1)  iw_inv: inverse DFT_L1 with row scale iwr / n
   er (R1, R2), ec (C,)  u32 wrap residues: halve/double where er+ec >= n
-  wt, cum (R1, R2, k)   u32 per-row carry spread widths / bit offsets
+  wt, cum (R1, R2, T, k)  u32 per-carry-unit spread widths / bit offsets
+                        (T = carry_tiles units of carry_ct digits per row)
   widths  (R1, R2, C)   u32 digit widths
+
+Which kernels a step runs follows the JAX pipeline's shape predicates
+(use_r2fold, fc_split, carry_ct below); a plan's `Pipeline` holds the
+budgets they read, so the tests can force the big-shape branches at small
+n as the JAX tests do with its environment overrides.
 """
 
 from __future__ import annotations
@@ -167,6 +173,17 @@ def make_split(L: int) -> SplitSpec:
                      np.arange(L2, dtype=np.int64))
 
 
+@dataclasses.dataclass(frozen=True)
+class Pipeline:
+    """The budgets behind the JAX pipeline's branch choice, with its
+    defaults: r2fold_max is PRMERS_R2FOLD_BUDGET (kernels.py:933), carry_max
+    PRMERS_CARRY_BUDGET (:952), and fc_split forces the split C-transform
+    as PRMERS_FC_SPLIT does (:948)."""
+    r2fold_max: int = 1 << 19
+    carry_max: int = 1 << 21
+    fc_split: bool = False
+
+
 @dataclasses.dataclass(eq=False)
 class FourStepPlan:
     """Kernel-level plan for n = R*C (fourstep.py:115-154)."""
@@ -178,9 +195,10 @@ class FourStepPlan:
     cs: SplitSpec
     widths: np.ndarray
     max_word: int
+    pipe: Pipeline = Pipeline()
 
     @classmethod
-    def from_plan(cls, plan: Plan):
+    def from_plan(cls, plan: Plan, pipe: Pipeline = Pipeline()):
         n = plan.n
         five = n % 5 == 0
         base = n // 5 if five else n
@@ -197,7 +215,7 @@ class FourStepPlan:
             f"transform out of range for the four-step path (n={n})"
         return cls(p=plan.p, n=n, R=R, C=C, rs=make_split(R),
                    cs=make_split(C), widths=plan.widths,
-                   max_word=plan.max_word)
+                   max_word=plan.max_word, pipe=pipe)
 
     @property
     def shape(self) -> tuple[int, int, int]:
@@ -208,25 +226,27 @@ class FourStepPlan:
         return self.C // LANES
 
 
-# Shape predicates of the JAX pipeline (kernels.py:936-977), without its
-# env overrides: the port covers exactly the branch they select here.
-
-R2FOLD_MAX = 1 << 19     # kernels.py:933 default
-CARRY_MAX = 1 << 21      # kernels.py:952 default
-
+# Shape predicates of the JAX pipeline (kernels.py:936-977), the budgets
+# read from the plan's Pipeline instead of the environment.
 
 def use_r2fold(fp: FourStepPlan) -> bool:
-    return fp.rs.L2 * fp.C <= R2FOLD_MAX
+    """P2/P6 inside the C-transform kernel (K2) rather than as K5 passes."""
+    return fp.rs.L2 * fp.C <= fp.pipe.r2fold_max
 
 
 def fc_split(fp: FourStepPlan) -> bool:
-    return fp.C // LANES > 32
+    """The C-transform's forward and inverse halves as two kernels (K6
+    "fwd", then K6b): at ca_count = 64, or when forced."""
+    return fp.C // LANES > 32 or fp.pipe.fc_split
 
 
 def carry_ct(fp: FourStepPlan) -> int:
+    """Digits per carry unit: C, halved while the JAX K1/K3 tile
+    (L1, S, CT) exceeds the carry budget (T = 2 at C = 8192)."""
     S = 8 if fp.rs.L2 % 8 == 0 else fp.rs.L2
     ct = fp.C
-    while fp.rs.L1 * S * ct > CARRY_MAX and ct % 256 == 0 and ct > 256:
+    while fp.rs.L1 * S * ct > fp.pipe.carry_max and ct % 256 == 0 \
+            and ct > 256:
         ct //= 2
     return ct
 
@@ -246,10 +266,10 @@ def carry_rounds(fp: FourStepPlan) -> int:
 
 
 def cin_row_k(fp: FourStepPlan) -> int:
-    """Spread parts per row: the smallest k whose leading k digit widths
-    cover >= 64 bits in every row (kernels.py:690, one carry unit = one
-    row)."""
-    wmat = fp.widths.reshape(fp.R, fp.C).astype(np.int64)
+    """Spread parts per carry unit: the smallest k whose leading k digit
+    widths cover >= 64 bits in every unit of carry_ct digits
+    (kernels.py:690)."""
+    wmat = fp.widths.reshape(-1, carry_ct(fp)).astype(np.int64)
     k = 1
     while int(wmat[:, :k].sum(axis=1).min()) < 64:
         k += 1
@@ -257,14 +277,16 @@ def cin_row_k(fp: FourStepPlan) -> int:
 
 
 def row_cin_plan(fp: FourStepPlan):
-    """(k, wt, cum): per-row spread widths and bit offsets, (R1, R2, k)
-    u32 (kernels.py:702, T == 1)."""
+    """(k, wt, cum): each carry unit's spread widths and bit offsets,
+    (R1, R2, T, k) u32 (kernels.py:702, without the 128-lane padding that
+    Mosaic's block rule needs there)."""
     k = cin_row_k(fp)
-    wmat = fp.widths.reshape(fp.R, fp.C).astype(np.int64)
+    T = carry_tiles(fp)
+    wmat = fp.widths.reshape(fp.R * T, -1).astype(np.int64)
     wt = wmat[:, :k].astype(np.uint32)
-    cum = np.zeros((fp.R, k), dtype=np.uint32)
+    cum = np.zeros((fp.R * T, k), dtype=np.uint32)
     cum[:, 1:] = np.cumsum(wt[:, :-1], axis=1)
-    sh = (fp.rs.L1, fp.rs.L2, k)
+    sh = (fp.rs.L1, fp.rs.L2, T, k)
     return k, wt.reshape(sh), cum.reshape(sh)
 
 
@@ -330,7 +352,7 @@ class FourStepTables:
 
 @dataclasses.dataclass(eq=False)
 class KernelTables:
-    """Everything the port's K1-K3 read (see the module docstring)."""
+    """Everything the port's kernels read (see the module docstring)."""
     fp: FourStepPlan
     k1_mats: np.ndarray
     g2: np.ndarray
@@ -348,6 +370,7 @@ class KernelTables:
     cum: np.ndarray
     widths: np.ndarray
     k: int
+    ct: int
     rounds: int
 
 
@@ -439,4 +462,4 @@ def build_tables(fp: FourStepPlan) -> KernelTables:
         ec=ec.astype(np.uint32),
         wt=wt, cum=cum,
         widths=fp.widths.reshape(R1, R2, C).astype(np.uint32),
-        k=k, rounds=carry_rounds(fp))
+        k=k, ct=carry_ct(fp), rounds=carry_rounds(fp))

@@ -1,26 +1,37 @@
-"""The three kernels of one squaring: wrappers, plain versions, counters.
+"""The kernels of one squaring: wrappers, plain versions, counters.
 
 Counterpart of prmers_tpu/ops/pallas/kernels.py on its row-carry branch
-(:474-916, :1164-1308, :1665-1743). A register is one int64 tensor
+(:474-916, :1164-1308, :1574-1743). A register is one int64 tensor
 (R1, R2, C) holding u64 bit patterns (digits, or lazy values mod P between
-kernels); the carry state is one int64 tensor (R1, R2): the out-carry of
-each row, NOT yet rolled (the JAX keeps (R1, R2, 128) u32 pairs with the
-value in lane 0; convert.py maps between them).
+kernels); the carry state is one int64 tensor (R1, R2, T): the out-carry of
+each carry unit of ct = C / T consecutive digits (T = 1: a whole row), NOT
+yet rolled (the JAX keeps (R1, R2, T*128) u32 pairs with the value in lane
+t*128; convert.py maps between them).
 
 Each wrapper takes its plain torch version for a CPU tensor, and launches
 its CUDA kernel (csrc/, ops/build.py) for a CUDA tensor; there is no other
-branch. `calls` counts, per wrapper, the calls that launched its CUDA
-kernel: one per call, however many grid launches the kernel takes (K1
-one; K2 three, two in mode "fwd"; K3 two).
+branch. `calls` counts, per kernel, the wrapper calls that launched it: one
+per call, however many grid launches the kernel takes (K2 three, two in
+mode "fwd"; K3 two; the others one).
 
-  K1 p1_carry_pass  csrc/k1_p1c.cu     carry inject, wrap halve, r1 DFT
-  K2 fused_c_pass   csrc/k2_fused_c.cu r2 DFT x mf, C-transform with the
-                                       mode (sqr/mul/fwd), mirror
-  K3 p7_carry_pass  csrc/k3_p7c.cu     r1 inverse DFT, double, canon,
-                                       x a or + (M_p - 2), carry
+  K1  p1_carry_pass         csrc/k1_p1c.cu      carry inject, wrap halve,
+                                                r1 DFT
+  K2  fused_c_pass          csrc/k2_fused_c.cu  r2 DFT x mf, C-transform
+      (r2fold)                                  with the mode, mirror
+  K3  p7_carry_pass         csrc/k3_p7c.cu      r1 inverse DFT, double,
+                                                canon, x a or + (M_p - 2),
+                                                carry per unit
+  K5  axis1_pass            csrc/k5_axis1.cu    P2 (r2 DFT x mf) or P6
+                                                (x mi, r2 inverse) alone
+  K6  fused_c_pass          csrc/k6_fused_c.cu  the C-transform with the
+      (r2fold off)                              mode, no r2 passes
+  K6b fused_c_invh_pass     csrc/k6_fused_c.cu  head op, inverse half of
+                                                the C-transform
 
-All three may run in place (out is x): each CUDA block reads the elements
-it writes before writing them.
+A step runs K1, the C-transform span `fused_mid` and K3; `fused_mid`
+picks K2, or K5 + K6 + K5, or K5 + K6 "fwd" + K6b + K5, exactly as the JAX
+`_fused_mid` (:1597) does. All may run in place (out is x): each CUDA
+block reads the elements it writes before writing them.
 """
 
 from __future__ import annotations
@@ -30,23 +41,31 @@ import dataclasses
 import torch
 
 from . import build
+from . import fourstep as tfs
 from . import gl64 as gl
-from .fourstep import KernelTables
 
-KERNELS = ("k1_p1c", "k2_fused_c", "k3_p7c")
+KERNELS = ("k1_p1c", "k2_fused_c", "k3_p7c", "k5_axis1", "k6_fused_c",
+           "k6b_fused_c_invh")
 SOURCES = {
     "k1_p1c": "prmers_tpu_torch/csrc/k1_p1c.cu",
     "k2_fused_c": "prmers_tpu_torch/csrc/k2_fused_c.cu",
     "k3_p7c": "prmers_tpu_torch/csrc/k3_p7c.cu",
+    "k5_axis1": "prmers_tpu_torch/csrc/k5_axis1.cu",
+    "k6_fused_c": "prmers_tpu_torch/csrc/k6_fused_c.cu",
+    "k6b_fused_c_invh": "prmers_tpu_torch/csrc/k6_fused_c.cu",
 }
 REPLACES = {
     "k1_p1c": "prmers_tpu/ops/pallas/kernels.py:512",
     "k2_fused_c": "prmers_tpu/ops/pallas/kernels.py:991",
     "k3_p7c": "prmers_tpu/ops/pallas/kernels.py:612",
+    "k5_axis1": "prmers_tpu/ops/pallas/kernels.py:130",
+    "k6_fused_c": "prmers_tpu/ops/pallas/kernels.py:991",
+    "k6b_fused_c_invh": "prmers_tpu/ops/pallas/kernels.py:1117",
 }
 calls = {name: 0 for name in KERNELS}
 
 MODES = {"sqr": 0, "mul": 1, "fwd": 2}
+HEAD_OPS = {"": 0, "sqr": 1, "mul": 2}
 
 
 def reset_calls() -> None:
@@ -75,10 +94,11 @@ class DevTables:
     cum: torch.Tensor
     widths: torch.Tensor
     k: int
+    ct: int
     rounds: int
 
     @classmethod
-    def from_host(cls, kt: KernelTables, device) -> "DevTables":
+    def from_host(cls, kt: tfs.KernelTables, device) -> "DevTables":
         def u64(a):
             return gl.from_numpy_u64(a, device)
 
@@ -90,11 +110,17 @@ class DevTables:
                    lane_i=u64(kt.lane_i), Mf=u64(kt.Mf), Mi=u64(kt.Mi),
                    tri=u64(kt.tri), k3_mats=u64(kt.k3_mats), er=i32(kt.er),
                    ec=i32(kt.ec), wt=i32(kt.wt), cum=i32(kt.cum),
-                   widths=i32(kt.widths), k=kt.k, rounds=kt.rounds)
+                   widths=i32(kt.widths), k=kt.k, ct=kt.ct,
+                   rounds=kt.rounds)
 
     @property
     def shape(self) -> tuple[int, int, int]:
         return tuple(self.mf.shape)
+
+    @property
+    def carry_shape(self) -> tuple[int, int, int]:
+        R1, R2, C = self.shape
+        return (R1, R2, C // self.ct)
 
     @property
     def device(self) -> torch.device:
@@ -110,9 +136,10 @@ def _on_cpu(x: torch.Tensor) -> bool:
 
 
 def _check(t: DevTables, regs=(), carries=()) -> None:
-    """Registers must be (R1, R2, C) and carries (R1, R2), all contiguous
-    int64 on the tables' device: the kernels index them from the shape."""
-    for shape, tensors in ((t.shape, regs), (t.shape[:2], carries)):
+    """Registers must be (R1, R2, C) and carries (R1, R2, T), all
+    contiguous int64 on the tables' device: the kernels index them from
+    the shape."""
+    for shape, tensors in ((t.shape, regs), (t.carry_shape, carries)):
         for x in tensors:
             if x is None:
                 continue
@@ -128,6 +155,10 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _ptr(x: torch.Tensor | None):
+    return None if x is None else x.data_ptr()
+
+
 def _wrap_mask(t: DevTables) -> torch.Tensor:
     """(R1, R2, C) bool: er + ec >= n (the weight's root-of-2 wrap)."""
     R1, R2, C = t.shape
@@ -136,9 +167,14 @@ def _wrap_mask(t: DevTables) -> torch.Tensor:
     return (er + ec) >= t.fp.n
 
 
+def _units(t: DevTables, x: torch.Tensor) -> torch.Tensor:
+    """(R1, R2, C) -> (R1, R2, T, ct): one carry unit per last-axis run."""
+    return x.reshape(t.carry_shape + (t.ct,))
+
+
 def roll_row_carries(co: torch.Tensor) -> torch.Tensor:
-    """Roll the per-row carries by one flat row: row f receives row f-1's
-    carry, row 0 the last row's (the mod-M_p fold); kernels.py:889."""
+    """Roll the unit carries by one flat carry unit: unit u receives unit
+    u-1's carry, unit 0 the last unit's (the mod-M_p fold); kernels.py:889."""
     return torch.roll(co.reshape(-1), 1).reshape(co.shape)
 
 
@@ -147,8 +183,8 @@ def roll_row_carries(co: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def inject_parts(t: DevTables, cin: torch.Tensor) -> torch.Tensor:
-    """Each row's incoming carry (already rolled) spread base-2^width over
-    its first k digits: (R1, R2, k) parts < 2^32 (kernels.py:474)."""
+    """Each unit's incoming carry (already rolled) spread base-2^width over
+    its first k digits: (R1, R2, T, k) parts < 2^32 (kernels.py:474)."""
     c0, c1 = gl.split(cin.unsqueeze(-1))
     cm = t.cum.to(torch.int64)
     w = t.wt.to(torch.int64)
@@ -165,12 +201,13 @@ def inject_parts(t: DevTables, cin: torch.Tensor) -> torch.Tensor:
 
 def p1_carry_plain(t: DevTables, x: torch.Tensor,
                    co: torch.Tensor) -> torch.Tensor:
-    """Plain K1: inject the rolled row carries, halve where wrapped, then
+    """Plain K1: inject the rolled unit carries, halve where wrapped, then
     the per-r2 folded r1 DFT."""
     k = t.k
     parts = inject_parts(t, roll_row_carries(co))
-    head = x[..., :k] + parts           # digits < 2^32: no u64 wrap
-    y = torch.cat([head, x[..., k:]], dim=-1)
+    xu = _units(t, x)
+    head = xu[..., :k] + parts           # digits < 2^32: no u64 wrap
+    y = torch.cat([head, xu[..., k:]], dim=-1).reshape(t.shape)
     y = gl.join(*gl.halve_where(*gl.split(y), _wrap_mask(t)))
     # out[k1, r2, c] = sum_j k1_mats[r2][k1][j] * y[j, r2, c]
     out = gl.matmul_mod(t.k1_mats, y.permute(1, 0, 2))
@@ -189,15 +226,52 @@ def p1_carry_pass(t: DevTables, x: torch.Tensor, co: torch.Tensor,
         out = torch.empty_like(x)
     err = build.lib().prmers_k1_p1c(
         x.data_ptr(), out.data_ptr(), co.data_ptr(), t.wt.data_ptr(),
-        t.cum.data_ptr(), t.k, t.er.data_ptr(), t.ec.data_ptr(), t.fp.n,
-        t.k1_mats.data_ptr(), R1, R2, C, _stream())
+        t.cum.data_ptr(), t.k, t.ct, t.er.data_ptr(), t.ec.data_ptr(),
+        t.fp.n, t.k1_mats.data_ptr(), R1, R2, C, _stream())
     calls["k1_p1c"] += 1
     build.check(err, "k1_p1c")
     return out
 
 
 # ---------------------------------------------------------------------------
-# K2
+# K5: the r2 passes alone
+# ---------------------------------------------------------------------------
+
+def axis1_plain(t: DevTables, x: torch.Tensor, which: str) -> torch.Tensor:
+    """Plain K5: "p2" is the r2 DFT, then x mf; "p6" is x mi, then the r2
+    inverse with the r1's tr_inv matrix."""
+    if which == "p2":
+        return gl.mulmod(gl.matmul_mod(t.g2, x), t.mf)
+    if which == "p6":
+        return gl.matmul_mod(t.tri, gl.mulmod(x, t.mi))
+    raise ValueError(which)
+
+
+def axis1_pass(t: DevTables, x: torch.Tensor, which: str,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """K5: P2 or P6 over the whole register (kernels.py:1574-1594)."""
+    if which not in ("p2", "p6"):
+        raise ValueError(which)
+    _check(t, (x, out))
+    if _on_cpu(x):
+        r = axis1_plain(t, x, which)
+        return r if out is None else out.copy_(r)
+    R1, R2, C = t.shape
+    if out is None:
+        out = torch.empty_like(x)
+    inverse = which == "p6"
+    err = build.lib().prmers_k5_axis1(
+        x.data_ptr(), out.data_ptr(),
+        (t.tri if inverse else t.g2).data_ptr(),
+        (t.mi if inverse else t.mf).data_ptr(), int(inverse), R1, R2, C,
+        _stream())
+    calls["k5_axis1"] += 1
+    build.check(err, "k5_axis1")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2, K6, K6b: the C-transform
 # ---------------------------------------------------------------------------
 
 def _slot_mat(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
@@ -205,53 +279,129 @@ def _slot_mat(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return gl.matmul_mod(v.permute(1, 0, 2), M).permute(1, 0, 2)
 
 
+def _head_op(v: torch.Tensor, op: str, u: torch.Tensor | None):
+    if op == "sqr":
+        return gl.mulmod(v, v)
+    if op == "mul":
+        return gl.mulmod(v, u.reshape(v.shape))
+    if op == "":
+        return v
+    raise ValueError(op)
+
+
+def _inv_half(t: DevTables, v: torch.Tensor) -> torch.Tensor:
+    """The Mi slot products, then the inverse lane DFT; (R1, R2, C) out."""
+    v = gl.matmul_mod(t.lane_i, _slot_mat(v, t.Mi))
+    return v.reshape(t.shape)
+
+
 def fused_c_plain(t: DevTables, x: torch.Tensor, mode: str,
-                  u: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain K2 (r2fold form): r2 DFT x mf, lane DFT, slot products, the
-    mode, and (unless "fwd") the mirror back through the r2 inverse."""
+                  u: torch.Tensor | None = None,
+                  r2fold: bool = True) -> torch.Tensor:
+    """Plain K2 (r2fold) or K6: [P2], lane DFT, slot products, the mode,
+    and (unless "fwd") the mirror back, [then P6]."""
     R1, R2, C = t.shape
-    R = R1 * R2
-    ca = C // 128
-    y = gl.mulmod(gl.matmul_mod(t.g2, x), t.mf)
-    v = gl.matmul_mod(t.lane_f, y.reshape(R, ca, 128))
+    y = axis1_plain(t, x, "p2") if r2fold else x
+    v = gl.matmul_mod(t.lane_f, y.reshape(R1 * R2, C // 128, 128))
     v = _slot_mat(v, t.Mf)
     if mode == "fwd":
-        return v.reshape(R1, R2, C).contiguous()
-    if mode == "sqr":
-        v = gl.mulmod(v, v)
-    elif mode == "mul":
-        v = gl.mulmod(v, u.reshape(R, ca, 128))
-    else:
+        return v.reshape(t.shape).contiguous()
+    if mode not in ("sqr", "mul"):
         raise ValueError(mode)
-    v = gl.matmul_mod(t.lane_i, _slot_mat(v, t.Mi))
-    y = gl.mulmod(v.reshape(R1, R2, C), t.mi)
-    return gl.matmul_mod(t.tri, y).contiguous()
+    y = _inv_half(t, _head_op(v, mode, u))
+    return (axis1_plain(t, y, "p6") if r2fold else y).contiguous()
 
 
 def fused_c_pass(t: DevTables, x: torch.Tensor, mode: str,
                  u: torch.Tensor | None = None,
-                 out: torch.Tensor | None = None) -> torch.Tensor:
-    """K2 on the K1 output; mode "sqr", "mul" (u = spectral multiplicand)
-    or "fwd" (stop after the forward C-transform)."""
+                 out: torch.Tensor | None = None,
+                 r2fold: bool = True) -> torch.Tensor:
+    """The C-transform on the K1 output (r2fold: K2, with P2/P6 inside) or
+    on the P2 output (r2fold off: K6); mode "sqr", "mul" (u = spectral
+    multiplicand) or "fwd" (stop after the forward C-transform)."""
     if mode not in MODES:
         raise ValueError(mode)
     if (mode == "mul") != (u is not None):
         raise ValueError("u is the operand of mode 'mul' only")
     _check(t, (x, u, out))
     if _on_cpu(x):
-        r = fused_c_plain(t, x, mode, u)
+        r = fused_c_plain(t, x, mode, u, r2fold)
         return r if out is None else out.copy_(r)
     R1, R2, C = t.shape
     if out is None:
         out = torch.empty_like(x)
-    err = build.lib().prmers_k2_fused_c(
-        x.data_ptr(), out.data_ptr(), u.data_ptr() if u is not None else None,
-        MODES[mode], t.g2.data_ptr(), t.mf.data_ptr(), t.lane_f.data_ptr(),
-        t.lane_i.data_ptr(), t.Mf.data_ptr(), t.Mi.data_ptr(),
-        t.mi.data_ptr(), t.tri.data_ptr(), R1, R2, C, _stream())
-    calls["k2_fused_c"] += 1
-    build.check(err, "k2_fused_c")
+    lib = build.lib()
+    if r2fold:
+        name = "k2_fused_c"
+        err = lib.prmers_k2_fused_c(
+            x.data_ptr(), out.data_ptr(), _ptr(u), MODES[mode],
+            t.g2.data_ptr(), t.mf.data_ptr(), t.lane_f.data_ptr(),
+            t.lane_i.data_ptr(), t.Mf.data_ptr(), t.Mi.data_ptr(),
+            t.mi.data_ptr(), t.tri.data_ptr(), R1, R2, C, _stream())
+    else:
+        name = "k6_fused_c"
+        err = lib.prmers_k6_fused_c(
+            x.data_ptr(), out.data_ptr(), _ptr(u), MODES[mode],
+            t.lane_f.data_ptr(), t.lane_i.data_ptr(), t.Mf.data_ptr(),
+            t.Mi.data_ptr(), R1 * R2, C, _stream())
+    calls[name] += 1
+    build.check(err, name)
     return out
+
+
+def fused_c_invh_plain(t: DevTables, x: torch.Tensor, op: str,
+                       u: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain K6b: the head op ("sqr", "mul" or ""), then the inverse
+    half."""
+    R1, R2, C = t.shape
+    v = _head_op(x.reshape(R1 * R2, C // 128, 128), op, u)
+    return _inv_half(t, v).contiguous()
+
+
+def fused_c_invh_pass(t: DevTables, x: torch.Tensor, op: str,
+                      u: torch.Tensor | None = None,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """K6b on K6 "fwd"'s spectral output (kernels.py:1176-1219)."""
+    if op not in HEAD_OPS:
+        raise ValueError(op)
+    if (op == "mul") != (u is not None):
+        raise ValueError("u is the operand of op 'mul' only")
+    _check(t, (x, u, out))
+    if _on_cpu(x):
+        r = fused_c_invh_plain(t, x, op, u)
+        return r if out is None else out.copy_(r)
+    R1, R2, C = t.shape
+    if out is None:
+        out = torch.empty_like(x)
+    err = build.lib().prmers_k6b_fused_c_invh(
+        x.data_ptr(), out.data_ptr(), _ptr(u), HEAD_OPS[op],
+        t.lane_i.data_ptr(), t.Mi.data_ptr(), R1 * R2, C, _stream())
+    calls["k6b_fused_c_invh"] += 1
+    build.check(err, "k6b_fused_c_invh")
+    return out
+
+
+def fused_mid(t: DevTables, s: torch.Tensor, mode: str,
+              u: torch.Tensor | None = None) -> torch.Tensor:
+    """The C-transform span of a step, in place on s, with the branch the
+    JAX `_fused_mid` (kernels.py:1597-1616) takes: K2 when the r2 passes
+    fold and the halves need no split; else K5 P2, then K6 (or K6 "fwd" +
+    K6b when split), then K5 P6. Mode "fwd" stops at the spectral value."""
+    fp = t.fp
+    split = tfs.fc_split(fp)
+    if tfs.use_r2fold(fp) and not split:
+        return fused_c_pass(t, s, mode, u=u, out=s)
+    s = axis1_pass(t, s, "p2", out=s)
+    if not split:
+        s = fused_c_pass(t, s, mode, u=u, out=s, r2fold=False)
+        if mode == "fwd":
+            return s
+    else:
+        s = fused_c_pass(t, s, "fwd", out=s, r2fold=False)
+        if mode == "fwd":
+            return s
+        s = fused_c_invh_pass(t, s, mode, u=u, out=s)
+    return axis1_pass(t, s, "p6", out=s)
 
 
 # ---------------------------------------------------------------------------
@@ -271,20 +421,20 @@ def p7_dft_plain(t: DevTables, x: torch.Tensor, a: int = 1) -> torch.Tensor:
 def carry_plain(t: DevTables, y: torch.Tensor, sub2: bool = False,
                 s2: int = 2):
     """K3's second half on canonical y: optional + (M_p - s2), the
-    digit/carry split, the lane-ripple rounds, the residual added unsplit;
-    returns (digits, row out-carries) (kernels.py:562-609, :655-667)."""
-    R1, R2, C = t.shape
-    w = t.widths.to(torch.int64)
+    digit/carry split, the lane-ripple rounds inside each carry unit, the
+    residual added unsplit; returns (digits, unit out-carries)
+    (kernels.py:562-609, :655-667)."""
+    w = _units(t, t.widths.to(torch.int64))
     mk = (1 << w) - 1
-    y0, y1 = gl.split(y)
+    y0, y1 = gl.split(_units(t, y))
     if sub2:
         add = mk.clone()
-        add.view(-1)[0] -= s2
+        add.view(-1)[0] -= s2            # global digit 0 only
         y0, y1 = gl.norm(y0 + add, y1)   # y < P, so y + add < 2^64: exact
     d = y0 & mk
     # y >> w with w in [1, 32): < 2^(64-w), a non-negative int64
     c = gl.join(((y0 >> w) | (y1 << (32 - w))) & gl.M32, y1 >> w)
-    acc = torch.zeros((R1, R2), dtype=torch.int64, device=y.device)
+    acc = torch.zeros(t.carry_shape, dtype=torch.int64, device=y.device)
 
     def shift(c):
         sh = torch.zeros_like(c)
@@ -300,7 +450,7 @@ def carry_plain(t: DevTables, y: torch.Tensor, sub2: bool = False,
     sh, out = shift(c)
     acc = acc + out
     d = (d + (sh & gl.M32)) & gl.M32
-    return d, acc
+    return d.reshape(t.shape), acc
 
 
 def p7_carry_plain(t: DevTables, x: torch.Tensor, a: int = 1,
@@ -311,7 +461,8 @@ def p7_carry_plain(t: DevTables, x: torch.Tensor, a: int = 1,
 def p7_carry_pass(t: DevTables, x: torch.Tensor, a: int = 1,
                   sub2: bool = False, out: torch.Tensor | None = None,
                   co_out: torch.Tensor | None = None):
-    """K3 on the K2 output: returns (digits, out-carries (R1, R2))."""
+    """K3 on the C-transform's output: returns (digits, unit out-carries
+    (R1, R2, T))."""
     if sub2 and a != 1:
         raise ValueError("the LL sub2 step never rides the x a path")
     if not 0 < a < (1 << 32):
@@ -328,12 +479,13 @@ def p7_carry_pass(t: DevTables, x: torch.Tensor, a: int = 1,
     if out is None:
         out = torch.empty_like(x)
     if co_out is None:
-        co_out = torch.empty((R1, R2), dtype=torch.int64, device=x.device)
+        co_out = torch.empty(t.carry_shape, dtype=torch.int64,
+                             device=x.device)
     err = build.lib().prmers_k3_p7c(
         x.data_ptr(), out.data_ptr(), co_out.data_ptr(),
         t.k3_mats.data_ptr(), t.er.data_ptr(), t.ec.data_ptr(), t.fp.n,
         t.widths.data_ptr(), t.rounds, a, int(a != 1), int(sub2), 2,
-        R1, R2, C, _stream())
+        R1, R2, C, t.ct, _stream())
     calls["k3_p7c"] += 1
     build.check(err, "k3_p7c")
     return out, co_out
@@ -347,18 +499,18 @@ def square_step(t: DevTables, x, co, a: int = 1, sub2: bool = False,
                 out=None, co_out=None):
     """One x^2 * a (or x^2 - 2 with sub2) iteration; returns (x, co)."""
     s = p1_carry_pass(t, x, co, out=out)
-    s = fused_c_pass(t, s, "sqr", out=s)
+    s = fused_mid(t, s, "sqr")
     return p7_carry_pass(t, s, a, sub2, out=s, co_out=co_out)
 
 
 def mul_step(t: DevTables, x, co, u, a: int = 1, out=None, co_out=None):
     """x * multiplicand(u) * a; u is fwd_step's spectral output."""
     s = p1_carry_pass(t, x, co, out=out)
-    s = fused_c_pass(t, s, "mul", u=u, out=s)
+    s = fused_mid(t, s, "mul", u=u)
     return p7_carry_pass(t, s, a, out=s, co_out=co_out)
 
 
 def fwd_step(t: DevTables, x, co, out=None):
     """Forward transform only: the spectral multiplicand of (x, co)."""
     s = p1_carry_pass(t, x, co, out=out)
-    return fused_c_pass(t, s, "fwd", out=s)
+    return fused_mid(t, s, "fwd")

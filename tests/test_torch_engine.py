@@ -23,6 +23,17 @@ P_EXP = int(N * 16.5) | 1
 MP = (1 << P_EXP) - 1
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the test workers run side by side,
+    and torch's thread pools in each of them would oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port():
     return FourStepEngine(P_EXP, 8, plan=build_plan(P_EXP, n=N),
                           device="cpu")

@@ -28,6 +28,17 @@ P_EXP = int(N * 16.5) | 1
 GP = (1 << 64) - (1 << 32) + 1
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the test workers run side by side,
+    and torch's thread pools in each of them would oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_side():
     saved = {k: os.environ.get(k) for k in
@@ -94,7 +105,7 @@ def stages(jax_side, port):
     sh = t.shape
     rng = np.random.default_rng(11)
     x = _digits(plan, rng).reshape(sh)
-    co = rng.integers(0, 1 << 40, size=sh[:2], dtype=np.uint64)
+    co = rng.integers(0, 1 << 40, size=t.carry_shape, dtype=np.uint64)
     co[0, 0] = (1 << 45) + 12345          # a wide carry in the last-row wrap
     co[-1, -1] = (1 << 46) - 1
     return dict(x=x, co=co, sh=sh, jnp=jnp)
@@ -154,7 +165,7 @@ def test_k3_matches_pallas(jax_side, port, stages, variant):
         sub2=(variant == "sub2") or None)
     d, co = tk.p7_carry_pass(t, _t(z), a=a, sub2=(variant == "sub2"))
     assert (_u64(d0, d1) == _np(d)).all()
-    assert (_u64(co0, co1)[..., 0] == _np(co)).all()
+    assert (_u64(co0, co1)[..., ::128] == _np(co)).all()
     assert (np.asarray(co0)[..., 1:] == 0).all()
 
 
@@ -174,7 +185,7 @@ def test_precarry_pipeline_matches_square_ref():
     x = _digits(plan, rng)
     want = fs.square_ref(tj, x)
     xt = _t(x.reshape(t.shape))
-    zero = torch.zeros(t.shape[:2], dtype=torch.int64)
+    zero = torch.zeros(t.carry_shape, dtype=torch.int64)
     s = tk.p1_carry_plain(t, xt, zero)
     s = tk.fused_c_plain(t, s, "sqr")
     got = _np(tk.p7_dft_plain(t, s)).reshape(-1)
@@ -190,7 +201,7 @@ def test_square_step_value(port):
     x = _digits(plan, rng)
     v = dg.digits_to_int(x, plan.widths)
     xt = _t(x.reshape(t.shape))
-    co = torch.zeros(t.shape[:2], dtype=torch.int64)
+    co = torch.zeros(t.carry_shape, dtype=torch.int64)
     for _ in range(2):
         xt, co = tk.square_step(t, xt, co, a=3)
         v = v * v * 3 % mp
@@ -208,7 +219,7 @@ def test_wrappers_refuse_bad_operands(port):
     shape, dtype or layout raises before any pointer is handed over."""
     plan, t = port
     x = torch.zeros(t.shape, dtype=torch.int64)
-    co = torch.zeros(t.shape[:2], dtype=torch.int64)
+    co = torch.zeros(t.carry_shape, dtype=torch.int64)
     strided = torch.zeros(t.shape[:2] + (2 * t.shape[2],),
                           dtype=torch.int64)[..., ::2]
     bad = [(x[:, :, :-128], co), (x.to(torch.int32), co), (strided, co),
@@ -222,32 +233,56 @@ def test_wrappers_refuse_bad_operands(port):
         tk.p7_carry_pass(t, x, co_out=co.reshape(-1))
 
 
+GPU_CASES = {str(logn): (logn, tfs.Pipeline()) for logn in range(15, 27)}
+GPU_CASES.update({
+    "16-t4": (16, tfs.Pipeline(carry_max=16384)),
+    "18-split-t2": (18, tfs.Pipeline(r2fold_max=2048, carry_max=1 << 17,
+                                     fc_split=True)),
+    "18-k6": (18, tfs.Pipeline(r2fold_max=2048)),
+})
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("logn", range(15, 25))
-def test_cuda_kernels_match_plain(logn):
+@pytest.mark.parametrize("case", list(GPU_CASES))
+def test_cuda_kernels_match_plain(case):
     """On the card: every kernel wrapper against its plain version at each
-    n = 2^logn the engine takes, 2^15 ... 2^24 (R2 = 1 ... 64, C = 1024 ...
-    4096, so every rows-per-block branch of K2 and K3). K3 takes K2's lazy
-    output, as on the main path."""
+    n = 2^logn the engine takes, 2^15 ... 2^26 (R2 = 1 ... 128, C = 1024
+    ... 8192, so every rows-per-block branch of the row kernel and every
+    carry unit of K3b), and at the forced big-shape pipelines (T = 4 and
+    T = 2 carry units at small n). K3 takes the C-transform's lazy output,
+    as on the main path; K6b takes K6 "fwd"'s."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    logn, pipe = GPU_CASES[case]
     n = 1 << logn
     plan = build_plan(int(n * 16.5) | 1, n=n)
     t = tk.DevTables.from_host(
-        tfs.build_tables(tfs.FourStepPlan.from_plan(plan)), "cuda")
+        tfs.build_tables(tfs.FourStepPlan.from_plan(plan, pipe)), "cuda")
     rng = np.random.default_rng(logn)
     x = _t(_digits(plan, rng).reshape(t.shape)).cuda()
-    co = torch.from_numpy(rng.integers(0, 1 << 40, size=t.shape[:2],
+    co = torch.from_numpy(rng.integers(0, 1 << 40, size=t.carry_shape,
                                        dtype=np.int64)).cuda()
+
+    def same(got, want):
+        return torch.equal(tgl.canon64(got), tgl.canon64(want))
+
     s = tk.p1_carry_pass(t, x, co)
-    assert torch.equal(tgl.canon64(s), tgl.canon64(tk.p1_carry_plain(t, x, co)))
-    for mode in ("sqr", "fwd", "mul"):
-        u = s if mode == "mul" else None
-        got = tk.fused_c_pass(t, s, mode, u=u)
-        want = tk.fused_c_plain(t, s, mode, u)
-        assert torch.equal(tgl.canon64(got), tgl.canon64(want)), mode
-        if mode == "sqr":
-            z = got
+    assert same(s, tk.p1_carry_plain(t, x, co))
+    for which in ("p2", "p6"):
+        assert same(tk.axis1_pass(t, s, which), tk.axis1_plain(t, s, which))
+    for r2fold in (True, False):
+        for mode in ("sqr", "fwd", "mul"):
+            u = s if mode == "mul" else None
+            got = tk.fused_c_pass(t, s, mode, u=u, r2fold=r2fold)
+            want = tk.fused_c_plain(t, s, mode, u, r2fold)
+            assert same(got, want), (r2fold, mode)
+            if mode == "fwd" and not r2fold:
+                v = got
+    for op in ("sqr", "mul", ""):
+        u = s if op == "mul" else None
+        assert same(tk.fused_c_invh_pass(t, v, op, u=u),
+                    tk.fused_c_invh_plain(t, v, op, u)), op
+    z = tk.fused_mid(t, s.clone(), "sqr")
     for a, sub2 in ((1, False), (3, False), (1, True)):
         d, c = tk.p7_carry_pass(t, z, a=a, sub2=sub2)
         dw, cw = tk.p7_carry_plain(t, z, a, sub2)

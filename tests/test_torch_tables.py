@@ -77,7 +77,7 @@ def test_plan_matches(both):
 
 def test_n_sized_tables_match(both):
     fp, jt, kt, kn = both
-    got = convert.tables_from_jax(jt)
+    got = convert.tables_from_jax(jt, kt.k)
     for name in ("mf", "mi", "er", "ec", "wt", "cum", "widths"):
         mine = getattr(kt, name)
         assert got[name].shape == mine.shape, name
@@ -96,7 +96,7 @@ def test_folded_matrices_match(both):
     assert (_decode_rhs(wi8, 128) == kt.Mi).all()
 
 
-@pytest.mark.parametrize("L", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("L", [1, 2, 4, 8, 16, 32, 64, 128])
 def test_dft_matrix_matches(L):
     from prmers_tpu.ops.pallas import mxu_dft as mx
     for inverse in (False, True):
@@ -107,13 +107,13 @@ def test_convert_roundtrips():
     rng = np.random.default_rng(2)
     sh = (32, 1, 1024)
     x = rng.integers(0, 1 << 64, size=sh, dtype=np.uint64)
-    co = rng.integers(0, 1 << 64, size=sh[:2], dtype=np.uint64)
+    co = rng.integers(0, 1 << 64, size=sh[:2] + (1,), dtype=np.uint64)
     (x0, x1), (c0, c1) = convert.state_to_jax(x, co)
     assert x0.dtype == np.uint32 and c0.shape == sh[:2] + (128,)
     assert (c0[..., 1:] == 0).all() and (c1[..., 1:] == 0).all()
     x2, co2 = convert.state_from_jax(x0, x1, c0, c1)
-    assert (x2 == x).all() and (co2 == co).all()
+    assert (x2 == x).all() and co2.shape == co.shape and (co2 == co).all()
     u0, u1 = convert.to_pairs(x)
     assert (convert.from_pairs(u0, u1) == x).all()
     with pytest.raises(ValueError):
-        convert.state_from_jax(x0, x1, np.zeros(sh[:2] + (256,)), c1)
+        convert.state_from_jax(x0, x1, np.zeros(sh[:2] + (200,)), c1)
