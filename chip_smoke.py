@@ -3,9 +3,11 @@
 
 Run from the repository root with no arguments: python3 chip_smoke.py
 
-It drives two paths of the port: the n = 2^23 path (K1, K2, K3 with
-whole-row carries) and the C = 8192 big-shape path of n = 2^25 and 2^26
-(K1 and K3 with T = 2 carry units per row, K5, K6 "fwd", K6b, K5). Phases;
+It drives three paths of the port: the n = 2^23 path (K1, K2, K3 with
+whole-row carries), the C = 8192 big-shape path of n = 2^25 and 2^26
+(K1 and K3 with T = 2 carry units per row, K5, K6 "fwd", K6b, K5) and the
+chain path of n = 2^15 ... 2^19 (K9, the whole squaring chain in one
+persistent launch; K1-K3 for the multiplicand, mul and LL steps). Phases;
 any failure raises and the script exits non-zero with no result:
   1. the card (nvidia-smi name and power limit) and the kernel build
      (one nvcc per prmers_tpu_torch/csrc/*.cu, all at once, timed);
@@ -18,19 +20,33 @@ any failure raises and the script exits non-zero with no result:
      C-transform's lazy output, as on the main path. Tolerance: none. The
      arithmetic is exact mod P: K1/K2/K5/K6/K6b outputs are compared after
      canon, K3's digits and unit carries bit for bit. The host table build
-     time and peak memory are logged at 2^25 and 2^26;
+     time and peak memory are logged at 2^25 and 2^26. K9 at n = 2^15,
+     2^16, 2^17, 2^18 and 2^19: a = [3, 1, 3] from random digits and random
+     carries, then a chain of 2 that consumes the carries; digits and
+     carries bit for bit against its plain version and against as many
+     steps of the CUDA three-kernel path;
   3. each path through create_engine and the Engine API the PRP/LL
-     modes call, at p = 136279841 and at p = 600000001: squarings and
+     modes call, at p = 136279841, at p = 600000001 and (the chain path)
+     at p = 9999991 (n = 2^19): squarings and
      a x3 of a sparse value 3 * 2^s (its exact value is cheap), a dense x3
      squaring, set_multiplicand + mul and an LL sub2 step of dense random
      values, all checked against GMP big-int. The wrapper call counts (one
      per call that launched a kernel) are reset just before each path and
-     read just after; every kernel of the path must be > 0;
+     read just after; every kernel of the path must be > 0, and on the
+     chain path K1-K3 run only for set_multiplicand, mul and the LL step;
   4. the timed PRP chain (iter/s) at p = 136279841, 600000001 and
-     1000000007, and each kernel's time against its plain version at
-     n = 2^23 (K1-K3) and 2^25 (the big-shape kernels), by CUDA events;
+     1000000007, and at p = 756839 and 9999991 through K9 and through the
+     three-kernel step (Pipeline(chain=False)); K9 against the three-kernel
+     step and the plain chain, ms per squaring, at each n from 2^15 to
+     2^19; each kernel's time against its plain version at n = 2^23
+     (K1-K3), 2^25 (the big-shape kernels) and 2^19 (K9), by CUDA events,
+     beside its bound: the larger of its bytes (each input read once, each
+     output written once) over 3.35 TB/s and its mod-P products, 64 int8
+     MACs = 128 int8 operations each in the JAX package's limb-plane form,
+     over 1,979 TOP/s. No PyTorch call computes a Goldilocks product, so
+     library_ms is null;
   5. `python -m prmers_tpu_torch 756839 -noproof` in a subprocess: the
-     PRP of M756839 (n = 2^15) must report prime.
+     PRP of M756839 (n = 2^15, through K9) must report prime.
 
 The last three lines of standard output are the per-kernel JSON object,
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -48,11 +64,15 @@ import tracemalloc
 P_MAIN = 136279841      # n = 2^23
 P_BIG = 600000001       # n = 2^25
 P_HUGE = 1000000007     # n = 2^26
-P_GOLDEN = 756839
+P_CHAIN = 9999991       # n = 2^19, the top of K9's range (L2 = 8)
+P_GOLDEN = 756839       # n = 2^15, K9's smallest shape
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+OPS_PER_PRODUCT = 128   # 64 int8 MACs per mod-P product (limb planes)
 
 # (name in the JSON line, wrapper counter, the path whose counts it
 # reports); the main path's kernels are timed at n = 2^23, the big path's
-# at 2^25
+# at 2^25, K9 at 2^19 (per squaring)
 ENTRIES = [
     ("k1_p1c", "k1_p1c", "main"),
     ("k2_fused_c", "k2_fused_c", "main"),
@@ -62,6 +82,7 @@ ENTRIES = [
     ("k5_axis1", "k5_axis1", "big"),
     ("k6_fused_c", "k6_fused_c", "big"),
     ("k6b_fused_c_invh", "k6b_fused_c_invh", "big"),
+    ("k9_chain", "k9_chain", "chain"),
 ]
 
 
@@ -79,15 +100,15 @@ def main() -> int:
     import numpy as np
 
     from prmers_tpu_torch import bench
+    from prmers_tpu_torch.core.plan import build_plan, cached_plan
     from prmers_tpu_torch.engine.factory import create_engine
     from prmers_tpu_torch.engine.fourstep_engine import get_tables
-    from prmers_tpu_torch.host import build_plan, cached_plan
-    from prmers_tpu_torch.host import digits as dg
-    from prmers_tpu_torch.host import gmp
     from prmers_tpu_torch.ops import build
     from prmers_tpu_torch.ops import fourstep as tfs
     from prmers_tpu_torch.ops import gl64 as gl
     from prmers_tpu_torch.ops import kernels as tk
+    from prmers_tpu_torch.utils import digits as dg
+    from prmers_tpu_torch.utils import gmp
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -187,6 +208,40 @@ def main() -> int:
     case("n=2^26", P_HUGE, cached_plan(P_HUGE).n)
     torch.cuda.empty_cache()
 
+    def chain_case(logn):
+        """K9 from random digits and carries, a = [3, 1, 3], then a chain
+        of 2 on its carries: bit for bit against the plain chain and the
+        CUDA three-kernel steps."""
+        n = 1 << logn
+        p = P_CHAIN if logn == 19 else int(n * 16.5) | 1
+        plan, t = tables(p, n)
+        if not tfs.chain_ok(t.fp):
+            raise AssertionError(f"K9 does not take n=2^{logn}")
+        rng = np.random.default_rng(100 + logn)
+        v = int.from_bytes(rng.bytes(p // 8 + 1), "little") % ((1 << p) - 1)
+        x0 = gl.from_numpy_u64(dg.int_to_digits(v, plan.widths),
+                               dev).reshape(t.shape)
+        co0 = torch.from_numpy(rng.integers(0, 1 << 40, size=t.carry_shape,
+                                            dtype=np.int64)).to(dev)
+        x, co = x0, co0
+        for a in ([3, 1, 3], [1, 3]):
+            d, c = tk.square_chain(t, x, co, a)
+            dw, cw = tk.square_chain_plain(t, x, co, a, len(a))
+            what = f"n=2^{logn} a={a}"
+            record("k9_chain", what + " digits", d, dw, canon=False)
+            record("k9_chain", what + " carries", c, cw, canon=False)
+            sx, sc = x, co
+            for ak in a:
+                sx, sc = tk.square_step(t, sx, sc, a=ak)
+            record("k9_chain", what + " digits vs 3-kernel steps", d, sx,
+                   canon=False)
+            record("k9_chain", what + " carries vs 3-kernel steps", c, sc,
+                   canon=False)
+            x, co = d, c
+        return t, x0, co0
+
+    chain_in = {logn: chain_case(logn) for logn in range(15, 20)}
+
     # ---- 3: both paths through the Engine API, against GMP ----------------
     log(f"[3] HAVE_GMP {gmp.HAVE_GMP}")
     if not gmp.HAVE_GMP:
@@ -246,6 +301,15 @@ def main() -> int:
     counts["big"] = drive(P_BIG, "big", ("k1_p1c", "k3_p7c", "k5_axis1",
                                          "k6_fused_c", "k6b_fused_c_invh"))
     torch.cuda.empty_cache()
+    counts["chain"] = drive(P_CHAIN, "chain", ("k9_chain",))
+    # on the chain path K1-K3 serve set_multiplicand (K1, K2 "fwd"), mul
+    # and the LL sub2 step (K1, K2, K3 each), and nothing else
+    want = {name: 0 for name in tk.KERNELS}
+    want.update(k1_p1c=3, k2_fused_c=3, k3_p7c=2,
+                k9_chain=counts["chain"]["k9_chain"])
+    if counts["chain"] != want:
+        raise AssertionError(f"chain path wrapper calls {counts['chain']}, "
+                             f"expected {want}")
 
     # ---- 4: timings -------------------------------------------------------
     for p, warm, iters in ((P_MAIN, 16, 192), (P_BIG, 4, 48),
@@ -253,6 +317,16 @@ def main() -> int:
         ips = bench.measure(p, warm=warm, iters=iters)
         log(f"[4] PRP {ips:.6f} iter/s @ p={p} ({card})")
         torch.cuda.empty_cache()
+    no_chain = tfs.Pipeline(chain=False)
+    for p, iters in ((P_GOLDEN, 4096), (P_CHAIN, 1024)):
+        got = {"K9": [], "3-kernel": []}
+        for label in ("K9", "3-kernel", "3-kernel", "K9"):
+            pipe = None if label == "K9" else no_chain
+            got[label].append(bench.measure(p, warm=64, iters=iters,
+                                            pipe=pipe))
+        for label, v in got.items():
+            log(f"[4] PRP {sum(v) / 2:.6f} iter/s @ p={p} through {label} "
+                f"(runs {v[0]:.6f}, {v[1]:.6f}; {card})")
 
     def timed(fn, reps):
         fn()
@@ -307,7 +381,85 @@ def main() -> int:
         "k6b_fused_c_invh", 25, "sqr",
         lambda: tk.fused_c_invh_pass(t, spec, "sqr"),
         lambda: tk.fused_c_invh_plain(t, spec, "sqr"), 10)
-    del main_in, big_in, t, x, co, sp, spec, z
+    # the least time the card could take for each timed call
+    def nbytes(*tensors):
+        return sum(a.numel() * a.element_size() for a in tensors)
+
+    def bound(products, moved):
+        ops_ms = products * OPS_PER_PRODUCT / INT8_OPS_PER_S * 1e3
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        return ((ops_ms, "operations") if ops_ms >= bytes_ms
+                else (bytes_ms, "bytes"))
+
+    def shape_of(t):
+        R1, R2, C = t.shape
+        return R1, R2, C // 128, t.mf.numel(), t.carry_shape
+
+    def k9_bound(t, co):
+        """One squaring of a K9 chain of K9_STEPS: its products, and the
+        register, carries, multipliers and tables read once and written
+        once over the whole chain."""
+        L1, L2, ca, n, _ = shape_of(t)
+        tabs = nbytes(t.k1_mats, t.g2, t.mf, t.mi, t.lane_f, t.lane_i, t.Mf,
+                      t.Mi, t.tri, t.k3_mats, t.er, t.ec, t.wt, t.cum,
+                      t.widths)
+        return bound((2 * L1 + 2 * L2 + 2 * ca + 2 * 128 + 3) * n,
+                     (16 * n + 2 * nbytes(co) + 8 * tk.CHAIN_K + tabs)
+                     / K9_STEPS)
+
+    K9_STEPS = 64
+    for logn, (t, x, co) in chain_in.items():
+        ones = tk.chain_multipliers([1] * tk.CHAIN_K, dev)
+        xk, ck = x.clone(), co.clone()
+
+        def k9():
+            tk.square_chain(t, xk, ck, ones, count=K9_STEPS, out=xk,
+                            co_out=ck)
+
+        def steps():
+            for _ in range(K9_STEPS):
+                tk.square_step(t, xk, ck, out=xk, co_out=ck)
+
+        def plain():
+            tk.square_chain_plain(t, x, co, [1, 1], 2)
+
+        k0, s0 = timed(k9, 3), timed(steps, 3)
+        s1, k1 = timed(steps, 3), timed(k9, 3)
+        kms = (k0 + k1) / 2 / K9_STEPS
+        sms = (s0 + s1) / 2 / K9_STEPS
+        pms = timed(plain, 2) / 2
+        bms, by = k9_bound(t, co)
+        log(f"[4] k9_chain n=2^{logn}: K9 {kms:.6f} ms per squaring "
+            f"(runs {k0 / K9_STEPS:.6f}, {k1 / K9_STEPS:.6f}), three-kernel "
+            f"step {sms:.6f} ({s0 / K9_STEPS:.6f}, {s1 / K9_STEPS:.6f}), "
+            f"plain {pms:.6f}, bound {bms:.6f} ({by}) ({card})")
+        if logn == 19:
+            ms["k9_chain"] = (kms, pms)
+
+    bounds = {}
+    for (t, co), pre in ((main_in[:3:2], ""), (big_in[:3:2], "[T>1]")):
+        L1, L2, ca, n, _ = shape_of(t)
+        bounds["k1_p1c" + pre] = bound(L1 * n, 16 * n + nbytes(
+            co, t.k1_mats, t.wt, t.cum, t.er, t.ec))
+        bounds["k3_p7c" + pre] = bound(L1 * n, 16 * n + nbytes(
+            co, t.widths, t.k3_mats, t.er, t.ec))
+        if pre == "":
+            bounds["k2_fused_c"] = bound(
+                (2 * L2 + 2 * ca + 2 * 128 + 3) * n, 16 * n + nbytes(
+                    t.g2, t.mf, t.lane_f, t.lane_i, t.Mf, t.Mi, t.mi, t.tri))
+        else:
+            bounds["k5_axis1"] = bound((L2 + 1) * n,
+                                       16 * n + nbytes(t.g2, t.mf))
+            bounds["k6_fused_c"] = bound((ca + 128) * n,
+                                         16 * n + nbytes(t.lane_f, t.Mf))
+            bounds["k6b_fused_c_invh"] = bound(
+                (1 + 128 + ca) * n, 16 * n + nbytes(t.lane_i, t.Mi))
+    t, x, co = chain_in[19]
+    bounds["k9_chain"] = k9_bound(t, co)
+    for entry, (b, by) in bounds.items():
+        log(f"[4] {entry} bound {b:.6f} ms ({by}); kernel "
+            f"{ms[entry][0]:.6f} ms")
+    del main_in, big_in, chain_in, t, x, co, sp, spec, z
     torch.cuda.empty_cache()
 
     # ---- 5: M756839 through the CLI ---------------------------------------
@@ -327,7 +479,9 @@ def main() -> int:
     kernels = [{"name": entry, "route": "cuda", "source": tk.SOURCES[name],
                 "replaces": tk.REPLACES[name],
                 "launches": counts[path][name], "max_abs_err": errs[entry],
-                "ms": ms[entry][0], "plain_ms": ms[entry][1]}
+                "ms": ms[entry][0], "plain_ms": ms[entry][1],
+                "bound_ms": bounds[entry][0], "bound_by": bounds[entry][1],
+                "library_ms": None}
                for entry, name, path in ENTRIES]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,9 +6,11 @@ same PRP / Lucas-Lehmer squaring path with hand-written CUDA kernels
 plain torch version of every kernel beside it: a kernel wrapper given a
 CPU tensor runs the plain version, a CUDA tensor launches the kernel.
 
-Host-side modules that need no jax (plan, digits, checkpoints, the PRP/LL
-driver, the CLI) are imported from `prmers_tpu` rather than copied. This
-package never loads jax.
+The host-side modules (plan, field, digits, GMP, checkpoints, the Engine
+API, the PRP/LL driver, the CLI and the result JSON) are the port's own
+copies of the JAX package's, under the same paths (`core/`, `engine/api`,
+`io/`, `modes/`, `utils/`), so checkpoints, result JSON and CLI parsing
+stay byte-identical. This package imports neither jax nor `prmers_tpu`.
 """
 
 __version__ = "0.1.0"

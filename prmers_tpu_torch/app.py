@@ -1,10 +1,10 @@
 """`python -m prmers_tpu_torch <p> [-ll]`: a PRP or LL run on the port.
 
-Counterpart of prmers_tpu/core/app.py:92-124. It parses with the shared
-CLI (prmers_tpu/io/cli.parse_args), runs the shared PRP/LL driver
-(prmers_tpu/modes/prp_ll.run_prp_or_ll) on the port's engine, and prints
-the shared PrimeNet result JSON. Other modes and PRP proofs are not ported
-yet and stop with a message saying so.
+Counterpart of prmers_tpu/core/app.py:92-124. It parses with the port's
+copy of the CLI (io/cli.parse_args), runs its copy of the PRP/LL driver
+(modes/prp_ll.run_prp_or_ll) on the port's engine, and prints the
+PrimeNet result JSON (io/json_out). Other modes and PRP proofs are not
+ported yet and stop with a message saying so.
 """
 
 from __future__ import annotations
@@ -12,7 +12,9 @@ from __future__ import annotations
 import os
 
 from .engine.factory import create_engine
-from .host import json_out, parse_args, run_prp_or_ll
+from .io import json_out
+from .io.cli import parse_args
+from .modes.prp_ll import run_prp_or_ll
 
 
 def run(opts, device=None, log=print):

@@ -29,12 +29,17 @@ def card() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def measure(p: int = P_BENCH, warm: int = WARM, iters: int = ITERS) -> float:
-    """Timed PRP squaring chain on the card; returns iter/s."""
+def measure(p: int = P_BENCH, warm: int = WARM, iters: int = ITERS,
+            pipe=None) -> float:
+    """Timed PRP squaring chain on the card; returns iter/s. `pipe` (an
+    ops/fourstep.Pipeline) overrides the engine's default pipeline, e.g.
+    Pipeline(chain=False) for the three-kernel step where K9 would run."""
     import torch
 
     from .engine.factory import create_engine
-    eng = create_engine(p, 2, device="cuda")
+    from .engine.fourstep_engine import FourStepEngine
+    eng = (create_engine(p, 2, device="cuda") if pipe is None
+           else FourStepEngine(p, 2, device="cuda", pipe=pipe))
     eng.set(0, 3)
     eng.square_mul_seq(0, [1] * warm)
     torch.cuda.synchronize()

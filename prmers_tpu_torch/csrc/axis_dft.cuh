@@ -54,23 +54,28 @@ struct AxisArgs {
 // Internal linkage: several .cu files instantiate the same modes.
 namespace {
 
+// One tile of the transform: the (o, s) pair, the slab of AX_TC columns
+// starting at cb * AX_TC and the outputs k0 <= k < k1, on AX_TC * AX_TY
+// threads (tid = ty * AX_TC + tx) and (L * L + L * AX_TC) u64 of shared
+// memory at smem. A tile of part of the outputs reads all L inputs, so it
+// runs in place only when it takes all of them (k0 = 0, k1 = L). It opens
+// with a barrier, so a block may run one tile after another on the same
+// buffer (the persistent K9 kernel does).
 template <int MODE>
-__global__ void __launch_bounds__(AX_TC * AX_TY)
-axis_dft_kernel(AxisArgs g) {
-    extern __shared__ u64 ax_smem[];
+__device__ __forceinline__ void axis_dft_tile(const AxisArgs& g, int o, int s,
+                                              int cb, int k0, int k1,
+                                              u64* smem, int tid) {
     const int L = g.L, S = g.S, C = g.C;
-    u64* Ms = ax_smem;              // L * L
-    u64* xs = ax_smem + L * L;      // L * AX_TC
-    const int o = blockIdx.z;
-    const int s = blockIdx.y;
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * AX_TC + tx;
-    const int c = blockIdx.x * AX_TC + tx;
+    u64* Ms = smem;                 // L * L
+    u64* xs = smem + L * L;         // L * AX_TC
+    const int tx = tid % AX_TC, ty = tid / AX_TC;
+    const int c = cb * AX_TC + tx;
 
     int var = 0;
     if (MODE == AX_K1 || MODE == AX_K3A) var = s;
     if (MODE == AX_K2C) var = o;
     const u64* M = g.mats + (size_t)var * L * L;
+    __syncthreads();
     for (int i = tid; i < L * L; i += AX_TC * AX_TY) Ms[i] = M[i];
 
     for (int j = ty; j < L; j += AX_TY) {
@@ -99,7 +104,7 @@ axis_dft_kernel(AxisArgs g) {
     }
     __syncthreads();
 
-    for (int k = ty; k < L; k += AX_TY) {
+    for (int k = k0 + ty; k < k1; k += AX_TY) {
         const u64* Mk = Ms + k * L;
         GlAcc sum = gl_acc_zero();
         for (int j = 0; j < L; ++j)
@@ -114,6 +119,14 @@ axis_dft_kernel(AxisArgs g) {
         }
         g.out[idx] = acc;
     }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(AX_TC * AX_TY)
+axis_dft_kernel(AxisArgs g) {
+    extern __shared__ u64 ax_smem[];
+    axis_dft_tile<MODE>(g, blockIdx.z, blockIdx.y, blockIdx.x, 0, g.L,
+                        ax_smem, threadIdx.y * AX_TC + threadIdx.x);
 }
 
 }  // namespace

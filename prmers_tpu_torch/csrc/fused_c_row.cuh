@@ -1,5 +1,6 @@
 // The C-transform of one (R, C) register row at a time, in shared memory:
-// the row kernel of K2 (its middle launch), of K6 and of K6b.
+// the row kernel of K2 (its middle launch), of K6 and of K6b; and K9's
+// form of it, split by slot (row_slot_unit, then row_lane_dft).
 //
 // For each row it runs, as the launch asks,
 //   fwd: the lane-tile DFT over ca = c >> 7 (fourstep.dft_lanes :447),
@@ -67,6 +68,59 @@ __device__ __forceinline__ void row_slot_mat(const u64* src, u64* dst,
 #pragma unroll
         for (int r = 0; r < ROWS; ++r)
             dst[r * C + j * 128 + k] = gl_acc_reduce(acc[r]);
+    }
+}
+
+// K9's form of the row C-transform with the square, split so that the ca
+// slots of a row run in ca blocks: unit (rows r0 ... r0 + G - 1, slot j)
+// forms slot j of each row's forward lane DFT, the Mf[j] slot product, the
+// square and the Mi[j] slot product, and writes that slot of the mirror to
+// S (the inverse lane DFT still to come: row_lane_dft from S finishes each
+// row). Each matrix word read serves G rows. On 256 threads (tid < 256)
+// and 3 * G * 128 u64 of shared memory at smem; the two groups of 128
+// threads each sum half of a slot product. It opens with a barrier, so a
+// block may run one unit after another on the same buffer.
+template <int G>
+__device__ __forceinline__ void row_slot_unit(const u64* x, u64* S,
+                                              const u64* lane_f,
+                                              const u64* __restrict__ Mf,
+                                              const u64* __restrict__ Mi,
+                                              int C, int ca, int r0, int j,
+                                              u64* smem, int tid) {
+    u64* V = smem;              // G x 128: the slot's values
+    u64* P = smem + G * 128;    // 2 x G x 128: the halves of a product
+    const int k = tid & 127;
+    const int h = tid >> 7;
+    __syncthreads();
+    for (int i = tid; i < G * 128; i += 256) {
+        const u64* xr = x + (size_t)(r0 + (i >> 7)) * C + (i & 127);
+        GlAcc sum = gl_acc_zero();
+        for (int p = 0; p < ca; ++p)
+            gl_acc_madd(sum, lane_f[j * ca + p], xr[p * 128]);
+        V[i] = gl_acc_reduce(sum);
+    }
+    for (int pass = 0; pass < 2; ++pass) {
+        const u64* Mj = (pass ? Mi : Mf) + (size_t)j * 128 * 128 + k;
+        __syncthreads();
+        GlAcc acc[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) acc[g] = gl_acc_zero();
+        for (int l = 64 * h; l < 64 * h + 64; ++l) {
+            const u64 m = Mj[l * 128];
+#pragma unroll
+            for (int g = 0; g < G; ++g) gl_acc_madd(acc[g], V[g * 128 + l], m);
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+            P[(h * G + g) * 128 + k] = gl_acc_reduce(acc[g]);
+        __syncthreads();
+        for (int i = tid; i < G * 128; i += 256) {
+            const u64 v = gl_add(P[i], P[G * 128 + i]);
+            if (pass)
+                S[(size_t)(r0 + (i >> 7)) * C + j * 128 + (i & 127)] = v;
+            else
+                V[i] = gl_sqr(v);
+        }
     }
 }
 

@@ -29,57 +29,16 @@
 #include <cuda_runtime.h>
 
 #include "axis_dft.cuh"
+#include "k3b_carry.cuh"
 
-#define K3B_THREADS 256
-
-// One block per carry unit of PER * 256 digits; thread t owns digits t,
-// t + 256, ... (PER of them, in registers), so loads and stores are
-// coalesced and each round's shifted carry comes from shared memory.
+// One block per carry unit of PER * 256 digits.
 template <int PER>
 __global__ void __launch_bounds__(K3B_THREADS)
 k3b_kernel(u64* x, u64* co, const u32* widths, int rounds, int sub2,
            u64 s2) {
     __shared__ u64 k3_cs[PER * K3B_THREADS];
-    const int ct = PER * K3B_THREADS;
-    const int f = blockIdx.x;          // the carry unit
-    const int tid = threadIdx.x;
-    const size_t base = (size_t)f * ct;
-    u64 d[PER], c[PER];
-    u32 w[PER];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-        const int l = tid + i * K3B_THREADS;
-        u64 y = x[base + l];
-        w[i] = widths[base + l];
-        const u64 mk = (1ULL << w[i]) - 1ULL;
-        if (sub2) y += (f == 0 && l == 0) ? mk - s2 : mk;
-        d[i] = y & mk;
-        c[i] = y >> w[i];
-    }
-    u64 acc = 0;
-    for (int r = 0; r <= rounds; ++r) {
-#pragma unroll
-        for (int i = 0; i < PER; ++i) k3_cs[tid + i * K3B_THREADS] = c[i];
-        __syncthreads();
-        if (tid == K3B_THREADS - 1) acc += c[PER - 1];   // leaves the unit
-#pragma unroll
-        for (int i = 0; i < PER; ++i) {
-            const int l = tid + i * K3B_THREADS;
-            const u64 sh = l > 0 ? k3_cs[l - 1] : 0ULL;
-            if (r < rounds) {
-                const u64 y = d[i] + sh;
-                d[i] = y & ((1ULL << w[i]) - 1ULL);
-                c[i] = y >> w[i];
-            } else {
-                // the residual (< 2^(wmin-1)) goes in unsplit
-                d[i] = (u64)(u32)(d[i] + (u32)sh);
-            }
-        }
-        __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < PER; ++i) x[base + tid + i * K3B_THREADS] = d[i];
-    if (tid == K3B_THREADS - 1) co[f] = acc;
+    k3b_unit<PER>(x, co, widths, rounds, sub2, s2, blockIdx.x, k3_cs,
+                  threadIdx.x);
 }
 
 template <int PER>

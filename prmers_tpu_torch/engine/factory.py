@@ -8,7 +8,7 @@ JAX package.
 
 from __future__ import annotations
 
-from ..host import cached_plan
+from ..core.plan import cached_plan
 from .fourstep_engine import FourStepEngine
 
 

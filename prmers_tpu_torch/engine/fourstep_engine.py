@@ -8,6 +8,12 @@ out-carries of the last step's carry units (T per row), not yet rolled
 (they enter the next step's K1, or are folded by `op_settle`), and the
 spectral flag of a multiplicand.
 
+Where the JAX package takes its whole-chain kernel (fourstep.chain_ok: n =
+2^15 ... 2^19 with the default pipeline), square_mul and square_mul_seq
+run K9, one launch per chunk of up to CHAIN_K squarings, as
+pallas_engine.py:273-308 does; square_sub2_seq, set_multiplicand and mul
+stay on the three-kernel step there too (:328-341).
+
 The hot ops update their register's tensors in place (the kernels read
 each element before writing it), so `copy` always makes real copies and no
 two registers ever share storage. Settle and the linear ops (get/set,
@@ -20,8 +26,9 @@ import numpy as np
 import torch
 
 from .. import torchconf
-from ..host import Engine, Plan, Reg, cached_plan
-from ..host import digits as dg
+from ..core.plan import Plan, cached_plan
+from ..utils import digits as dg
+from .api import Engine, Reg
 from ..ops import carry as carry_ops
 from ..ops import fourstep as tfs
 from ..ops import gl64 as gl
@@ -112,6 +119,8 @@ class FourStepEngine(Engine):
         self.regs = [[self._zx(), self._zc(), False]
                      for _ in range(reg_count)]
         self._delta_cache: dict[int, torch.Tensor] = {}
+        self._chain = tfs.chain_ok(self.t.fp)
+        self._a_bufs: dict[int, torch.Tensor] = {}
 
     # -- helpers ----------------------------------------------------------
     def _zx(self):
@@ -145,14 +154,42 @@ class FourStepEngine(Engine):
         st = self.regs[src]
         self.regs[dst] = [st[0].clone(), st[1].clone(), st[2]]
 
+    def _chain_buf(self, a: list[int]):
+        """K9's multipliers for one chunk: the list itself on the CPU; on
+        the card a device buffer, kept per value for a constant chunk (the
+        PRP chain's ones, a single x3) so the hot loop copies nothing to the
+        device."""
+        if self.device.type == "cpu":
+            return a
+        if any(v != a[0] for v in a):
+            return tk.chain_multipliers(a, self.device)
+        buf = self._a_bufs.get(a[0])
+        if buf is None:
+            buf = tk.chain_multipliers([a[0]] * tk.CHAIN_K, self.device)
+            if len(self._a_bufs) < 8:
+                self._a_bufs[a[0]] = buf
+        return buf
+
     def square_mul(self, src: Reg, a: int = 1) -> None:
+        self.square_mul_seq(src, [a])
+
+    def square_mul_seq(self, src: Reg, a_vec) -> None:
+        """K9 per chunk of CHAIN_K squarings where chain_ok holds, else one
+        three-kernel step per squaring (with a = 1 K3 skips its
+        multiplier)."""
         st = self.regs[src]
         assert not st[2], "spectral register used as digits"
-        tk.square_step(self.t, st[0], st[1], a=int(a), out=st[0],
-                       co_out=st[1])
-
-    # square_mul_seq is the base class's loop over square_mul: with a = 1
-    # K3 skips its multiplier, which is the PRP chain's fast case.
+        a = [int(v) for v in a_vec]
+        t, x, co = self.t, st[0], st[1]
+        if not self._chain:
+            for ak in a:
+                tk.square_step(t, x, co, a=ak, out=x, co_out=co)
+            return
+        kc = tk.CHAIN_K
+        for off in range(0, len(a), kc):
+            chunk = a[off:off + kc]
+            tk.square_chain(t, x, co, self._chain_buf(chunk),
+                            count=len(chunk), out=x, co_out=co)
 
     def square_sub2_seq(self, src: Reg, count: int) -> None:
         st = self.regs[src]

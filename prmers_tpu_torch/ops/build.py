@@ -46,6 +46,9 @@ SIGNATURES = {
     "prmers_k5_axis1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "prmers_k6_fused_c": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
     "prmers_k6b_fused_c_invh": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
+    "prmers_k9_chain": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _U32, _P,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _P],
 }
 
 

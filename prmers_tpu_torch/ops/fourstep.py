@@ -41,7 +41,8 @@ import dataclasses
 
 import numpy as np
 
-from ..host import Plan, field
+from ..core import field
+from ..core.plan import Plan
 
 P = field.P
 LANES = 128
@@ -177,11 +178,13 @@ def make_split(L: int) -> SplitSpec:
 class Pipeline:
     """The budgets behind the JAX pipeline's branch choice, with its
     defaults: r2fold_max is PRMERS_R2FOLD_BUDGET (kernels.py:933), carry_max
-    PRMERS_CARRY_BUDGET (:952), and fc_split forces the split C-transform
-    as PRMERS_FC_SPLIT does (:948)."""
+    PRMERS_CARRY_BUDGET (:952), fc_split forces the split C-transform as
+    PRMERS_FC_SPLIT does (:948), and chain=False keeps the squarings off
+    the whole-chain kernel K9 as PRMERS_NO_CHAIN does (:1901)."""
     r2fold_max: int = 1 << 19
     carry_max: int = 1 << 21
     fc_split: bool = False
+    chain: bool = True
 
 
 @dataclasses.dataclass(eq=False)
@@ -253,6 +256,29 @@ def carry_ct(fp: FourStepPlan) -> int:
 
 def carry_tiles(fp: FourStepPlan) -> int:
     return fp.C // carry_ct(fp)
+
+
+# The JAX whole-chain kernel's VMEM cap: min(80 MiB, VMEM_LIMIT) with the
+# default VMEM_LIMIT of 127 MiB (kernels.py:59, :1913).
+CHAIN_VMEM = 80 * 1024 * 1024
+
+
+def chain_ok(fp: FourStepPlan) -> bool:
+    """Squarings through the whole-chain kernel K9 (kernels.py:1895-1913):
+    whole-row carry units, L2 and ca = C / 128 powers of two up to 8, and
+    the JAX kernel's VMEM estimate under its cap; True exactly where the
+    JAX package takes its chain (n = 2^15 ... 2^19 with the default
+    pipeline)."""
+    if not fp.pipe.chain or carry_tiles(fp) != 1:
+        return False
+    L2 = fp.rs.L2
+    ca = fp.C // LANES
+    if L2 & (L2 - 1) or L2 > 8:
+        return False
+    if fp.C % LANES or ca & (ca - 1) or ca > 8:
+        return False
+    est = 10 * 4 * fp.n + 7 * 4 * fp.n + 2 * ca * (8 * 128) * (8 * 128)
+    return est < CHAIN_VMEM
 
 
 def carry_rounds(fp: FourStepPlan) -> int:

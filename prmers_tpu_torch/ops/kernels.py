@@ -27,11 +27,16 @@ mode "fwd"; K3 two; the others one).
       (r2fold off)                              mode, no r2 passes
   K6b fused_c_invh_pass     csrc/k6_fused_c.cu  head op, inverse half of
                                                 the C-transform
+  K9  square_chain          csrc/k9_chain.cu    up to CHAIN_K squarings
+                                                x^2 * a_k in one persistent
+                                                launch (n = 2^15 ... 2^19)
 
 A step runs K1, the C-transform span `fused_mid` and K3; `fused_mid`
 picks K2, or K5 + K6 + K5, or K5 + K6 "fwd" + K6b + K5, exactly as the JAX
 `_fused_mid` (:1597) does. All may run in place (out is x): each CUDA
-block reads the elements it writes before writing them.
+block reads the elements it writes before writing them. Where the JAX
+package takes its whole-chain kernel (fourstep.chain_ok), a chain of
+squarings is one K9 launch that runs those same stages as its phases.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from . import fourstep as tfs
 from . import gl64 as gl
 
 KERNELS = ("k1_p1c", "k2_fused_c", "k3_p7c", "k5_axis1", "k6_fused_c",
-           "k6b_fused_c_invh")
+           "k6b_fused_c_invh", "k9_chain")
 SOURCES = {
     "k1_p1c": "prmers_tpu_torch/csrc/k1_p1c.cu",
     "k2_fused_c": "prmers_tpu_torch/csrc/k2_fused_c.cu",
@@ -53,6 +58,7 @@ SOURCES = {
     "k5_axis1": "prmers_tpu_torch/csrc/k5_axis1.cu",
     "k6_fused_c": "prmers_tpu_torch/csrc/k6_fused_c.cu",
     "k6b_fused_c_invh": "prmers_tpu_torch/csrc/k6_fused_c.cu",
+    "k9_chain": "prmers_tpu_torch/csrc/k9_chain.cu",
 }
 REPLACES = {
     "k1_p1c": "prmers_tpu/ops/pallas/kernels.py:512",
@@ -61,10 +67,12 @@ REPLACES = {
     "k5_axis1": "prmers_tpu/ops/pallas/kernels.py:130",
     "k6_fused_c": "prmers_tpu/ops/pallas/kernels.py:991",
     "k6b_fused_c_invh": "prmers_tpu/ops/pallas/kernels.py:1117",
+    "k9_chain": "prmers_tpu/ops/pallas/kernels.py:1755",
 }
 calls = {name: 0 for name in KERNELS}
 
 MODES = {"sqr": 0, "mul": 1, "fwd": 2}
+CHAIN_K = 512           # K9's multiplier-buffer extent (kernels.py:1916)
 HEAD_OPS = {"": 0, "sqr": 1, "mul": 2}
 
 
@@ -514,3 +522,86 @@ def fwd_step(t: DevTables, x, co, out=None):
     """Forward transform only: the spectral multiplicand of (x, co)."""
     s = p1_carry_pass(t, x, co, out=out)
     return fused_mid(t, s, "fwd")
+
+
+# ---------------------------------------------------------------------------
+# K9: the whole chain (kernels.py:1755-1967)
+# ---------------------------------------------------------------------------
+
+def chain_multipliers(a_vec, device) -> torch.Tensor:
+    """Multipliers a_k in [1, 2^32) -> K9's int64 buffer of CHAIN_K entries,
+    padded with ones (the JAX pads its a buffer the same way, :1929)."""
+    a = [int(v) for v in a_vec]
+    if len(a) > CHAIN_K:
+        raise ValueError(f"a chain takes at most CHAIN_K={CHAIN_K} "
+                         f"multipliers (got {len(a)})")
+    if any(not 0 < v < (1 << 32) for v in a):
+        raise ValueError("multipliers must be in [1, 2^32)")
+    buf = torch.ones(CHAIN_K, dtype=torch.int64)
+    buf[:len(a)] = torch.tensor(a, dtype=torch.int64)
+    return buf.to(device)
+
+
+def square_chain_plain(t: DevTables, x: torch.Tensor, co: torch.Tensor,
+                       a_vec, count: int):
+    """Plain K9: count squarings x^2 * a_k through the plain K1, the plain
+    C-transform and the plain K3; returns (digits, unit out-carries)."""
+    a = [int(v) for v in a_vec[:count]]
+    for ak in a:
+        s = p1_carry_plain(t, x, co)
+        s = fused_c_plain(t, s, "sqr")
+        x, co = p7_carry_plain(t, s, ak)
+    return x, co
+
+
+def square_chain(t: DevTables, x: torch.Tensor, co: torch.Tensor, a_vec,
+                 count: int | None = None, out: torch.Tensor | None = None,
+                 co_out: torch.Tensor | None = None):
+    """count (default len(a_vec)) squarings x^2 * a_k from the register x
+    and its unit out-carries co, on the shapes of fourstep.chain_ok; returns
+    (digits, unit out-carries), the state count square_steps leave. a_vec
+    is a sequence of multipliers, or a CUDA int64 tensor of up to CHAIN_K
+    of them (chain_multipliers builds one) that K9 reads as it stands."""
+    if not tfs.chain_ok(t.fp):
+        raise ValueError("square_chain needs a plan that fourstep.chain_ok "
+                         "accepts (n = 2^15 ... 2^19, whole-row carries)")
+    _check(t, (x, out), (co, co_out))
+    if isinstance(a_vec, torch.Tensor):
+        if a_vec.dtype != torch.int64 or a_vec.dim() != 1 or \
+                not a_vec.is_contiguous() or a_vec.device != t.device or \
+                a_vec.numel() > CHAIN_K:
+            raise ValueError(f"the multiplier tensor must be contiguous 1-D "
+                             f"int64 on {t.device}, at most {CHAIN_K} long")
+        n_a = a_vec.numel()
+    else:
+        n_a = len(a_vec)
+        a_vec = chain_multipliers(a_vec, t.device)
+    count = n_a if count is None else int(count)
+    if not 0 <= count <= n_a:
+        raise ValueError(f"count={count} outside [0, {n_a}]")
+    if _on_cpu(x):
+        d, c = square_chain_plain(t, x, co, a_vec.tolist(), count)
+        if out is not None:
+            d = out.copy_(d)
+        if co_out is not None:
+            c = co_out.copy_(c)
+        return d, c
+    out = x.clone() if out is None else (out if out is x else out.copy_(x))
+    co_out = co.clone() if co_out is None else \
+        (co_out if co_out is co else co_out.copy_(co))
+    if count == 0:
+        return out, co_out
+    R1, R2, C = t.shape
+    scratch = torch.empty_like(out)
+    err = build.lib().prmers_k9_chain(
+        out.data_ptr(), co_out.data_ptr(), scratch.data_ptr(),
+        a_vec.data_ptr(), count,
+        t.k1_mats.data_ptr(), t.wt.data_ptr(), t.cum.data_ptr(), t.k,
+        t.er.data_ptr(), t.ec.data_ptr(), t.fp.n, t.g2.data_ptr(),
+        t.mf.data_ptr(), t.lane_f.data_ptr(), t.lane_i.data_ptr(),
+        t.Mf.data_ptr(), t.Mi.data_ptr(), t.mi.data_ptr(), t.tri.data_ptr(),
+        t.k3_mats.data_ptr(), t.widths.data_ptr(), t.rounds, R1, R2, C,
+        _stream())
+    calls["k9_chain"] += 1
+    build.check(err, "k9_chain")
+    return out, co_out

@@ -7,7 +7,9 @@ CUDA kernel (summed by name) and its share, the device time per squaring,
 the wall time per squaring in the traced window (it ends in
 torch.cuda.synchronize()) and the device's idle share of that window. The
 kernels run on one stream, so idle = 1 - device time / wall time. Needs a
-card: without one it raises.
+card: without one it raises. Where the engine takes K9 (n = 2^15 ...
+2^19) the squarings are one launch per 512 of them, so ask for 512 steps
+there: a window of 16 is mostly the launch and the profiler's own start.
 """
 
 from __future__ import annotations

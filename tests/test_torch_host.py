@@ -1,0 +1,95 @@
+"""The port's copies of the host modules (prmers_tpu_torch/core, io, modes,
+utils, engine/api) against the JAX package's originals: the same plans and
+digit widths, the same result JSON and checkpoint bytes, the same CLI
+parse, and the same PRP/LL verdicts and residues on one reference engine.
+Users move checkpoints and results between the two packages, so these
+formats must stay byte-identical."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from prmers_tpu.core import checkpoints as jck
+from prmers_tpu.core import plan as jplan
+from prmers_tpu.engine.np_engine import NumpyEngine
+from prmers_tpu.io import cli as jcli
+from prmers_tpu.io import json_out as jjson
+from prmers_tpu.io.options import Options as JOptions
+from prmers_tpu.modes import prp_ll as jprp
+from prmers_tpu_torch.core import checkpoints as tck
+from prmers_tpu_torch.core import plan as tplan
+from prmers_tpu_torch.io import cli as tcli
+from prmers_tpu_torch.io import json_out as tjson
+from prmers_tpu_torch.io.options import Options as TOptions
+from prmers_tpu_torch.modes import prp_ll as tprp
+
+PLAN_PS = [756839, 1257787, 2976221, 4325377, 9999991, 136279841, 600000001,
+           1000000007]
+
+
+@pytest.mark.parametrize("p", PLAN_PS)
+def test_plans_equal(p):
+    for build in ("build_plan", "cached_plan"):
+        a = getattr(jplan, build)(p)
+        b = getattr(tplan, build)(p)
+        assert (a.n, a.R, a.C, a.w, a.inv_n) == (b.n, b.R, b.C, b.w, b.inv_n)
+        assert a.radixes_r == b.radixes_r and a.radixes_c == b.radixes_c
+        assert np.array_equal(a.freq_r, b.freq_r)
+        assert a.widths.dtype == b.widths.dtype
+        assert np.array_equal(a.widths, b.widths)
+    for mod in (jplan, tplan):
+        mod.cached_plan.cache_clear()
+
+
+def test_result_json_equal():
+    kw = dict(exponent=756839, worktype="PRP-3", status="P",
+              res64="0000000000000001", res2048="AB" * 8, gerbicz_errors=1,
+              fft_length=32768, known_factors=("1234567",), user="u",
+              computer="c", aid="0" * 32, timestamp="2026-01-02 03:04:05")
+    assert jjson.build_result_json(**kw) == tjson.build_result_json(**kw)
+    kw.update(worktype="LL", status="C", known_factors=())
+    assert jjson.build_result_json(**kw) == tjson.build_result_json(**kw)
+
+
+def test_checkpoint_bytes_equal(tmp_path):
+    rng = np.random.default_rng(7)
+    fields = dict(p=756839, mode_tag=1, iteration=12345, elapsed=6.5,
+                  extra=rng.bytes(28), regs=rng.bytes(4096))
+    a, b = str(tmp_path / "a" / "m.ckpt"), str(tmp_path / "b" / "m.ckpt")
+    jck.write_checkpoint(a, jck.CheckpointData(**fields))
+    tck.write_checkpoint(b, tck.CheckpointData(**fields))
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+    got = tck.read_checkpoint(a, 756839, 1)
+    assert dataclasses.asdict(got) == fields
+    assert tck.ckpt_filename(9, "ll", True, "d") == \
+        jck.ckpt_filename(9, "ll", True, "d")
+
+
+@pytest.mark.parametrize("argv", [["756839", "-noproof"],
+                                  ["1277", "-ll", "-t", "30"],
+                                  ["127", "-prp", "-wagstaff"]])
+def test_cli_parse_equal(argv):
+    assert dataclasses.asdict(jcli.parse_args(argv)) == \
+        dataclasses.asdict(tcli.parse_args(argv))
+
+
+def _opts(cls, p, tmp_path, mode):
+    return cls(exponent=p, save_dir=str(tmp_path), proof=False,
+               verbose=False, backup_interval=1e9, mode=mode)
+
+
+@pytest.mark.parametrize("p,mode", [(127, "ll"), (1277, "ll"),
+                                    (521, "prp"), (1009, "prp")])
+def test_run_prp_or_ll_equal(p, mode, tmp_path):
+    """tests/test_prp_ll.py's small runs through both drivers, each on a
+    fresh reference engine of the JAX package (the host oracle)."""
+    quiet = lambda *a, **k: None  # noqa: E731
+    rj = jprp.run_prp_or_ll(_opts(JOptions, p, tmp_path / "j", mode),
+                            eng=NumpyEngine(p, 8), log=quiet)
+    rt = tprp.run_prp_or_ll(_opts(TOptions, p, tmp_path / "t", mode),
+                            eng=NumpyEngine(p, 8), log=quiet)
+    assert (rt.is_prime, rt.res64, rt.res2048, rt.gerbicz_errors) == \
+        (rj.is_prime, rj.res64, rj.res2048, rj.gerbicz_errors)
+    assert rt.is_prime == (p in (127, 521))

@@ -1,9 +1,9 @@
-"""The port never imports jax: in a fresh interpreter (tests/conftest.py
-imports jax into this one), importing every module of prmers_tpu_torch
-(the shared host modules of prmers_tpu/ with them, through
-prmers_tpu_torch/host.py) and running one CPU squaring through the engine
-leaves jax out of sys.modules. The machine with the CUDA card has no jax
-at all."""
+"""The port never imports jax nor the JAX package: in a fresh interpreter
+(tests/conftest.py imports jax into this one), importing every module of
+prmers_tpu_torch and running one CPU squaring through the engine leaves
+neither jax nor prmers_tpu in sys.modules. The machine with the CUDA card
+has no jax at all, and the port keeps its own copies of the host modules
+it needs."""
 
 import os
 import subprocess
@@ -18,7 +18,7 @@ for m in pkgutil.walk_packages(prmers_tpu_torch.__path__, "prmers_tpu_torch."):
     if m.name.endswith("__main__"):
         continue
     importlib.import_module(m.name)
-from prmers_tpu.core.plan import build_plan
+from prmers_tpu_torch.core.plan import build_plan
 from prmers_tpu_torch.engine.fourstep_engine import FourStepEngine
 p, n = 540673, 1 << 15
 e = FourStepEngine(p, 2, plan=build_plan(p, n=n), device="cpu")
@@ -27,6 +27,9 @@ e.square_mul(0)
 assert e.get_int(0) == 9
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 print("JAXMODS", bad)
+ref = sorted(k for k in sys.modules
+             if k == "prmers_tpu" or k.startswith("prmers_tpu."))
+print("REFMODS", ref)
 """
 
 
@@ -37,6 +40,7 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "JAXMODS []" in r.stdout, r.stdout
+    assert "REFMODS []" in r.stdout, r.stdout
 
 
 def _sources():
@@ -59,12 +63,11 @@ def test_no_jax_import_in_sources():
 
 
 def test_jax_package_reached_only_through_host():
-    """prmers_tpu_torch/host.py is the one list of shared host modules:
-    no other module of the port, and not chip_smoke.py, imports from
-    prmers_tpu directly."""
+    """No line of the port, and none of chip_smoke.py, imports prmers_tpu:
+    the port keeps its own copies of the host modules (core/, engine/api,
+    io/, modes/, utils/)."""
     for f, s in _sources():
-        if f == os.path.join("prmers_tpu_torch", "host.py"):
-            continue
         assert not s.startswith(("from prmers_tpu.", "from prmers_tpu ",
                                  "import prmers_tpu.",
                                  "import prmers_tpu ")), (f, s)
+        assert s not in ("import prmers_tpu", "from prmers_tpu"), (f, s)

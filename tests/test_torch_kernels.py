@@ -250,7 +250,9 @@ def test_cuda_kernels_match_plain(case):
     ... 8192, so every rows-per-block branch of the row kernel and every
     carry unit of K3b), and at the forced big-shape pipelines (T = 4 and
     T = 2 carry units at small n). K3 takes the C-transform's lazy output,
-    as on the main path; K6b takes K6 "fwd"'s."""
+    as on the main path; K6b takes K6 "fwd"'s. Where fourstep.chain_ok
+    holds (n = 2^15 ... 2^19), K9 runs a = [3, 1, 3] and then a chain of 2
+    on its carries, bit for bit against its plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     logn, pipe = GPU_CASES[case]
@@ -287,3 +289,9 @@ def test_cuda_kernels_match_plain(case):
         d, c = tk.p7_carry_pass(t, z, a=a, sub2=sub2)
         dw, cw = tk.p7_carry_plain(t, z, a, sub2)
         assert torch.equal(d, dw) and torch.equal(c, cw), (a, sub2)
+    if tfs.chain_ok(t.fp):              # K9: n = 2^15 ... 2^19
+        for a in ([3, 1, 3], [1, 3]):
+            d, c = tk.square_chain(t, x, co, a)
+            dw, cw = tk.square_chain_plain(t, x, co, a, len(a))
+            assert torch.equal(d, dw) and torch.equal(c, cw), a
+            x, co = d, c
