@@ -3,12 +3,15 @@
 
 Run from the repository root with no arguments: python3 chip_smoke.py
 
-It drives three paths of the port: the n = 2^23 path (K1, K2, K3 with
+It drives four paths of the port: the n = 2^23 path (K1, K2, K3 with
 whole-row carries), the C = 8192 big-shape path of n = 2^25 and 2^26
-(K1 and K3 with T = 2 carry units per row, K5, K6 "fwd", K6b, K5) and the
+(K1 and K3 with T = 2 carry units per row, K5, K6 "fwd", K6b, K5), the
 chain path of n = 2^15 ... 2^19 (K9, the whole squaring chain in one
-persistent launch; K1-K3 for the multiplicand, mul and LL steps). Phases;
-any failure raises and the script exits non-zero with no result:
+persistent launch; K1-K3 for the multiplicand, mul and LL steps) and the
+block-carry path (Pipeline(rowcarry=False), PRMERS_NO_ROWCARRY: K4, the
+C-transform, K4 inverse, K7) with its canonical-digit hybrid
+(Pipeline(xla_carry=True), PRMERS_XLA_CARRY: carry_full in place of K7).
+Phases; any failure raises and the script exits non-zero with no result:
   1. the card (nvidia-smi name and power limit) and the kernel build
      (one nvcc per prmers_tpu_torch/csrc/*.cu, all at once, timed);
   2. every kernel wrapper (K1; K2 and K6 in modes sqr/fwd/mul; K5 P2 and
@@ -24,29 +27,39 @@ any failure raises and the script exits non-zero with no result:
      2^16, 2^17, 2^18 and 2^19: a = [3, 1, 3] from random digits and random
      carries, then a chain of 2 that consumes the carries; digits and
      carries bit for bit against its plain version and against as many
-     steps of the CUDA three-kernel path;
+     steps of the CUDA three-kernel path. At each of the first sizes K4
+     forward (without and with (R1, 1) block carries; mod P) and inverse
+     (on K3's input; bit for bit), and K7 with a = 1 and a = 3 on K4
+     inverse's output (digits and block carries bit for bit);
   3. each path through create_engine and the Engine API the PRP/LL
-     modes call, at p = 136279841, at p = 600000001 and (the chain path)
-     at p = 9999991 (n = 2^19): squarings and
+     modes call, at p = 136279841, at p = 600000001, (the chain path)
+     at p = 9999991 (n = 2^19), (the block-carry path) at p = 136279841,
+     600000001 and 756839 (n = 2^15) and (the hybrid) at p = 136279841:
+     squarings and
      a x3 of a sparse value 3 * 2^s (its exact value is cheap), a dense x3
      squaring, set_multiplicand + mul and an LL sub2 step of dense random
      values, all checked against GMP big-int. The wrapper call counts (one
      per call that launched a kernel) are reset just before each path and
-     read just after; every kernel of the path must be > 0, and on the
-     chain path K1-K3 run only for set_multiplicand, mul and the LL step;
+     read just after; every kernel of the path must be > 0, on the
+     chain path K1-K3 run only for set_multiplicand, mul and the LL step,
+     and on the block-carry and hybrid paths K1, K3 and K9 never run (nor
+     K7 on the hybrid);
   4. the timed PRP chain (iter/s) at p = 136279841, 600000001 and
      1000000007, and at p = 756839 and 9999991 through K9 and through the
-     three-kernel step (Pipeline(chain=False)); K9 against the three-kernel
-     step and the plain chain, ms per squaring, at each n from 2^15 to
-     2^19; each kernel's time against its plain version at n = 2^23
-     (K1-K3), 2^25 (the big-shape kernels) and 2^19 (K9), by CUDA events,
+     three-kernel step (Pipeline(chain=False)); at p = 136279841 the row
+     carry, the block carry and the hybrid in turns; K9 against the
+     three-kernel step and the plain chain, ms per squaring, at each n
+     from 2^15 to 2^19; each kernel's time against its plain version at
+     n = 2^23 (K1-K3, K4, K7), 2^25 (the big-shape kernels, K4 and K7
+     again) and 2^19 (K9), by CUDA events,
      beside its bound: the larger of its bytes (each input read once, each
      output written once) over 3.35 TB/s and its mod-P products, 64 int8
      MACs = 128 int8 operations each in the JAX package's limb-plane form,
      over 1,979 TOP/s. No PyTorch call computes a Goldilocks product, so
      library_ms is null;
   5. `python -m prmers_tpu_torch 756839 -noproof` in a subprocess: the
-     PRP of M756839 (n = 2^15, through K9) must report prime.
+     PRP of M756839 (n = 2^15, through K9) must report prime; then the
+     same with PRMERS_NO_ROWCARRY=1 (the block-carry path).
 
 The last three lines of standard output are the per-kernel JSON object,
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -72,7 +85,8 @@ OPS_PER_PRODUCT = 128   # 64 int8 MACs per mod-P product (limb planes)
 
 # (name in the JSON line, wrapper counter, the path whose counts it
 # reports); the main path's kernels are timed at n = 2^23, the big path's
-# at 2^25, K9 at 2^19 (per squaring)
+# at 2^25, K9 at 2^19 (per squaring), the block path's K4 and K7 at 2^23
+# (the block path's p = 136279841)
 ENTRIES = [
     ("k1_p1c", "k1_p1c", "main"),
     ("k2_fused_c", "k2_fused_c", "main"),
@@ -83,6 +97,8 @@ ENTRIES = [
     ("k6_fused_c", "k6_fused_c", "big"),
     ("k6b_fused_c_invh", "k6b_fused_c_invh", "big"),
     ("k9_chain", "k9_chain", "chain"),
+    ("k4_axis0", "k4_axis0", "block"),
+    ("k7_block_carry", "k7_block_carry", "block"),
 ]
 
 
@@ -194,7 +210,27 @@ def main() -> int:
             what = f"{label} a={a} sub2={sub2}"
             record(k3, what + " digits", d, dw, canon=False)
             record(k3, what + " carries", c, cw, canon=False)
-        return t, x, co, sp, spec, z
+        # the block-carry kernels on the same tables: K4 forward on the
+        # digits with and without (R1, 1) carries, K4 inverse on K3's
+        # input, K7 on K4 inverse's output
+        bco = torch.from_numpy(rng.integers(0, 1 << 45,
+                                            size=t.block_carry_shape,
+                                            dtype=np.int64)).to(dev)
+        for c, what in ((None, "fwd"), (bco, "fwd+carries")):
+            record("k4_axis0", f"{label} {what}",
+                   tk.axis0_pass(t, x, False, co=c),
+                   tk.axis0_plain(t, x, False, co=c))
+        y = tk.axis0_pass(t, z, True)
+        record("k4_axis0", f"{label} inverse", y, tk.axis0_plain(t, z, True),
+               canon=False)
+        for a in (1, 3):
+            d, c = tk.block_carry_pass(t, y, a)
+            dw, cw = tk.block_carry_plain(t, y, a)
+            record("k7_block_carry", f"{label} a={a} digits", d, dw,
+                   canon=False)
+            record("k7_block_carry", f"{label} a={a} carries", c, cw,
+                   canon=False)
+        return t, x, co, sp, spec, z, bco, y
 
     for logn in (15, 18):
         n = 1 << logn
@@ -249,11 +285,12 @@ def main() -> int:
     K = 8
     counts = {}
 
-    def drive(p, path, kernels):
-        """The ops of a PRP/LL run on one engine; returns the call counts
-        of the driven ops (reset just before, read just after)."""
+    def drive(p, path, kernels, pipe=None):
+        """The ops of a PRP/LL run on one engine (create_engine's pipeline,
+        or pipe); returns the call counts of the driven ops (reset just
+        before, read just after)."""
         mp = (1 << p) - 1
-        eng = create_engine(p, 6, device=dev)
+        eng = create_engine(p, 6, device=dev, pipe=pipe)
         rnd = random.Random(p)
         v, w = rnd.getrandbits(p - 1), rnd.getrandbits(p - 1)
         s = rnd.randrange(p // 2, p)
@@ -310,6 +347,26 @@ def main() -> int:
     if counts["chain"] != want:
         raise AssertionError(f"chain path wrapper calls {counts['chain']}, "
                              f"expected {want}")
+    # the block-carry path at the main, big and smallest shapes, and the
+    # hybrid at the main one: no row-carry kernel and no K9 (no K7 in the
+    # hybrid, whose carry is carry_full)
+    block, hybrid = tfs.Pipeline(rowcarry=False), tfs.Pipeline(xla_carry=True)
+    for key, p, path, kernels, pipe in (
+            ("block", P_MAIN, "block", ("k4_axis0", "k2_fused_c",
+                                        "k7_block_carry"), block),
+            ("block big", P_BIG, "block big", (
+                "k4_axis0", "k5_axis1", "k6_fused_c", "k6b_fused_c_invh",
+                "k7_block_carry"), block),
+            ("block small", P_GOLDEN, "block small", (
+                "k4_axis0", "k2_fused_c", "k7_block_carry"), block),
+            ("hybrid", P_MAIN, "hybrid", ("k4_axis0", "k2_fused_c"),
+             hybrid)):
+        counts[key] = drive(p, path, kernels, pipe)
+        off = ("k1_p1c", "k3_p7c", "k9_chain") + \
+            (("k7_block_carry",) if pipe is hybrid else ())
+        if any(counts[key][name] for name in off):
+            raise AssertionError(f"{path} path ran {off}: {counts[key]}")
+        torch.cuda.empty_cache()
 
     # ---- 4: timings -------------------------------------------------------
     for p, warm, iters in ((P_MAIN, 16, 192), (P_BIG, 4, 48),
@@ -317,6 +374,17 @@ def main() -> int:
         ips = bench.measure(p, warm=warm, iters=iters)
         log(f"[4] PRP {ips:.6f} iter/s @ p={p} ({card})")
         torch.cuda.empty_cache()
+    got = {"row carry": [], "block carry": [], "hybrid": []}
+    pipes = {"row carry": tfs.Pipeline(), "block carry": block,
+             "hybrid": hybrid}
+    for label in ("row carry", "block carry", "hybrid", "hybrid",
+                  "block carry", "row carry"):
+        got[label].append(bench.measure(P_MAIN, warm=16, iters=192,
+                                        pipe=pipes[label]))
+    for label, v in got.items():
+        log(f"[4] PRP {sum(v) / 2:.6f} iter/s @ p={P_MAIN} through the "
+            f"{label} (runs {v[0]:.6f}, {v[1]:.6f}; {card})")
+    torch.cuda.empty_cache()
     no_chain = tfs.Pipeline(chain=False)
     for p, iters in ((P_GOLDEN, 4096), (P_CHAIN, 1024)):
         got = {"K9": [], "3-kernel": []}
@@ -352,7 +420,24 @@ def main() -> int:
             f"{got[1]:.6f} ms ({card})")
         return got
 
-    t, x, co, sp, spec, z = main_in
+    def block_kernels(logn, reps, inputs):
+        """K4 (the mean of forward with carries and inverse) and K7 (a = 1)
+        as the block path runs them."""
+        t, x, _co, _sp, _spec, z, bco, y = inputs
+        f = compare("k4_axis0", logn, "fwd+carries",
+                    lambda: tk.axis0_pass(t, x, False, co=bco),
+                    lambda: tk.axis0_plain(t, x, False, co=bco), reps)
+        i = compare("k4_axis0", logn, "inverse",
+                    lambda: tk.axis0_pass(t, z, True),
+                    lambda: tk.axis0_plain(t, z, True), reps)
+        k7 = compare("k7_block_carry", logn, "a=1",
+                     lambda: tk.block_carry_pass(t, y),
+                     lambda: tk.block_carry_plain(t, y), reps)
+        return ((f[0] + i[0]) / 2, (f[1] + i[1]) / 2), k7
+
+    ms["k4_axis0"], ms["k7_block_carry"] = block_kernels(23, 20, main_in)
+    block_kernels(25, 10, big_in)
+    t, x, co, sp, spec, z, _bco, _y = main_in
     ms["k1_p1c"] = compare("k1_p1c", 23, "", lambda: tk.p1_carry_pass(t, x, co),
                            lambda: tk.p1_carry_plain(t, x, co), 20)
     ms["k2_fused_c"] = compare(
@@ -361,7 +446,7 @@ def main() -> int:
     ms["k3_p7c"] = compare("k3_p7c", 23, "a=1",
                            lambda: tk.p7_carry_pass(t, z),
                            lambda: tk.p7_carry_plain(t, z), 20)
-    t, x, co, sp, spec, z = big_in
+    t, x, co, sp, spec, z, _bco, _y = big_in
     ms["k1_p1c[T>1]"] = compare(
         "k1_p1c[T>1]", 25, "", lambda: tk.p1_carry_pass(t, x, co),
         lambda: tk.p1_carry_plain(t, x, co), 10)
@@ -456,25 +541,44 @@ def main() -> int:
                 (1 + 128 + ca) * n, 16 * n + nbytes(t.lane_i, t.Mi))
     t, x, co = chain_in[19]
     bounds["k9_chain"] = k9_bound(t, co)
+
+    def block_bounds(t, bco):
+        """K4: the mean of forward (digits, carries, spread tables in) and
+        inverse (digits, tables in), L1 products per digit each; K7 with
+        a = 1: y and widths in, digits and carries out, no products."""
+        L1, _L2, _ca, n, _ = shape_of(t)
+        tabs = (nbytes(bco, t.k1_mats, t.bwt, t.bcum) + nbytes(t.k3_mats)) / 2
+        return (bound(L1 * n, 16 * n + tabs + nbytes(t.er, t.ec)),
+                bound(0, 20 * n + 8 * t.block_carry_shape[0]))
+
+    bounds["k4_axis0"], bounds["k7_block_carry"] = block_bounds(
+        main_in[0], main_in[6])
+    for entry, b in zip(("k4_axis0", "k7_block_carry"),
+                        block_bounds(big_in[0], big_in[6])):
+        log(f"[4] {entry} bound at n=2^25 {b[0]:.6f} ms ({b[1]})")
     for entry, (b, by) in bounds.items():
         log(f"[4] {entry} bound {b:.6f} ms ({by}); kernel "
             f"{ms[entry][0]:.6f} ms")
     del main_in, big_in, chain_in, t, x, co, sp, spec, z
     torch.cuda.empty_cache()
 
-    # ---- 5: M756839 through the CLI ---------------------------------------
+    # ---- 5: M756839 through the CLI, on K9 and on the block carry ---------
     run_dir = os.path.join(root, "build", "smoke_run")
-    shutil.rmtree(run_dir, ignore_errors=True)    # no checkpoint to resume
-    t1 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "prmers_tpu_torch",
-                        str(P_GOLDEN), "-noproof", "-save-dir", run_dir],
-                       cwd=root, capture_output=True, text=True, timeout=900)
-    dt = time.perf_counter() - t1
-    tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
-    log(f"[5] M{P_GOLDEN} PRP rc={r.returncode} in {dt:.3f} s: {tail}")
-    if r.returncode != 0 or '"status":"P"' not in tail.replace(" ", ""):
-        raise AssertionError(f"M{P_GOLDEN} was not reported prime:\n"
-                             f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    for label, extra in (("K9", {}), ("block carry",
+                                      {"PRMERS_NO_ROWCARRY": "1"})):
+        shutil.rmtree(run_dir, ignore_errors=True)   # no checkpoint to resume
+        t1 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "prmers_tpu_torch",
+                            str(P_GOLDEN), "-noproof", "-save-dir", run_dir],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=400, env=dict(os.environ, **extra))
+        dt = time.perf_counter() - t1
+        tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+        log(f"[5] M{P_GOLDEN} PRP through the {label} rc={r.returncode} in "
+            f"{dt:.3f} s: {tail}")
+        if r.returncode != 0 or '"status":"P"' not in tail.replace(" ", ""):
+            raise AssertionError(f"M{P_GOLDEN} was not reported prime:\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
 
     kernels = [{"name": entry, "route": "cuda", "source": tk.SOURCES[name],
                 "replaces": tk.REPLACES[name],

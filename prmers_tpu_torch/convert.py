@@ -3,7 +3,8 @@
 The JAX pipeline keeps every u64 as a pair of u32 arrays and pads each
 carry unit's carry (and, for T > 1 units per row, its spread tables) to a
 128-lane block; the port keeps one u64 (in an int64 tensor) per value and
-one carry per unit. Everything here works on numpy
+one carry per unit, or per r1 block on the block-carry pipeline (there
+both keep (R1, 1)). Everything here works on numpy
 arrays (u64 for the port side, u32 pairs for the JAX side) and imports
 no jax: a JAX `FourStepTables` is read through np.asarray.
 
@@ -64,20 +65,25 @@ def tables_from_jax(jt, k: int) -> dict:
 
 
 def state_to_jax(x, co):
-    """Port register x (R1, R2, C) u64 and unit carries co (R1, R2, T) u64
-    -> JAX ((x0, x1), (c0, c1)) with the carry block (R1, R2, T*128), unit
-    t's value in lane t*128."""
+    """Port register x (R1, R2, C) u64 and carries co -> JAX ((x0, x1),
+    (c0, c1)): unit carries (R1, R2, T) become the carry block (R1, R2,
+    T*128) with unit t's value in lane t*128; block carries (R1, 1) cross
+    as they are."""
     co = np.asarray(co, dtype=np.uint64)
+    if co.ndim == 2:
+        return to_pairs(x), to_pairs(co)
     block = np.zeros(co.shape + (128,), dtype=np.uint64)
     block[..., 0] = co
     return to_pairs(x), to_pairs(block.reshape(co.shape[:2] + (-1,)))
 
 
 def state_from_jax(x0, x1, c0, c1):
-    """JAX register pairs and (R1, R2, T*128) carry block -> (x (R1, R2, C)
-    u64, co (R1, R2, T) u64)."""
-    c0 = np.asarray(c0)
+    """JAX register pairs and carries, the (R1, R2, T*128) row-carry block
+    or the (R1, 1) block carries -> (x (R1, R2, C) u64, co (R1, R2, T) or
+    (R1, 1) u64)."""
+    c0, c1 = np.asarray(c0), np.asarray(c1)
+    if c0.ndim == 2 and c0.shape[-1] == 1:
+        return from_pairs(x0, x1), from_pairs(c0, c1)
     if c0.ndim != 3 or c0.shape[-1] % 128:
-        raise ValueError("the carry block must be (R1, R2, T*128)")
-    return from_pairs(x0, x1), from_pairs(c0[..., ::128],
-                                          np.asarray(c1)[..., ::128])
+        raise ValueError("the carries must be (R1, R2, T*128) or (R1, 1)")
+    return from_pairs(x0, x1), from_pairs(c0[..., ::128], c1[..., ::128])

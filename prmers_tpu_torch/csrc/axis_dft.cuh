@@ -1,8 +1,9 @@
 // Length-L DFT down one axis of the (R1, R2, C) register, as a direct
 // mod-P matrix product on a shared-memory tile. Shared by K1 (the r1 axis,
 // one matrix per r2), the two r2 launches of K2 and the two K5 passes (the
-// r2 axis, one matrix, or one per r1) and the first launch of K3 (the r1
-// axis again).
+// r2 axis, one matrix, or one per r1), the first launch of K3 (the r1
+// axis again) and both forms of K4 (K1 and K3's first launch with the
+// carry of the block-carry pipeline).
 //
 // The array is viewed as (O, L, S, C): element (o, j, s, c) at
 // ((o*L + j)*S + s)*C + c, the transform runs over j. A block owns one
@@ -25,7 +26,9 @@ enum AxisMode {
     AX_K1 = 0,   // carry inject + wrap halve, matrix per s (= r2)
     AX_K2A = 1,  // single matrix, then x mf (P2: K2's first launch, K5)
     AX_K2C = 2,  // x mi first, matrix per o (= r1) (P6: K2's last, K5)
-    AX_K3A = 3   // matrix per s, then wrap double, canon, optional x a
+    AX_K3A = 3,  // matrix per s, then wrap double, canon, optional x a
+    AX_K4F = 4   // block-carry inject (when co is given) + wrap halve,
+                 // matrix per s
 };
 
 struct AxisArgs {
@@ -35,13 +38,14 @@ struct AxisArgs {
     const u64* tab;      // K2A: mf, K2C: mi; same layout as x
     // K1: the previous step's carries (R*T,), one per carry unit of ct
     // digits (T = C / ct units per row), unrolled, and the per-unit spread
-    // tables (R*T, kk)
+    // tables (R*T, kk). K4F: the carries (L,), one per r1 block, unrolled,
+    // or null, and the per-block spread tables (L, kk)
     const u64* co;
     const u32* wt;
     const u32* cum;
     int kk;
     int ct;
-    // K1 / K3A: wrap residues er (R,) and ec (C,)
+    // K1 / K3A / K4F: wrap residues er (R,) and ec (C,)
     const u32* er;
     const u32* ec;
     u32 n;
@@ -72,7 +76,7 @@ __device__ __forceinline__ void axis_dft_tile(const AxisArgs& g, int o, int s,
     const int c = cb * AX_TC + tx;
 
     int var = 0;
-    if (MODE == AX_K1 || MODE == AX_K3A) var = s;
+    if (MODE == AX_K1 || MODE == AX_K3A || MODE == AX_K4F) var = s;
     if (MODE == AX_K2C) var = o;
     const u64* M = g.mats + (size_t)var * L * L;
     __syncthreads();
@@ -98,6 +102,20 @@ __device__ __forceinline__ void axis_dft_tile(const AxisArgs& g, int o, int s,
                 v += part;
             }
             if (g.er[f] + g.ec[c] >= g.n) v = gl_halve(v);
+        }
+        if (MODE == AX_K4F) {
+            // r1 block j starts at (j, s = 0, c = 0) and takes block
+            // j-1's carry (block 0 the last one's), the roll folded in as
+            // in K1; inject before the halve, as the JAX block pipeline's
+            // XLA strip runs before its P1
+            if (g.co != nullptr && s == 0 && c < g.kk) {
+                const u64 cin = g.co[(j + L - 1) % L];
+                const u32 cm = g.cum[j * g.kk + c];
+                u32 part = cm < 64 ? (u32)(cin >> cm) : 0u;
+                if (c < g.kk - 1) part &= (1u << g.wt[j * g.kk + c]) - 1u;
+                v += part;
+            }
+            if (g.er[j * S + s] + g.ec[c] >= g.n) v = gl_halve(v);
         }
         if (MODE == AX_K2C) v = gl_mul(v, g.tab[idx]);
         xs[j * AX_TC + tx] = v;

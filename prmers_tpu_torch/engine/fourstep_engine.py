@@ -1,12 +1,16 @@
 """The four-step kernel engine: the Engine register API on the port's
 kernels (ops/kernels.py).
 
-Counterpart of prmers_tpu/engine/pallas_engine.py:PallasEngine on its
-row-carry pipeline. A register is [x, co, spectral]: x the (R1, R2, C)
-int64 digit tensor (u64 bit patterns), co the (R1, R2, T) int64
-out-carries of the last step's carry units (T per row), not yet rolled
-(they enter the next step's K1, or are folded by `op_settle`), and the
-spectral flag of a multiplicand.
+Counterpart of prmers_tpu/engine/pallas_engine.py:PallasEngine. A
+register is [x, co, spectral]: x the (R1, R2, C) int64 digit tensor (u64
+bit patterns), co the int64 out-carries of the last step, not yet rolled
+(they enter the next step's K1 or K4, or are folded by `op_settle`), and
+the spectral flag of a multiplicand. On the row-carry pipeline (the
+default) co is (R1, R2, T), one per carry unit (T per row); on the
+block-carry pipeline and the hybrid (ops/fourstep.Pipeline rowcarry=False
+or xla_carry=True) it is (R1, 1), one per r1 block, and the hybrid's stay
+zero. The LL step fuses its -2 only on the row carry; elsewhere
+square_sub2_seq is Engine's square, then sub, as pallas_engine.py:329-331.
 
 Where the JAX package takes its whole-chain kernel (fourstep.chain_ok: n =
 2^15 ... 2^19 with the default pipeline), square_mul and square_mul_seq
@@ -21,6 +25,8 @@ add/sub) are torch code on the device around ops/carry.carry_full.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -57,30 +63,33 @@ def check_shape(fp: tfs.FourStepPlan) -> None:
 
 def get_tables(plan: Plan, device: torch.device,
                pipe: tfs.Pipeline = tfs.Pipeline()):
-    key = (plan.p, plan.n, pipe)
+    """The kernel tables of a plan under a pipeline. The tables depend on
+    the pipeline only through the carry unit, so pipelines with one unit
+    share one host build and one device copy."""
+    try:
+        fp = tfs.FourStepPlan.from_plan(plan, pipe)
+    except AssertionError as e:
+        raise NotImplementedError(
+            f"prmers_tpu_torch has no four-step plan for n={plan.n}: "
+            f"{e}") from None
+    check_shape(fp)
+    key = (plan.p, plan.n, tfs.carry_ct(fp))
     if key not in _HOST_TABLES:
-        try:
-            fp = tfs.FourStepPlan.from_plan(plan, pipe)
-        except AssertionError as e:
-            raise NotImplementedError(
-                f"prmers_tpu_torch has no four-step plan for n={plan.n}: "
-                f"{e}") from None
-        check_shape(fp)
         _HOST_TABLES[key] = tfs.build_tables(fp)
     dkey = key + (str(device),)
     if dkey not in _DEV_TABLES:
         _DEV_TABLES[dkey] = tk.DevTables.from_host(_HOST_TABLES[key], device)
-    return _DEV_TABLES[dkey]
+    return dataclasses.replace(_DEV_TABLES[dkey], fp=fp)
 
 
 def op_settle(t: tk.DevTables, x: torch.Tensor,
               co: torch.Tensor) -> torch.Tensor:
-    """Fold the pending unit carries (unit u's carry enters the first digit
-    of unit u+1, the last unit's wraps to digit 0) and renormalize
-    (pallas_engine.py:161-183)."""
+    """Fold the pending carries (the carry of unit or r1 block u enters
+    its first digit of u+1, the last one's wraps to digit 0) and
+    renormalize (pallas_engine.py:161-183)."""
     n = x.numel()
     y = x.reshape(n).clone()
-    y[::t.ct] += torch.roll(co.reshape(-1), 1)
+    y[::n // co.numel()] += torch.roll(co.reshape(-1), 1)
     return carry_ops.carry_full(y, t.widths.reshape(n)).reshape(t.shape)
 
 
@@ -175,8 +184,8 @@ class FourStepEngine(Engine):
 
     def square_mul_seq(self, src: Reg, a_vec) -> None:
         """K9 per chunk of CHAIN_K squarings where chain_ok holds, else one
-        three-kernel step per squaring (with a = 1 K3 skips its
-        multiplier)."""
+        step per squaring: three kernels on the row carry, four on the
+        block carry (with a = 1 K3 and K7 skip their multiplier)."""
         st = self.regs[src]
         assert not st[2], "spectral register used as digits"
         a = [int(v) for v in a_vec]
@@ -192,6 +201,9 @@ class FourStepEngine(Engine):
                             count=len(chunk), out=x, co_out=co)
 
     def square_sub2_seq(self, src: Reg, count: int) -> None:
+        if not tfs.use_rowcarry(self.t.fp):
+            super().square_sub2_seq(src, count)   # square, then sub
+            return
         st = self.regs[src]
         assert not st[2], "spectral register used as digits"
         t, x, co = self.t, st[0], st[1]

@@ -1,9 +1,11 @@
 """Carry propagation over variable-width IBDWT digits, in torch on the
 device (counterpart of prmers_tpu/ops/carry.py:24-97).
 
-`carry_full(y, widths)` normalizes a digit vector y (int64, 0 <= y < 2^62)
-so every digit is below 2^width, with the carry out of the last digit
-wrapping to digit 0 (2^p = 1 mod M_p). It runs in two phases, as the
+`carry_full(y, widths, masks, a)` normalizes a digit vector y times a small
+multiplier a so every digit is below 2^width, with the carry out of the
+last digit wrapping to digit 0 (2^p = 1 mod M_p). y may hold any u64
+value as an int64 bit pattern (the canonical-digit hybrid hands it the
+r1 inverse's output, up to P - 1 > 2^63). It runs in two phases, as the
 reference does:
 
   * absorb: shift-and-add rounds while any carry exceeds 1; carries shrink
@@ -14,14 +16,18 @@ reference does:
     O(log n) steps, not one ripple round per digit; the cyclic wrap is
     closed by feeding the total generate back into digit 0.
 
-Only the engine's settle and linear ops use it (multiplier 1), and their
-inputs are digits plus at most a row carry (< 2^50), so every value is a
-non-negative int64 and plain shifts are exact.
+torch's `>>` on int64 is arithmetic, so the split and the multiply before
+the first round work on the 32-bit halves of each value, as the carry
+kernels' plain versions do; from the first round on every carry is below
+2^63 (below 2^49 for widths of 16 bits and more) and plain int64
+arithmetic is exact.
 """
 
 from __future__ import annotations
 
 import torch
+
+_M32 = 0xFFFFFFFF
 
 
 def _prefix_scan(g: torch.Tensor, p: torch.Tensor):
@@ -41,20 +47,37 @@ def _prefix_scan(g: torch.Tensor, p: torch.Tensor):
 
 
 def carry_full(y: torch.Tensor, widths: torch.Tensor,
-               masks: torch.Tensor | None = None) -> torch.Tensor:
-    """Exact normalization of y (n,) int64: digits d[j] < 2^widths[j] with
-    the same value mod M_p."""
+               masks: torch.Tensor | None = None, a: int = 1) -> torch.Tensor:
+    """Exact normalization of y (n,) int64 (u64 bit patterns) times a:
+    digits d[j] < 2^widths[j] with the value (sum y_j 2^(q_j)) * a mod
+    M_p. a < 2^16, as the reference requires, so every intermediate fits
+    64 bits."""
+    if not 0 < a < (1 << 16):
+        raise ValueError(f"carry_full takes a multiplier in [1, 2^16) "
+                         f"(got {a})")
     widths = widths.to(torch.int64)
     if masks is None:
         masks = (1 << widths) - 1
-    c = y >> widths
-    d = y & masks
+    y0, y1 = y & _M32, (y >> 32) & _M32
+    d = y0 & masks
+    # c = y >> w as words: cl the low one, ch the high one
+    cl = ((y0 >> widths) | (y1 << (32 - widths))) & _M32
+    ch = y1 >> widths
+    if a != 1:
+        t = d * a                          # < 2^(w+16)
+        lo = cl * a + (t >> widths)        # < 2^49
+        cl = lo & _M32
+        ch = ch * a + (lo >> 32)
+        d = t & masks
+    # the first round, s = d + roll(c): ch * 2^32 >> w is ch << (32 - w)
+    lo = d + torch.roll(cl, 1)
+    d = lo & masks
+    c = (lo >> widths) + (torch.roll(ch, 1) << (32 - widths))
 
     def inject(c, d):
         t = d + torch.roll(c, 1)
         return t >> widths, t & masks
 
-    c, d = inject(c, d)
     while bool((c > 1).any()):
         c, d = inject(c, d)
 

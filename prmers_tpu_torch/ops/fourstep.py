@@ -28,11 +28,14 @@ Tables built here, all canonical u64 numpy arrays unless noted:
   wt, cum (R1, R2, T, k)  u32 per-carry-unit spread widths / bit offsets
                         (T = carry_tiles units of carry_ct digits per row)
   widths  (R1, R2, C)   u32 digit widths
+  bwt, bcum (R1, bk)    u32 spread widths / bit offsets of the block-carry
+                        injection (the first bk digits of each r1 block)
 
 Which kernels a step runs follows the JAX pipeline's shape predicates
-(use_r2fold, fc_split, carry_ct below); a plan's `Pipeline` holds the
-budgets they read, so the tests can force the big-shape branches at small
-n as the JAX tests do with its environment overrides.
+(use_rowcarry, use_xla_carry, use_r2fold, fc_split, carry_ct below); a
+plan's `Pipeline` holds the budgets and switches they read, so the tests
+can force every branch at small n as the JAX tests do with its
+environment overrides.
 """
 
 from __future__ import annotations
@@ -179,12 +182,18 @@ class Pipeline:
     """The budgets behind the JAX pipeline's branch choice, with its
     defaults: r2fold_max is PRMERS_R2FOLD_BUDGET (kernels.py:933), carry_max
     PRMERS_CARRY_BUDGET (:952), fc_split forces the split C-transform as
-    PRMERS_FC_SPLIT does (:948), and chain=False keeps the squarings off
-    the whole-chain kernel K9 as PRMERS_NO_CHAIN does (:1901)."""
+    PRMERS_FC_SPLIT does (:948), chain=False keeps the squarings off
+    the whole-chain kernel K9 as PRMERS_NO_CHAIN does (:1901),
+    rowcarry=False takes the block-carry pipeline (K4, the C-transform, K4
+    inverse, K7) as PRMERS_NO_ROWCARRY does (:917), and xla_carry=True the
+    canonical-digit hybrid (K4, the C-transform, K4 inverse, carry_full) as
+    PRMERS_XLA_CARRY does (:987)."""
     r2fold_max: int = 1 << 19
     carry_max: int = 1 << 21
     fc_split: bool = False
     chain: bool = True
+    rowcarry: bool = True
+    xla_carry: bool = False
 
 
 @dataclasses.dataclass(eq=False)
@@ -243,10 +252,15 @@ def fc_split(fp: FourStepPlan) -> bool:
     return fp.C // LANES > 32 or fp.pipe.fc_split
 
 
+def _r2_tile(L2: int) -> int:
+    """The JAX K1/K3 tile's r2 extent S (kernels.py:116)."""
+    return 8 if L2 % 8 == 0 else L2
+
+
 def carry_ct(fp: FourStepPlan) -> int:
     """Digits per carry unit: C, halved while the JAX K1/K3 tile
     (L1, S, CT) exceeds the carry budget (T = 2 at C = 8192)."""
-    S = 8 if fp.rs.L2 % 8 == 0 else fp.rs.L2
+    S = _r2_tile(fp.rs.L2)
     ct = fp.C
     while fp.rs.L1 * S * ct > fp.pipe.carry_max and ct % 256 == 0 \
             and ct > 256:
@@ -258,6 +272,20 @@ def carry_tiles(fp: FourStepPlan) -> int:
     return fp.C // carry_ct(fp)
 
 
+def use_xla_carry(fp: FourStepPlan) -> bool:
+    """The canonical-digit hybrid (kernels.py:980-989): forced, or a carry
+    tile (L1, S, carry_ct) over 2^22 elements, which no power-of-two plan
+    of the port reaches."""
+    return fp.pipe.xla_carry or \
+        fp.rs.L1 * _r2_tile(fp.rs.L2) * carry_ct(fp) > (1 << 22)
+
+
+def use_rowcarry(fp: FourStepPlan) -> bool:
+    """The row-carry pipeline (K1, the C-transform, K3; kernels.py:910-917)
+    unless the block-carry pipeline or the hybrid is asked for."""
+    return fp.pipe.rowcarry and not use_xla_carry(fp)
+
+
 # The JAX whole-chain kernel's VMEM cap: min(80 MiB, VMEM_LIMIT) with the
 # default VMEM_LIMIT of 127 MiB (kernels.py:59, :1913).
 CHAIN_VMEM = 80 * 1024 * 1024
@@ -265,11 +293,12 @@ CHAIN_VMEM = 80 * 1024 * 1024
 
 def chain_ok(fp: FourStepPlan) -> bool:
     """Squarings through the whole-chain kernel K9 (kernels.py:1895-1913):
-    whole-row carry units, L2 and ca = C / 128 powers of two up to 8, and
+    the row-carry pipeline with whole-row carry units, L2 and ca = C / 128
+    powers of two up to 8, and
     the JAX kernel's VMEM estimate under its cap; True exactly where the
     JAX package takes its chain (n = 2^15 ... 2^19 with the default
     pipeline)."""
-    if not fp.pipe.chain or carry_tiles(fp) != 1:
+    if not fp.pipe.chain or not use_rowcarry(fp) or carry_tiles(fp) != 1:
         return False
     L2 = fp.rs.L2
     ca = fp.C // LANES
@@ -282,7 +311,8 @@ def chain_ok(fp: FourStepPlan) -> bool:
 
 
 def carry_rounds(fp: FourStepPlan) -> int:
-    """Lane-ripple rounds of the carry phase (kernels.py:681)."""
+    """Ripple rounds of the carry phase of K3 and K7: split until the
+    residual fits half the narrowest digit (kernels.py:681, :1411-1420)."""
     wmin = int(fp.widths.min())
     rounds = 1
     bound = fp.max_word * 4
@@ -291,29 +321,41 @@ def carry_rounds(fp: FourStepPlan) -> int:
     return max(rounds, 2)
 
 
-def cin_row_k(fp: FourStepPlan) -> int:
-    """Spread parts per carry unit: the smallest k whose leading k digit
-    widths cover >= 64 bits in every unit of carry_ct digits
-    (kernels.py:690)."""
-    wmat = fp.widths.reshape(-1, carry_ct(fp)).astype(np.int64)
+def _spread_plan(wmat: np.ndarray):
+    """(k, wt, cum) for units that are the rows of wmat: the smallest k
+    whose leading k digit widths cover >= 64 bits in every unit, those
+    widths and their bit offsets, u32."""
     k = 1
     while int(wmat[:, :k].sum(axis=1).min()) < 64:
         k += 1
-    return k
+    wt = wmat[:, :k].astype(np.uint32)
+    cum = np.zeros(wt.shape, dtype=np.uint32)
+    cum[:, 1:] = np.cumsum(wt[:, :-1], axis=1)
+    return k, wt, cum
+
+
+def block_cin_plan(fp: FourStepPlan):
+    """(k, wt, cum) of the block-carry injection (kernels.py:_cin_plan
+    :1490-1502): the first k digit widths of each r1 block of n / R1
+    digits and their bit offsets, (R1, k) u32."""
+    return _spread_plan(fp.widths.reshape(fp.rs.L1, -1).astype(np.int64))
 
 
 def row_cin_plan(fp: FourStepPlan):
     """(k, wt, cum): each carry unit's spread widths and bit offsets,
     (R1, R2, T, k) u32 (kernels.py:702, without the 128-lane padding that
     Mosaic's block rule needs there)."""
-    k = cin_row_k(fp)
-    T = carry_tiles(fp)
-    wmat = fp.widths.reshape(fp.R * T, -1).astype(np.int64)
-    wt = wmat[:, :k].astype(np.uint32)
-    cum = np.zeros((fp.R * T, k), dtype=np.uint32)
-    cum[:, 1:] = np.cumsum(wt[:, :-1], axis=1)
-    sh = (fp.rs.L1, fp.rs.L2, T, k)
+    k, wt, cum = _spread_plan(
+        fp.widths.reshape(-1, carry_ct(fp)).astype(np.int64))
+    sh = (fp.rs.L1, fp.rs.L2, carry_tiles(fp), k)
     return k, wt.reshape(sh), cum.reshape(sh)
+
+
+def cin_row_k(fp: FourStepPlan) -> int:
+    """Spread parts per carry unit: the smallest k whose leading k digit
+    widths cover >= 64 bits in every unit of carry_ct digits
+    (kernels.py:690)."""
+    return row_cin_plan(fp)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +440,9 @@ class KernelTables:
     k: int
     ct: int
     rounds: int
+    bwt: np.ndarray
+    bcum: np.ndarray
+    bk: int
 
 
 def _fold_rows(M: np.ndarray, row_scale: np.ndarray,
@@ -479,6 +524,7 @@ def build_tables(fp: FourStepPlan) -> KernelTables:
     mi = mulmod(base.mid_inv, iwca_c.reshape(1, 1, C))
 
     k, wt, cum = row_cin_plan(fp)
+    bk, bwt, bcum = block_cin_plan(fp)
     return KernelTables(
         fp=fp, k1_mats=k1_mats, g2=g2, mf=mf, mi=mi,
         lane_f=dft_matrix(fp.ca_count, False),
@@ -488,4 +534,5 @@ def build_tables(fp: FourStepPlan) -> KernelTables:
         ec=ec.astype(np.uint32),
         wt=wt, cum=cum,
         widths=fp.widths.reshape(R1, R2, C).astype(np.uint32),
-        k=k, ct=carry_ct(fp), rounds=carry_rounds(fp))
+        k=k, ct=carry_ct(fp), rounds=carry_rounds(fp), bwt=bwt, bcum=bcum,
+        bk=bk)

@@ -1,12 +1,18 @@
 """The kernels of one squaring: wrappers, plain versions, counters.
 
-Counterpart of prmers_tpu/ops/pallas/kernels.py on its row-carry branch
-(:474-916, :1164-1308, :1574-1743). A register is one int64 tensor
-(R1, R2, C) holding u64 bit patterns (digits, or lazy values mod P between
-kernels); the carry state is one int64 tensor (R1, R2, T): the out-carry of
-each carry unit of ct = C / T consecutive digits (T = 1: a whole row), NOT
-yet rolled (the JAX keeps (R1, R2, T*128) u32 pairs with the value in lane
-t*128; convert.py maps between them).
+Counterpart of prmers_tpu/ops/pallas/kernels.py (:265-375, :474-916,
+:1164-1308, :1315-1743). A register is one int64 tensor (R1, R2, C)
+holding u64 bit patterns (digits, or lazy values mod P between kernels).
+The carry state depends on the pipeline (fourstep.Pipeline):
+  * row carry (the default): one int64 tensor (R1, R2, T), the out-carry
+    of each carry unit of ct = C / T consecutive digits (T = 1: a whole
+    row), NOT yet rolled (the JAX keeps (R1, R2, T*128) u32 pairs with the
+    value in lane t*128; convert.py maps between them);
+  * block carry (rowcarry=False): one int64 tensor (R1, 1), the
+    out-carry of each r1 block of R2*C digits, not yet rolled (the JAX's
+    (R1, 1) pairs);
+  * the canonical-digit hybrid (xla_carry=True): (R1, 1) zeros that pass
+    through, since carry_full leaves no carry pending.
 
 Each wrapper takes its plain torch version for a CPU tensor, and launches
 its CUDA kernel (csrc/, ops/build.py) for a CUDA tensor; there is no other
@@ -30,13 +36,21 @@ mode "fwd"; K3 two; the others one).
   K9  square_chain          csrc/k9_chain.cu    up to CHAIN_K squarings
                                                 x^2 * a_k in one persistent
                                                 launch (n = 2^15 ... 2^19)
+  K4  axis0_pass            csrc/k4_axis0.cu    forward: block-carry inject,
+                                                wrap halve, r1 DFT; inverse:
+                                                r1 inverse, double, canon
+  K7  block_carry_pass      csrc/k7_block_carry.cu  x a, the carry ripple
+                                                over each r1 block, block
+                                                out-carries
 
-A step runs K1, the C-transform span `fused_mid` and K3; `fused_mid`
-picks K2, or K5 + K6 + K5, or K5 + K6 "fwd" + K6b + K5, exactly as the JAX
-`_fused_mid` (:1597) does. All may run in place (out is x): each CUDA
-block reads the elements it writes before writing them. Where the JAX
-package takes its whole-chain kernel (fourstep.chain_ok), a chain of
-squarings is one K9 launch that runs those same stages as its phases.
+A row-carry step runs K1, the C-transform span `fused_mid` and K3;
+`fused_mid` picks K2, or K5 + K6 + K5, or K5 + K6 "fwd" + K6b + K5, exactly
+as the JAX `_fused_mid` (:1597) does. A block-carry step runs K4, the same
+span, K4 inverse and K7; the hybrid the same with carry_full in place of
+K7. All but K7 may run in place (out is x): each CUDA block reads the
+elements it writes before writing them. Where the JAX package takes its
+whole-chain kernel (fourstep.chain_ok), a chain of squarings is one K9
+launch that runs the row-carry stages as its phases.
 """
 
 from __future__ import annotations
@@ -46,11 +60,12 @@ import dataclasses
 import torch
 
 from . import build
+from . import carry as carry_ops
 from . import fourstep as tfs
 from . import gl64 as gl
 
 KERNELS = ("k1_p1c", "k2_fused_c", "k3_p7c", "k5_axis1", "k6_fused_c",
-           "k6b_fused_c_invh", "k9_chain")
+           "k6b_fused_c_invh", "k9_chain", "k4_axis0", "k7_block_carry")
 SOURCES = {
     "k1_p1c": "prmers_tpu_torch/csrc/k1_p1c.cu",
     "k2_fused_c": "prmers_tpu_torch/csrc/k2_fused_c.cu",
@@ -59,6 +74,8 @@ SOURCES = {
     "k6_fused_c": "prmers_tpu_torch/csrc/k6_fused_c.cu",
     "k6b_fused_c_invh": "prmers_tpu_torch/csrc/k6_fused_c.cu",
     "k9_chain": "prmers_tpu_torch/csrc/k9_chain.cu",
+    "k4_axis0": "prmers_tpu_torch/csrc/k4_axis0.cu",
+    "k7_block_carry": "prmers_tpu_torch/csrc/k7_block_carry.cu",
 }
 REPLACES = {
     "k1_p1c": "prmers_tpu/ops/pallas/kernels.py:512",
@@ -68,6 +85,9 @@ REPLACES = {
     "k6_fused_c": "prmers_tpu/ops/pallas/kernels.py:991",
     "k6b_fused_c_invh": "prmers_tpu/ops/pallas/kernels.py:1117",
     "k9_chain": "prmers_tpu/ops/pallas/kernels.py:1755",
+    # _pass_kernel in its axis-0 form, launched by _axis0_pass (:268)
+    "k4_axis0": "prmers_tpu/ops/pallas/kernels.py:130",
+    "k7_block_carry": "prmers_tpu/ops/pallas/kernels.py:1315",
 }
 calls = {name: 0 for name in KERNELS}
 
@@ -104,6 +124,9 @@ class DevTables:
     k: int
     ct: int
     rounds: int
+    bwt: torch.Tensor
+    bcum: torch.Tensor
+    bk: int
 
     @classmethod
     def from_host(cls, kt: tfs.KernelTables, device) -> "DevTables":
@@ -119,16 +142,29 @@ class DevTables:
                    tri=u64(kt.tri), k3_mats=u64(kt.k3_mats), er=i32(kt.er),
                    ec=i32(kt.ec), wt=i32(kt.wt), cum=i32(kt.cum),
                    widths=i32(kt.widths), k=kt.k, ct=kt.ct,
-                   rounds=kt.rounds)
+                   rounds=kt.rounds, bwt=i32(kt.bwt), bcum=i32(kt.bcum),
+                   bk=kt.bk)
 
     @property
     def shape(self) -> tuple[int, int, int]:
         return tuple(self.mf.shape)
 
     @property
-    def carry_shape(self) -> tuple[int, int, int]:
+    def row_carry_shape(self) -> tuple[int, int, int]:
+        """The carries K1, K3 and K9 take and give: one per carry unit."""
         R1, R2, C = self.shape
         return (R1, R2, C // self.ct)
+
+    @property
+    def block_carry_shape(self) -> tuple[int, int]:
+        """The carries K4 takes and K7 gives: one per r1 block."""
+        return (self.shape[0], 1)
+
+    @property
+    def carry_shape(self) -> tuple:
+        """The carry state of the plan's pipeline."""
+        return (self.row_carry_shape if tfs.use_rowcarry(self.fp)
+                else self.block_carry_shape)
 
     @property
     def device(self) -> torch.device:
@@ -143,11 +179,12 @@ def _on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
-def _check(t: DevTables, regs=(), carries=()) -> None:
-    """Registers must be (R1, R2, C) and carries (R1, R2, T), all
-    contiguous int64 on the tables' device: the kernels index them from
-    the shape."""
-    for shape, tensors in ((t.shape, regs), (t.carry_shape, carries)):
+def _check(t: DevTables, regs=(), carries=(), block: bool = False) -> None:
+    """Registers must be (R1, R2, C) and carries (R1, R2, T), or (R1, 1)
+    with block, all contiguous int64 on the tables' device: the kernels
+    index them from the shape."""
+    cshape = t.block_carry_shape if block else t.row_carry_shape
+    for shape, tensors in ((t.shape, regs), (cshape, carries)):
         for x in tensors:
             if x is None:
                 continue
@@ -177,7 +214,7 @@ def _wrap_mask(t: DevTables) -> torch.Tensor:
 
 def _units(t: DevTables, x: torch.Tensor) -> torch.Tensor:
     """(R1, R2, C) -> (R1, R2, T, ct): one carry unit per last-axis run."""
-    return x.reshape(t.carry_shape + (t.ct,))
+    return x.reshape(t.row_carry_shape + (t.ct,))
 
 
 def roll_row_carries(co: torch.Tensor) -> torch.Tensor:
@@ -190,12 +227,15 @@ def roll_row_carries(co: torch.Tensor) -> torch.Tensor:
 # K1
 # ---------------------------------------------------------------------------
 
-def inject_parts(t: DevTables, cin: torch.Tensor) -> torch.Tensor:
+def inject_parts(cin: torch.Tensor, wt: torch.Tensor,
+                 cum: torch.Tensor) -> torch.Tensor:
     """Each unit's incoming carry (already rolled) spread base-2^width over
-    its first k digits: (R1, R2, T, k) parts < 2^32 (kernels.py:474)."""
+    its first k digits, the widths wt and bit offsets cum (..., k): parts
+    < 2^32, the last one the unmasked low word of what is left
+    (kernels.py:474, and :1505-1527 for the r1 blocks)."""
     c0, c1 = gl.split(cin.unsqueeze(-1))
-    cm = t.cum.to(torch.int64)
-    w = t.wt.to(torch.int64)
+    cm = cum.to(torch.int64)
+    w = wt.to(torch.int64)
     lo_sh = torch.clamp(cm, max=31)
     hi_sh = torch.clamp(cm - 32, min=0, max=31)
     lo_part = ((c0 >> lo_sh) | (c1 << (32 - lo_sh))) & gl.M32
@@ -212,10 +252,16 @@ def p1_carry_plain(t: DevTables, x: torch.Tensor,
     """Plain K1: inject the rolled unit carries, halve where wrapped, then
     the per-r2 folded r1 DFT."""
     k = t.k
-    parts = inject_parts(t, roll_row_carries(co))
+    parts = inject_parts(roll_row_carries(co), t.wt, t.cum)
     xu = _units(t, x)
     head = xu[..., :k] + parts           # digits < 2^32: no u64 wrap
     y = torch.cat([head, xu[..., k:]], dim=-1).reshape(t.shape)
+    return _p1_dft(t, y)
+
+
+def _p1_dft(t: DevTables, y: torch.Tensor) -> torch.Tensor:
+    """Halve where wrapped, then the per-r2 folded r1 DFT: K1 and K4
+    forward after their injections."""
     y = gl.join(*gl.halve_where(*gl.split(y), _wrap_mask(t)))
     # out[k1, r2, c] = sum_j k1_mats[r2][k1][j] * y[j, r2, c]
     out = gl.matmul_mod(t.k1_mats, y.permute(1, 0, 2))
@@ -433,23 +479,33 @@ def carry_plain(t: DevTables, y: torch.Tensor, sub2: bool = False,
     residual added unsplit; returns (digits, unit out-carries)
     (kernels.py:562-609, :655-667)."""
     w = _units(t, t.widths.to(torch.int64))
-    mk = (1 << w) - 1
     y0, y1 = gl.split(_units(t, y))
     if sub2:
-        add = mk.clone()
+        add = (1 << w) - 1
         add.view(-1)[0] -= s2            # global digit 0 only
         y0, y1 = gl.norm(y0 + add, y1)   # y < P, so y + add < 2^64: exact
+    d, acc = _ripple(y0, y1, w, t.rounds)
+    return d.reshape(t.shape), acc
+
+
+def _ripple(y0, y1, w, rounds: int):
+    """The digit/carry split of y = (y0, y1) by the widths w, `rounds`
+    shift-by-one rounds inside each unit (the last axis; the unit's first
+    digit takes 0), then a last shift whose residual is added unsplit;
+    returns (digits, the sum of what left each unit's last digit), the
+    carry of K3 and K7 (kernels.py:562-609, :1345-1404)."""
+    mk = (1 << w) - 1
     d = y0 & mk
     # y >> w with w in [1, 32): < 2^(64-w), a non-negative int64
     c = gl.join(((y0 >> w) | (y1 << (32 - w))) & gl.M32, y1 >> w)
-    acc = torch.zeros(t.carry_shape, dtype=torch.int64, device=y.device)
+    acc = torch.zeros(c.shape[:-1], dtype=torch.int64, device=c.device)
 
     def shift(c):
         sh = torch.zeros_like(c)
         sh[..., 1:] = c[..., :-1]
         return sh, c[..., -1]
 
-    for _ in range(t.rounds):
+    for _ in range(rounds):
         sh, out = shift(c)
         acc = acc + out
         yy = d + sh
@@ -458,7 +514,7 @@ def carry_plain(t: DevTables, y: torch.Tensor, sub2: bool = False,
     sh, out = shift(c)
     acc = acc + out
     d = (d + (sh & gl.M32)) & gl.M32
-    return d.reshape(t.shape), acc
+    return d, acc
 
 
 def p7_carry_plain(t: DevTables, x: torch.Tensor, a: int = 1,
@@ -487,7 +543,7 @@ def p7_carry_pass(t: DevTables, x: torch.Tensor, a: int = 1,
     if out is None:
         out = torch.empty_like(x)
     if co_out is None:
-        co_out = torch.empty(t.carry_shape, dtype=torch.int64,
+        co_out = torch.empty(t.row_carry_shape, dtype=torch.int64,
                              device=x.device)
     err = build.lib().prmers_k3_p7c(
         x.data_ptr(), out.data_ptr(), co_out.data_ptr(),
@@ -500,12 +556,145 @@ def p7_carry_pass(t: DevTables, x: torch.Tensor, a: int = 1,
 
 
 # ---------------------------------------------------------------------------
-# Steps (kernels.py:1665-1743, row-carry branch)
+# K4: the r1 passes alone (the block-carry pipeline and the hybrid)
 # ---------------------------------------------------------------------------
+
+def inject_block_carries_plain(t: DevTables, x: torch.Tensor,
+                               co: torch.Tensor) -> torch.Tensor:
+    """Block b's carry, spread base-2^width over the first bk digits of
+    block b + 1 (the last block's over block 0's: the mod-M_p fold), added
+    to the digits (kernels.py:1505-1527)."""
+    parts = inject_parts(torch.roll(co.reshape(-1), 1), t.bwt, t.bcum)
+    y = x.clone()
+    y[:, 0, :t.bk] += parts              # digits < 2^32: no u64 wrap
+    return y
+
+
+def axis0_plain(t: DevTables, x: torch.Tensor, inverse: bool,
+                co: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain K4. Forward: with block carries co, their injection first
+    (the JAX runs it as an XLA strip before _p1_pass), then the wrap halve
+    and the per-r2 folded r1 DFT (tr_fwd_w). Inverse: the r1 inverse DFT
+    (iw_inv), the wrap double and canon."""
+    if inverse:
+        if co is not None:
+            raise ValueError("K4 inverse takes no carries")
+        return p7_dft_plain(t, x)
+    if co is not None:
+        x = inject_block_carries_plain(t, x, co)
+    return _p1_dft(t, x)
+
+
+def axis0_pass(t: DevTables, x: torch.Tensor, inverse: bool,
+               co: torch.Tensor | None = None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """K4: P1 (with the unrolled (R1, 1) block carries co injected, when
+    given) or P7 (kernels.py:1619-1639) over the whole register."""
+    if inverse and co is not None:
+        raise ValueError("K4 inverse takes no carries")
+    _check(t, (x, out), (co,), block=True)
+    if _on_cpu(x):
+        r = axis0_plain(t, x, inverse, co)
+        return r if out is None else out.copy_(r)
+    R1, R2, C = t.shape
+    if out is None:
+        out = torch.empty_like(x)
+    err = build.lib().prmers_k4_axis0(
+        x.data_ptr(), out.data_ptr(), int(inverse), _ptr(co),
+        t.bwt.data_ptr(), t.bcum.data_ptr(), t.bk, t.er.data_ptr(),
+        t.ec.data_ptr(), t.fp.n,
+        (t.k3_mats if inverse else t.k1_mats).data_ptr(), R1, R2, C,
+        _stream())
+    calls["k4_axis0"] += 1
+    build.check(err, "k4_axis0")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7: the carry over each r1 block
+# ---------------------------------------------------------------------------
+
+def block_carry_plain(t: DevTables, y: torch.Tensor, a: int = 1,
+                      rounds: int | None = None):
+    """Plain K7 on K4 inverse's canonical y: optional canon(y * a), then
+    the carry of each r1 block of R2*C digits in flat order with `rounds`
+    ripple rounds (default t.rounds, K7's rule; K8 is this with its own
+    rule); returns (digits, block out-carries (R1, 1))."""
+    R1 = t.shape[0]
+    y0, y1 = gl.split(y.reshape(R1, -1))
+    if a != 1:
+        y0, y1 = gl.canon(*gl.mul_small(y0, y1, a))
+    w = t.widths.to(torch.int64).reshape(R1, -1)
+    d, acc = _ripple(y0, y1, w, t.rounds if rounds is None else rounds)
+    return d.reshape(t.shape), acc.reshape(R1, 1)
+
+
+def block_carry_pass(t: DevTables, y: torch.Tensor, a: int = 1,
+                     out: torch.Tensor | None = None,
+                     co_out: torch.Tensor | None = None):
+    """K7 (kernels.py:1407-1443): returns (digits, block out-carries
+    (R1, 1)). Not in place: a CUDA block reads digits before its slab that
+    another block writes."""
+    if not 0 < a < (1 << 32):
+        raise ValueError(f"multiplier a={a} must be in [1, 2^32)")
+    if out is not None and out.data_ptr() == y.data_ptr():
+        raise ValueError("K7 cannot run in place")
+    _check(t, (y, out), (co_out,), block=True)
+    if _on_cpu(y):
+        d, co = block_carry_plain(t, y, a)
+        if out is not None:
+            d = out.copy_(d)
+        if co_out is not None:
+            co = co_out.copy_(co)
+        return d, co
+    R1, R2, C = t.shape
+    if out is None:
+        out = torch.empty_like(y)
+    if co_out is None:
+        co_out = torch.empty(t.block_carry_shape, dtype=torch.int64,
+                             device=y.device)
+    err = build.lib().prmers_k7_block_carry(
+        y.data_ptr(), out.data_ptr(), co_out.data_ptr(),
+        t.widths.data_ptr(), a, int(a != 1), t.rounds, R1, R2 * C,
+        _stream())
+    calls["k7_block_carry"] += 1
+    build.check(err, "k7_block_carry")
+    return out, co_out
+
+
+# ---------------------------------------------------------------------------
+# Steps (kernels.py:1665-1743)
+# ---------------------------------------------------------------------------
+
+def _block_step(t: DevTables, x, co, mode: str, u=None, a: int = 1,
+                out=None, co_out=None):
+    """The block-carry step (K4, fused_mid, K4 inverse, K7), or with
+    fourstep.use_xla_carry the hybrid (K4 without carries, fused_mid, K4
+    inverse, carry_full; the carries pass through)."""
+    hybrid = tfs.use_xla_carry(t.fp)
+    _check(t, (), (co, co_out), block=True)
+    s = axis0_pass(t, x, False, co=None if hybrid else co, out=out)
+    s = fused_mid(t, s, mode, u=u)
+    if mode == "fwd":
+        return s
+    z = axis0_pass(t, s, True)
+    if not hybrid:
+        return block_carry_pass(t, z, a, out=s, co_out=co_out)
+    d = carry_ops.carry_full(z.reshape(-1), t.widths.reshape(-1), a=a)
+    s.copy_(d.reshape(t.shape))
+    if co_out is None or co_out is co:
+        return s, co
+    return s, co_out.copy_(co)
+
 
 def square_step(t: DevTables, x, co, a: int = 1, sub2: bool = False,
                 out=None, co_out=None):
-    """One x^2 * a (or x^2 - 2 with sub2) iteration; returns (x, co)."""
+    """One x^2 * a (or x^2 - 2 with sub2, row carry only) iteration;
+    returns (x, co)."""
+    if not tfs.use_rowcarry(t.fp):
+        if sub2:
+            raise ValueError("the LL sub2 step needs the row-carry pipeline")
+        return _block_step(t, x, co, "sqr", a=a, out=out, co_out=co_out)
     s = p1_carry_pass(t, x, co, out=out)
     s = fused_mid(t, s, "sqr")
     return p7_carry_pass(t, s, a, sub2, out=s, co_out=co_out)
@@ -513,6 +702,9 @@ def square_step(t: DevTables, x, co, a: int = 1, sub2: bool = False,
 
 def mul_step(t: DevTables, x, co, u, a: int = 1, out=None, co_out=None):
     """x * multiplicand(u) * a; u is fwd_step's spectral output."""
+    if not tfs.use_rowcarry(t.fp):
+        return _block_step(t, x, co, "mul", u=u, a=a, out=out,
+                           co_out=co_out)
     s = p1_carry_pass(t, x, co, out=out)
     s = fused_mid(t, s, "mul", u=u)
     return p7_carry_pass(t, s, a, out=s, co_out=co_out)
@@ -520,6 +712,8 @@ def mul_step(t: DevTables, x, co, u, a: int = 1, out=None, co_out=None):
 
 def fwd_step(t: DevTables, x, co, out=None):
     """Forward transform only: the spectral multiplicand of (x, co)."""
+    if not tfs.use_rowcarry(t.fp):
+        return _block_step(t, x, co, "fwd", out=out)
     s = p1_carry_pass(t, x, co, out=out)
     return fused_mid(t, s, "fwd")
 

@@ -10,6 +10,13 @@ kernels run on one stream, so idle = 1 - device time / wall time. Needs a
 card: without one it raises. Where the engine takes K9 (n = 2^15 ...
 2^19) the squarings are one launch per 512 of them, so ask for 512 steps
 there: a window of 16 is mostly the launch and the profiler's own start.
+
+The pipeline is create_engine's: the default row carry, or what the JAX
+package's switches ask for, e.g. `PRMERS_NO_ROWCARRY=1 python -m
+prmers_tpu_torch.profile 136279841` for the block-carry pipeline. The
+line names it and gives each port kernel's wrapper calls per squaring
+(k4_axis0 and k7_block_carry there: K4 forward and inverse share the
+`axis_dft_kernel` name with K1 and K3a on the device).
 """
 
 from __future__ import annotations
@@ -27,10 +34,12 @@ def profile(p: int, steps: int = 16, warm: int = 4) -> dict:
 
     from .bench import card
     from .engine.factory import create_engine
+    from .ops import kernels as tk
     eng = create_engine(p, 2, device="cuda")
     eng.set(0, 3)
     eng.square_mul_seq(0, [1] * warm)
     torch.cuda.synchronize()
+    tk.reset_calls()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -48,6 +57,9 @@ def profile(p: int, steps: int = 16, warm: int = 4) -> dict:
     kernels = sorted(((name, t / 1e3 / steps) for name, t in us.items()),
                      key=lambda kv: -kv[1])
     return {"p": p, "n": eng.get_size(), "card": card(), "steps": steps,
+            "pipeline": repr(eng.t.fp.pipe),
+            "wrapper_calls_per_squaring": {
+                name: c / steps for name, c in tk.calls.items() if c},
             "device_ms_per_squaring": dev_ms,
             "wall_ms_per_squaring": wall_ms,
             "idle_share": 1.0 - dev_ms / wall_ms,

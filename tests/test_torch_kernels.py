@@ -250,9 +250,11 @@ def test_cuda_kernels_match_plain(case):
     ... 8192, so every rows-per-block branch of the row kernel and every
     carry unit of K3b), and at the forced big-shape pipelines (T = 4 and
     T = 2 carry units at small n). K3 takes the C-transform's lazy output,
-    as on the main path; K6b takes K6 "fwd"'s. Where fourstep.chain_ok
-    holds (n = 2^15 ... 2^19), K9 runs a = [3, 1, 3] and then a chain of 2
-    on its carries, bit for bit against its plain version."""
+    as on the main path; K6b takes K6 "fwd"'s. K4 runs forward with and
+    without block carries and inverse on that lazy output; K7 takes K4
+    inverse's output with a = 1 and a = 3. Where fourstep.chain_ok holds
+    (n = 2^15 ... 2^19), K9 runs a = [3, 1, 3] and then a chain of 2 on its
+    carries, bit for bit against its plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     logn, pipe = GPU_CASES[case]
@@ -289,6 +291,18 @@ def test_cuda_kernels_match_plain(case):
         d, c = tk.p7_carry_pass(t, z, a=a, sub2=sub2)
         dw, cw = tk.p7_carry_plain(t, z, a, sub2)
         assert torch.equal(d, dw) and torch.equal(c, cw), (a, sub2)
+    # K4 forward without and with (R1, 1) block carries, K4 inverse, K7
+    bco = torch.from_numpy(rng.integers(0, 1 << 45, size=t.block_carry_shape,
+                                        dtype=np.int64)).cuda()
+    for c in (None, bco):
+        assert same(tk.axis0_pass(t, x, False, co=c),
+                    tk.axis0_plain(t, x, False, co=c))
+    y = tk.axis0_pass(t, z, True)
+    assert torch.equal(y, tk.axis0_plain(t, z, True))
+    for a in (1, 3):
+        d, c = tk.block_carry_pass(t, y, a)
+        dw, cw = tk.block_carry_plain(t, y, a)
+        assert torch.equal(d, dw) and torch.equal(c, cw), a
     if tfs.chain_ok(t.fp):              # K9: n = 2^15 ... 2^19
         for a in ([3, 1, 3], [1, 3]):
             d, c = tk.square_chain(t, x, co, a)
