@@ -2,15 +2,20 @@
 """Smoke test of the PyTorch/CUDA port (prmers_tpu_torch) on one card.
 
 Run from the repository root with no arguments: python3 chip_smoke.py
+(one card; `python3 chip_smoke.py --mesh-only` runs phases 1 and 6 alone,
+at every world size the machine's cards allow).
 
-It drives four paths of the port: the n = 2^23 path (K1, K2, K3 with
+It drives five paths of the port: the n = 2^23 path (K1, K2, K3 with
 whole-row carries), the C = 8192 big-shape path of n = 2^25 and 2^26
 (K1 and K3 with T = 2 carry units per row, K5, K6 "fwd", K6b, K5), the
 chain path of n = 2^15 ... 2^19 (K9, the whole squaring chain in one
 persistent launch; K1-K3 for the multiplicand, mul and LL steps) and the
 block-carry path (Pipeline(rowcarry=False), PRMERS_NO_ROWCARRY: K4, the
 C-transform, K4 inverse, K7) with its canonical-digit hybrid
-(Pipeline(xla_carry=True), PRMERS_XLA_CARRY: carry_full in place of K7).
+(Pipeline(xla_carry=True), PRMERS_XLA_CARRY: carry_full in place of K7),
+and the mesh (parallel/: one process per card over torch.distributed with
+NCCL; the row-carry MeshEngine runs K1, K5, K6, K5, K3 per rank, the
+block-carry ShardedStep K4, K5, K6, K5, K4, K8, with all-to-alls between).
 Phases; any failure raises and the script exits non-zero with no result:
   1. the card (nvidia-smi name and power limit) and the kernel build
      (one nvcc per prmers_tpu_torch/csrc/*.cu, all at once, timed);
@@ -59,16 +64,37 @@ Phases; any failure raises and the script exits non-zero with no result:
      library_ms is null;
   5. `python -m prmers_tpu_torch 756839 -noproof` in a subprocess: the
      PRP of M756839 (n = 2^15, through K9) must report prime; then the
-     same with PRMERS_NO_ROWCARRY=1 (the block-carry path).
+     same with PRMERS_NO_ROWCARRY=1 (the block-carry path);
+  6. the mesh at p = 136279841: (a) on this card, the shard-local kernel
+     forms of rank 0 and the last rank of s = 2 and 4 (K1, K3 with a = 1,
+     3 and sub2 with the rank's amount, K4 both ways on the r2-sharded
+     view; K5, K6, K6b and K8 on the r1-sharded view), each against its
+     plain version (exact as in phase 2), and K8's time at the shard
+     shapes of s = 1, 2, 4 beside its bound (20 bytes per digit, as K7);
+     (b) for every s in {1, 2, 4} that torch.cuda.device_count() allows,
+     s rank processes of this script (NCCL, one card each): ShardedStep
+     on the block carry (three steps, K8) and MeshEngine (the phase-3
+     ops, plus a sparse sub through the ring's lookahead), each against
+     GMP on every rank, with each rank's wrapper counts (reset just
+     before, read just after: every kernel of the path > 0, K2, K7 and
+     K9 at 0), PRP iter/s through MeshEngine (192 squarings) and through
+     the block carry (32), and each collective's ms per squaring (CUDA
+     events on the stream, the wait for the other ranks included);
+     (c) `python -m torch.distributed.run --nproc_per_node=1 -m
+     prmers_tpu_torch 756839 -noproof -backend sharded` must report
+     prime. A failure in any rank fails the run.
 
-The last three lines of standard output are the per-kernel JSON object,
-the card's name and power limit, and {"ok": true, "device": {...}}.
+The last three lines of standard output are the per-kernel JSON object
+(k8_local's launches from the s = 1 ranks' drive, its time at the s = 1
+shape), the card's name and power limit, and {"ok": true, "device":
+{...}}.
 """
 
 import json
 import os
 import random
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -99,14 +125,191 @@ ENTRIES = [
     ("k9_chain", "k9_chain", "chain"),
     ("k4_axis0", "k4_axis0", "block"),
     ("k7_block_carry", "k7_block_carry", "block"),
+    ("k8_local", "k8_local", "mesh"),
 ]
+MESH_KERNELS = ("k1_p1c", "k3_p7c", "k4_axis0", "k5_axis1", "k6_fused_c",
+                "k8_local")
+MESH_OFF = ("k2_fused_c", "k7_block_carry", "k9_chain")
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def main() -> int:
+def mesh_rank(out_dir: str) -> int:
+    """One rank of phase 6b (run as `chip_smoke.py --mesh-rank OUT_DIR`
+    with RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT set):
+    the block-carry ShardedStep and MeshEngine at p = 136279841 against
+    GMP, the wrapper counts, PRP iter/s and the collectives' ms; writes
+    OUT_DIR/<rank>.json."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from prmers_tpu_torch.engine.factory import create_engine
+    from prmers_tpu_torch.ops import fourstep as tfs
+    from prmers_tpu_torch.ops import kernels as tk
+    from prmers_tpu_torch.parallel import dist
+    from prmers_tpu_torch.parallel.sharded_kernels import ShardedStep
+    from prmers_tpu_torch.utils import digits as dg
+    from prmers_tpu_torch.utils import gmp
+
+    dist.init_from_env()
+    s, rank = dist.process_count(), dist.rank()
+    p, K = P_MAIN, 8
+    mp = (1 << p) - 1
+    rnd = random.Random(p)
+    v, w = rnd.getrandbits(p - 1), rnd.getrandbits(p - 1)
+    sh = rnd.randrange(p // 2, p)
+    res = {"s": s, "rank": rank, "device": str(dist.device())}
+
+    def sqr(x, a=1):
+        return gmp.mersenne_mod(gmp.mul(x, x) * a, p)
+
+    # the block carry: ShardedStep, K8 at the end of each step
+    t0 = time.perf_counter()
+    st = ShardedStep(p, pipe=tfs.Pipeline(rowcarry=False))
+    res["tables_s"] = time.perf_counter() - t0
+    st.set_digits(dg.int_to_digits(v, st.plan.widths))
+    torch.cuda.synchronize()
+    dist.barrier()
+    tk.reset_calls()
+    st.step(2)
+    st.step(1, 3)
+    torch.cuda.synchronize()
+    res["block_calls"] = dict(tk.calls)
+    res["block_ok"] = st.get_int() == sqr(sqr(sqr(v)), 3)
+    st.step(4)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    st.step(32)
+    torch.cuda.synchronize()
+    res["block_ips"] = 32 / (time.perf_counter() - t0)
+    del st
+
+    # the row carry: MeshEngine through create_engine
+    eng = create_engine(p, 6, backend="sharded")
+    eng.set(0, 3 << sh)
+    eng.set(1, v)
+    eng.set(2, w)
+    eng.set(4, w)
+    eng.set(5, 81)
+    eng.sync()
+    dist.barrier()
+    tk.reset_calls()
+    c0 = dict(dist.counts)
+    t0 = time.perf_counter()
+    eng.square_mul_seq(0, [1] * K)          # (3 * 2^sh)^(2^K)
+    eng.square_mul(0, 3)                    # ^2 * 3
+    eng.square_mul(1, 3)                    # v^2 * 3
+    eng.set_multiplicand(3, 2)
+    eng.mul(1, 3)                           # v^2 * 3 * w
+    eng.square_sub2_seq(4, 1)               # w^2 - 2
+    eng.sub(5, 2)                           # a sparse sub: the lookahead
+    eng.sub(5, 100)                         # through zero
+    eng.sync()
+    res["engine_s"] = time.perf_counter() - t0
+    res["engine_calls"] = dict(tk.calls)
+    res["collectives"] = {k: n - c0[k] for k, n in dist.counts.items()}
+    c, e = 3, sh
+    for _ in range(K + 1):
+        c, e = c * c, 2 * e % p
+    res["engine_ok"] = [
+        eng.get_int(0) == gmp.mersenne_mod(c * 3 << e, p),
+        eng.get_int(1) == gmp.mersenne_mod(gmp.mul(sqr(v, 3), w), p),
+        eng.get_int(4) == (sqr(w) - 2) % mp,
+        eng.get_int(5) == (79 - 100) % mp]
+
+    # PRP iter/s, then each collective's ms per squaring
+    eng.set(0, 3)
+    eng.square_mul_seq(0, [1] * 16)
+    eng.sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    eng.square_mul_seq(0, [1] * 192)
+    eng.sync()
+    res["ips"] = 192 / (time.perf_counter() - t0)
+    dist.time_collectives(True)
+    eng.square_mul_seq(0, [1] * 32)
+    res["collective_ms"] = {k: ms / 32
+                            for k, ms in dist.collective_ms().items()}
+    dist.time_collectives(False)
+    with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.shutdown()
+    return 0
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_drive(root: str, card: str) -> dict:
+    """Phase 6b: the ranks at every s in {1, 2, 4} the cards allow, each
+    checked; returns {s: [each rank's result]}."""
+    import torch
+    out = {}
+    for s in (1, 2, 4):
+        if s > torch.cuda.device_count():
+            break
+        run_dir = os.path.join(root, "build", "smoke_mesh", str(s))
+        shutil.rmtree(run_dir, ignore_errors=True)
+        os.makedirs(run_dir)
+        env = dict(os.environ, WORLD_SIZE=str(s), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(_free_port()))
+        env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             run_dir], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+            for r in range(s)]
+        try:
+            texts = [pr.communicate(timeout=600)[0] for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        for r, (pr, text) in enumerate(zip(procs, texts)):
+            if pr.returncode != 0:
+                raise AssertionError(f"mesh rank {r} of {s} failed "
+                                     f"({pr.returncode}):\n{text[-3000:]}")
+        ranks = []
+        for r in range(s):
+            with open(os.path.join(run_dir, f"{r}.json")) as f:
+                ranks.append(json.load(f))
+        log(f"[6] s={s}: {s} ranks in {time.perf_counter() - t1:.3f} s")
+        for res in ranks:
+            calls = {k: res["block_calls"][k] + res["engine_calls"][k]
+                     for k in res["block_calls"]}
+            log(f"[6]   rank {res['rank']} ({res['device']}): tables "
+                f"{res['tables_s']:.3f} s; block step vs GMP "
+                f"{res['block_ok']}, calls {res['block_calls']}; engine "
+                f"ops in {res['engine_s']:.3f} s vs GMP (sparse chain, x3 + "
+                f"mul, sub2, sparse sub) {res['engine_ok']}, calls "
+                f"{res['engine_calls']}, collectives {res['collectives']}")
+            if not res["block_ok"] or not all(res["engine_ok"]):
+                raise AssertionError(f"the mesh at s={s} disagrees with GMP "
+                                     f"on rank {res['rank']}")
+            missing = [k for k in MESH_KERNELS if calls[k] <= 0]
+            ran_off = [k for k in MESH_OFF if calls[k]]
+            if missing or ran_off or res["block_calls"]["k8_local"] <= 0:
+                raise AssertionError(f"mesh rank {res['rank']} at s={s}: "
+                                     f"not launched {missing}, launched "
+                                     f"{ran_off}: {calls}")
+        r0 = ranks[0]
+        log(f"[6] PRP {r0['ips']:.6f} iter/s @ p={P_MAIN} through the mesh "
+            f"at s={s} (rank 0; ranks {[r['ips'] for r in ranks]}), "
+            f"{r0['block_ips']:.6f} through its block carry (K8); "
+            f"collective ms per squaring {r0['collective_ms']} ({card})")
+        out[s] = ranks
+    return out
+
+
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -118,7 +321,8 @@ def main() -> int:
     from prmers_tpu_torch import bench
     from prmers_tpu_torch.core.plan import build_plan, cached_plan
     from prmers_tpu_torch.engine.factory import create_engine
-    from prmers_tpu_torch.engine.fourstep_engine import get_tables
+    from prmers_tpu_torch.engine.fourstep_engine import (get_tables,
+                                                         host_tables)
     from prmers_tpu_torch.ops import build
     from prmers_tpu_torch.ops import fourstep as tfs
     from prmers_tpu_torch.ops import gl64 as gl
@@ -137,6 +341,15 @@ def main() -> int:
     build.lib()
     log(f"[1] kernels {'built' if built else 'reused'} in "
         f"{time.perf_counter() - t0:.3f} s ({build.library_path()})")
+    if "--mesh-only" in argv:
+        mesh = mesh_drive(root, card)
+        print(json.dumps({"mesh": {s: {
+            "ips": [r["ips"] for r in ranks],
+            "block_ips": [r["block_ips"] for r in ranks],
+            "collective_ms": ranks[0]["collective_ms"]}
+            for s, ranks in mesh.items()}}))
+        print(card)
+        return 0
 
     # ---- 2: every kernel against its plain version -----------------------
     errs = {e[0]: 0.0 for e in ENTRIES}
@@ -149,13 +362,13 @@ def main() -> int:
             return 0.0
         return float(max(abs(int(a[i]) - int(b[i])) for i in bad[:4096]))
 
-    def record(entry, what, got, want, canon=True):
+    def record(entry, what, got, want, canon=True, phase=2):
         torch.cuda.synchronize()
         if canon:
             got, want = gl.canon64(got), gl.canon64(want)
         e = max_abs_err(got, want)
         errs[entry] = max(errs[entry], e)
-        log(f"[2]   {entry} {what}: max_abs_err {e}")
+        log(f"[{phase}]   {entry} {what}: max_abs_err {e}")
         if e != 0.0:
             raise AssertionError(f"{entry} {what} disagrees with its plain "
                                  f"version (max_abs_err {e})")
@@ -384,6 +597,7 @@ def main() -> int:
     for label, v in got.items():
         log(f"[4] PRP {sum(v) / 2:.6f} iter/s @ p={P_MAIN} through the "
             f"{label} (runs {v[0]:.6f}, {v[1]:.6f}; {card})")
+    row_ips = sum(got["row carry"]) / 2
     torch.cuda.empty_cache()
     no_chain = tfs.Pipeline(chain=False)
     for p, iters in ((P_GOLDEN, 4096), (P_CHAIN, 1024)):
@@ -410,14 +624,14 @@ def main() -> int:
 
     ms = {}
 
-    def compare(entry, logn, what, kern, plain, reps):
+    def compare(entry, logn, what, kern, plain, reps, phase=4):
         p0 = timed(plain, 3)
         k0 = timed(kern, reps)
         k1 = timed(kern, reps)
         p1 = timed(plain, 3)
         got = ((k0 + k1) / 2, (p0 + p1) / 2)
-        log(f"[4] {entry} {what} n=2^{logn}: kernel {got[0]:.6f} ms, plain "
-            f"{got[1]:.6f} ms ({card})")
+        log(f"[{phase}] {entry} {what} n=2^{logn}: kernel {got[0]:.6f} ms, "
+            f"plain {got[1]:.6f} ms ({card})")
         return got
 
     def block_kernels(logn, reps, inputs):
@@ -564,21 +778,125 @@ def main() -> int:
 
     # ---- 5: M756839 through the CLI, on K9 and on the block carry ---------
     run_dir = os.path.join(root, "build", "smoke_run")
-    for label, extra in (("K9", {}), ("block carry",
-                                      {"PRMERS_NO_ROWCARRY": "1"})):
+
+    def cli_prime(phase, label, launcher=(), env=None, args=()):
         shutil.rmtree(run_dir, ignore_errors=True)   # no checkpoint to resume
         t1 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "prmers_tpu_torch",
-                            str(P_GOLDEN), "-noproof", "-save-dir", run_dir],
+        r = subprocess.run([sys.executable, "-m", *launcher,
+                            "prmers_tpu_torch", str(P_GOLDEN), "-noproof",
+                            "-save-dir", run_dir, *args],
                            cwd=root, capture_output=True, text=True,
-                           timeout=400, env=dict(os.environ, **extra))
+                           timeout=400, env=dict(os.environ, **(env or {})))
         dt = time.perf_counter() - t1
         tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
-        log(f"[5] M{P_GOLDEN} PRP through the {label} rc={r.returncode} in "
-            f"{dt:.3f} s: {tail}")
+        log(f"[{phase}] M{P_GOLDEN} PRP through the {label} "
+            f"rc={r.returncode} in {dt:.3f} s: {tail}")
         if r.returncode != 0 or '"status":"P"' not in tail.replace(" ", ""):
             raise AssertionError(f"M{P_GOLDEN} was not reported prime:\n"
                                  f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+
+    cli_prime(5, "K9")
+    cli_prime(5, "block carry", env={"PRMERS_NO_ROWCARRY": "1"})
+
+    # ---- 6: the mesh ------------------------------------------------------
+    # (a) the shard-local kernel forms on this card, s = 2 and 4
+    fpm = tfs.FourStepPlan.from_plan(cached_plan(P_MAIN))
+    kt = host_tables(fpm)
+    R1, R2, C = fpm.shape
+    rng = np.random.default_rng(6)
+    v = int.from_bytes(rng.bytes(P_MAIN // 8 + 1), "little") % \
+        ((1 << P_MAIN) - 1)
+    xm = dg.int_to_digits(v, cached_plan(P_MAIN).widths).reshape(R1, R2, C)
+
+    def residues(shape):
+        return gl.from_numpy_u64(rng.integers(0, gl.P, size=shape,
+                                              dtype=np.uint64), dev)
+
+    def views(s, rank):
+        return tuple(tk.DevTables.from_host(kt, dev, view, rank, s)
+                     for view in (tk.R2_VIEW, tk.R1_VIEW))
+
+    for s in (2, 4):
+        for rank in (0, s - 1):
+            t2, t1 = views(s, rank)
+            label = f"mesh s={s} rank={rank}"
+            m = R2 // s
+            x2 = gl.from_numpy_u64(np.ascontiguousarray(
+                xm[:, rank * m:(rank + 1) * m]), dev)
+            co = torch.from_numpy(rng.integers(
+                0, 1 << 40, size=t2.row_carry_shape, dtype=np.int64)).to(dev)
+            sp = tk.p1_carry_plain(t2, x2, co)
+            record("k1_p1c", label, tk.p1_carry_pass(t2, x2, co), sp,
+                   phase=6)
+            record("k4_axis0", f"{label} fwd", tk.axis0_pass(t2, x2, False),
+                   tk.axis0_plain(t2, x2, False), phase=6)
+            record("k4_axis0", f"{label} inverse", tk.axis0_pass(t2, sp, True),
+                   tk.axis0_plain(t2, sp, True), canon=False, phase=6)
+            amt = 2 if rank == 0 else 0
+            for a, sub2 in ((1, False), (3, False), (1, True)):
+                d, c = tk.p7_carry_pass(t2, sp, a=a, sub2=sub2, s2=amt)
+                dw, cw = tk.p7_carry_plain(t2, sp, a, sub2, amt)
+                what = f"{label} a={a} sub2={sub2}"
+                record("k3_p7c", what + " digits", d, dw, canon=False,
+                       phase=6)
+                record("k3_p7c", what + " carries", c, cw, canon=False,
+                       phase=6)
+            y = residues(t1.shape)
+            for which in ("p2", "p6"):
+                record("k5_axis1", f"{label} {which}",
+                       tk.axis1_pass(t1, y, which),
+                       tk.axis1_plain(t1, y, which), phase=6)
+            for mode in ("sqr", "fwd", "mul"):
+                um = y if mode == "mul" else None
+                record("k6_fused_c", f"{label} {mode}",
+                       tk.fused_c_pass(t1, y, mode, u=um, r2fold=False),
+                       tk.fused_c_plain(t1, y, mode, um, r2fold=False),
+                       phase=6)
+            for op in ("sqr", ""):
+                record("k6b_fused_c_invh", f"{label} op={op!r}",
+                       tk.fused_c_invh_pass(t1, y, op),
+                       tk.fused_c_invh_plain(t1, y, op), phase=6)
+            z = gl.canon64(y)
+            for a in (1, 3):
+                d, c = tk.block_carry_local(t1, z, a)
+                dw, cw = tk.block_carry_plain(t1, z, a, t1.k8_rounds)
+                record("k8_local", f"{label} a={a} digits", d, dw,
+                       canon=False, phase=6)
+                record("k8_local", f"{label} a={a} carries", c, cw,
+                       canon=False, phase=6)
+    # K8's time at the shard shapes of s = 1, 2, 4 (rank 0's r1 blocks)
+    for s in (1, 2, 4):
+        t1 = views(s, 0)[1]
+        z = gl.canon64(residues(t1.shape))
+        got = compare("k8_local", 23, f"s={s} {t1.shape} a=1",
+                      lambda: tk.block_carry_local(t1, z),
+                      lambda: tk.block_carry_plain(t1, z, 1, t1.k8_rounds),
+                      20, phase=6)
+        b = bound(0, 20 * z.numel() + 8 * t1.block_carry_shape[0])
+        log(f"[6] k8_local bound at s={s} {b[0]:.6f} ms ({b[1]}); kernel "
+            f"{got[0]:.6f} ms ({card})")
+        if s == 1:
+            ms["k8_local"], bounds["k8_local"] = got, b
+    del t1, t2, x2, co, sp, y, z, d, c, dw, cw
+    torch.cuda.empty_cache()
+
+    # (b) the ranks, at every s the cards allow
+    mesh = mesh_drive(root, card)
+    r0 = mesh[1][0]
+    counts["mesh"] = {k: r0["block_calls"][k] + r0["engine_calls"][k]
+                      for k in r0["block_calls"]}
+    for s, ranks in mesh.items():
+        log(f"[6] PRP {ranks[0]['ips']:.6f} iter/s @ p={P_MAIN} through the "
+            f"mesh at s={s} against {row_ips:.6f} through the single-card "
+            f"row carry ({card})")
+
+    # (c) M756839 through the CLI on the mesh, one rank
+    cli_prime(6, "mesh (-backend sharded, torchrun, 1 rank)",
+              launcher=("torch.distributed.run", "--standalone",
+                        "--nproc_per_node=1", "-m"),
+              env={"NCCL_SOCKET_IFNAME": os.environ.get(
+                  "NCCL_SOCKET_IFNAME", "lo")},
+              args=("-backend", "sharded"))
 
     kernels = [{"name": entry, "route": "cuda", "source": tk.SOURCES[name],
                 "replaces": tk.REPLACES[name],
@@ -596,4 +914,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2]))
+    sys.exit(main(sys.argv[1:]))

@@ -5,16 +5,26 @@ copy of the CLI (io/cli.parse_args), runs its copy of the PRP/LL driver
 (modes/prp_ll.run_prp_or_ll) on the port's engine, and prints the
 PrimeNet result JSON (io/json_out). Other modes and PRP proofs are not
 ported yet and stop with a message saying so.
+
+Under torchrun (or the JAX package's PRMERS_COORDINATOR variables) each
+process joins the group first (parallel/dist.init_from_env, as
+prmers_tpu/core/app.py:291 does), and `-backend sharded` (or "auto" with
+more than one rank) runs the mesh engine on it, one card per process:
+`python -m torch.distributed.run --nproc_per_node=4 -m prmers_tpu_torch
+<p> -noproof -backend sharded`. Only rank 0 prints the log and the result
+and writes checkpoints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 from .engine.factory import create_engine
 from .io import json_out
 from .io.cli import parse_args
 from .modes.prp_ll import run_prp_or_ll
+from .parallel import dist
 
 
 def run(opts, device=None, log=print):
@@ -28,7 +38,8 @@ def run(opts, device=None, log=print):
                          "prmers_tpu_torch; pass -noproof")
     if opts.save_dir:
         os.makedirs(opts.save_dir, exist_ok=True)
-    eng = create_engine(opts.exponent, 8, device=device)
+    eng = create_engine(opts.exponent, 8, device=device,
+                        backend=opts.backend)
     r = run_prp_or_ll(opts, eng=eng, proof_set=None, log=log)
     if opts.mode == "prp" and opts.known_factors:
         status = "PRP" if r.cofactor_prp else "C"
@@ -51,7 +62,16 @@ def main(argv=None) -> int:
     if opts.exponent == 0:
         print("usage: python -m prmers_tpu_torch <p> [-ll] [-noproof]")
         return 2
-    r, j = run(opts)
-    print(j)
+    dist.init_from_env()
+    try:
+        if dist.is_primary():
+            r, j = run(opts)
+            print(j)
+        else:
+            with open(os.devnull, "w") as null, \
+                    contextlib.redirect_stdout(null):
+                r, j = run(opts)
+    finally:
+        dist.shutdown()
     prime = bool(r.is_prime or r.wagstaff_prp or r.cofactor_prp)
     return 0 if prime else 1

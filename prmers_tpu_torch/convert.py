@@ -12,6 +12,8 @@ no jax: a JAX `FourStepTables` is read through np.asarray.
                                  spectral multiplicand (mod-P values)
   tables_from_jax                JAX folded n-sized tables -> the port's
   state_to_jax / state_from_jax  register (x, unit carries)
+  mesh_state_from_jax /          the JAX mesh state gathered to numpy <->
+  mesh_state_to_jax              each rank's r1-sharded (x, carries)
 
 Register and carry values cross unchanged (the carries in both are the
 unrolled out-carries of the last K3); multiplicands agree mod P.
@@ -87,3 +89,19 @@ def state_from_jax(x0, x1, c0, c1):
     if c0.ndim != 3 or c0.shape[-1] % 128:
         raise ValueError("the carries must be (R1, R2, T*128) or (R1, 1)")
     return from_pairs(x0, x1), from_pairs(c0[..., ::128], c1[..., ::128])
+
+
+def mesh_state_from_jax(x0, x1, c0, c1, s: int) -> list:
+    """The JAX mesh state gathered to numpy (register pairs (R1, R2, C);
+    the (R1, R2, T*128) row-carry block or the (R1, 1) block carries) ->
+    [(x (R1/s, R2, C), co (R1/s, R2, T) or (R1/s, 1)) u64 for each rank],
+    the rank's rows of each (r1-sharded, as the JAX mesh keeps them)."""
+    x, co = state_from_jax(x0, x1, c0, c1)
+    return list(zip(np.split(x, s), np.split(co, s)))
+
+
+def mesh_state_to_jax(states):
+    """The ranks' (x, co), in rank order -> the JAX mesh state gathered:
+    ((x0, x1), (c0, c1))."""
+    return state_to_jax(np.concatenate([x for x, _ in states]),
+                        np.concatenate([co for _, co in states]))

@@ -14,6 +14,8 @@ import struct
 import zlib
 from dataclasses import dataclass
 
+from ..parallel import dist
+
 VERSION = 2
 
 MODE_TAGS = {"prp": 1, "ll": 2, "llsafe": 3, "llsafe2": 4, "pm1": 5,
@@ -52,6 +54,10 @@ def ckpt_filename(p: int, mode: str, wagstaff: bool = False,
 
 
 def write_checkpoint(path: str, data: CheckpointData) -> None:
+    if not dist.is_primary():
+        # on the mesh every rank gathers the same register state, so rank
+        # 0 alone writes the file
+        return
     payload = struct.pack(
         "<iIIIId",
         VERSION, data.p, data.mode_tag, BACKEND_TAG_JAX,
@@ -108,6 +114,8 @@ def load_latest(path: str, p: int, mode_tag: int) -> CheckpointData | None:
 
 
 def delete_checkpoints(path: str) -> None:
+    if not dist.is_primary():
+        return          # rank 0 alone writes them, and removes them
     for f in (path, path + ".old", path + ".new"):
         if os.path.exists(f):
             os.remove(f)

@@ -3,7 +3,13 @@
 It hands out the four-step kernel engine for the shapes the port covers
 (engine/fourstep_engine.check_shape) and raises NotImplementedError with
 the shape for any other: there is no fallback to another engine or to the
-JAX package.
+JAX package. The backend "sharded" (`backend=`, or PRMERS_BACKEND) gives
+the mesh engine (parallel/mesh_engine.MeshEngine) over the process group
+of parallel/dist, and so does "auto" when that group has more than one
+rank (factory.py:68-84, 151-153); a shape the mesh does not take raises
+ValueError with the shape, for there is no XLA mesh engine to fall back
+on. "pallas" is the four-step engine as "auto" is on one rank; "jax" and
+"numpy" name engines the port does not have.
 
 The pipeline is the JAX package's default unless the caller passes one,
 or the environment names one with the JAX package's own switches, read
@@ -11,7 +17,8 @@ here and nowhere else in the port: PRMERS_NO_ROWCARRY (the block-carry
 pipeline, kernels.py:917), PRMERS_XLA_CARRY (the canonical-digit hybrid,
 :987) and PRMERS_NO_CHAIN (no whole-chain kernel, :1901). So
 `PRMERS_NO_ROWCARRY=1 python -m prmers_tpu_torch <p> -noproof` and the
-bench reach those pipelines with no flag of their own.
+bench reach those pipelines with no flag of their own. The mesh engine
+takes only the row carry and raises under the other two.
 """
 
 from __future__ import annotations
@@ -20,7 +27,12 @@ import os
 
 from ..core.plan import cached_plan
 from ..ops.fourstep import Pipeline
+from ..parallel import dist
+from ..parallel.mesh_engine import MeshEngine
+from .api import Engine
 from .fourstep_engine import FourStepEngine
+
+BACKENDS = ("auto", "pallas", "sharded", "jax", "numpy")
 
 
 def pipeline_from_env() -> Pipeline:
@@ -33,6 +45,16 @@ def pipeline_from_env() -> Pipeline:
 
 
 def create_engine(p: int, reg_count: int, device=None,
-                  pipe: Pipeline | None = None) -> FourStepEngine:
+                  pipe: Pipeline | None = None,
+                  backend: str | None = None) -> Engine:
+    b = backend or os.environ.get("PRMERS_BACKEND") or "auto"
+    if b not in BACKENDS:
+        raise ValueError(f"unknown backend {b!r}")
+    if b in ("jax", "numpy"):
+        raise NotImplementedError(f"the {b!r} engine is not ported to "
+                                  "prmers_tpu_torch")
+    pipe = pipeline_from_env() if pipe is None else pipe
+    if b == "sharded" or (b == "auto" and dist.process_count() > 1):
+        return MeshEngine(p, reg_count, device=device, pipe=pipe)
     return FourStepEngine(p, reg_count, plan=cached_plan(p), device=device,
-                          pipe=pipeline_from_env() if pipe is None else pipe)
+                          pipe=pipe)

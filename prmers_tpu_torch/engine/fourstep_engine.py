@@ -61,11 +61,9 @@ def check_shape(fp: tfs.FourStepPlan) -> None:
             f"carry_ct={tfs.carry_ct(fp)})")
 
 
-def get_tables(plan: Plan, device: torch.device,
-               pipe: tfs.Pipeline = tfs.Pipeline()):
-    """The kernel tables of a plan under a pipeline. The tables depend on
-    the pipeline only through the carry unit, so pipelines with one unit
-    share one host build and one device copy."""
+def four_step_plan(plan: Plan, pipe: tfs.Pipeline) -> tfs.FourStepPlan:
+    """The kernel plan of a plan under a pipeline, for the shapes
+    check_shape covers; NotImplementedError for any other."""
     try:
         fp = tfs.FourStepPlan.from_plan(plan, pipe)
     except AssertionError as e:
@@ -73,13 +71,28 @@ def get_tables(plan: Plan, device: torch.device,
             f"prmers_tpu_torch has no four-step plan for n={plan.n}: "
             f"{e}") from None
     check_shape(fp)
-    key = (plan.p, plan.n, tfs.carry_ct(fp))
+    return fp
+
+
+def host_tables(fp: tfs.FourStepPlan) -> tfs.KernelTables:
+    """The host tables of a kernel plan. They depend on the pipeline only
+    through the carry unit, so pipelines with one unit share one build,
+    and so do the mesh's shard views of it."""
+    key = (fp.p, fp.n, tfs.carry_ct(fp))
     if key not in _HOST_TABLES:
         _HOST_TABLES[key] = tfs.build_tables(fp)
-    dkey = key + (str(device),)
-    if dkey not in _DEV_TABLES:
-        _DEV_TABLES[dkey] = tk.DevTables.from_host(_HOST_TABLES[key], device)
-    return dataclasses.replace(_DEV_TABLES[dkey], fp=fp)
+    return _HOST_TABLES[key]
+
+
+def get_tables(plan: Plan, device: torch.device,
+               pipe: tfs.Pipeline = tfs.Pipeline()):
+    """The kernel tables of a plan under a pipeline on a device: one
+    device copy for pipelines with one carry unit."""
+    fp = four_step_plan(plan, pipe)
+    key = (plan.p, plan.n, tfs.carry_ct(fp), str(device))
+    if key not in _DEV_TABLES:
+        _DEV_TABLES[key] = tk.DevTables.from_host(host_tables(fp), device)
+    return dataclasses.replace(_DEV_TABLES[key], fp=fp)
 
 
 def op_settle(t: tk.DevTables, x: torch.Tensor,

@@ -30,6 +30,7 @@ Tables built here, all canonical u64 numpy arrays unless noted:
   widths  (R1, R2, C)   u32 digit widths
   bwt, bcum (R1, bk)    u32 spread widths / bit offsets of the block-carry
                         injection (the first bk digits of each r1 block)
+  rounds, k8_rounds     the carry's ripple rounds: K3 and K7's rule, K8's
 
 Which kernels a step runs follows the JAX pipeline's shape predicates
 (use_rowcarry, use_xla_carry, use_r2fold, fc_split, carry_ct below); a
@@ -321,6 +322,18 @@ def carry_rounds(fp: FourStepPlan) -> int:
     return max(rounds, 2)
 
 
+def k8_rounds(fp: FourStepPlan) -> int:
+    """Ripple rounds of K8, the mesh's block carry: split until the
+    residual is at most 1 (sharded_pallas.py:209-215), more rounds than
+    carry_rounds gives K7, so the lazy digits of the two differ."""
+    wmin = int(fp.widths.min())
+    rounds = 1
+    bound = fp.max_word * 4
+    while bound >> (rounds * wmin) > 1:
+        rounds += 1
+    return max(rounds, 2)
+
+
 def _spread_plan(wmat: np.ndarray):
     """(k, wt, cum) for units that are the rows of wmat: the smallest k
     whose leading k digit widths cover >= 64 bits in every unit, those
@@ -443,6 +456,7 @@ class KernelTables:
     bwt: np.ndarray
     bcum: np.ndarray
     bk: int
+    k8_rounds: int
 
 
 def _fold_rows(M: np.ndarray, row_scale: np.ndarray,
@@ -535,4 +549,4 @@ def build_tables(fp: FourStepPlan) -> KernelTables:
         wt=wt, cum=cum,
         widths=fp.widths.reshape(R1, R2, C).astype(np.uint32),
         k=k, ct=carry_ct(fp), rounds=carry_rounds(fp), bwt=bwt, bcum=bcum,
-        bk=bk)
+        bk=bk, k8_rounds=k8_rounds(fp))

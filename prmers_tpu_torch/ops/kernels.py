@@ -42,6 +42,9 @@ mode "fwd"; K3 two; the others one).
   K7  block_carry_pass      csrc/k7_block_carry.cu  x a, the carry ripple
                                                 over each r1 block, block
                                                 out-carries
+  K8  block_carry_local     csrc/k7_block_carry.cu  K7's kernel with K8's
+                                                round rule, on a rank's
+                                                r1 blocks (the mesh)
 
 A row-carry step runs K1, the C-transform span `fused_mid` and K3;
 `fused_mid` picks K2, or K5 + K6 + K5, or K5 + K6 "fwd" + K6b + K5, exactly
@@ -51,12 +54,18 @@ K7. All but K7 may run in place (out is x): each CUDA block reads the
 elements it writes before writing them. Where the JAX package takes its
 whole-chain kernel (fourstep.chain_ok), a chain of squarings is one K9
 launch that runs the row-carry stages as its phases.
+
+On the mesh (parallel/sharded_kernels.py) every wrapper runs on a rank's
+shard view of the tables (DevTables.from_host with R2_VIEW: K1, K3, K4 on
+(R1, R2/s, C); with R1_VIEW: K5, K6, K6b, K8 on (R1/s, R2, C)), whose
+shape is the shard's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import build
@@ -65,7 +74,8 @@ from . import fourstep as tfs
 from . import gl64 as gl
 
 KERNELS = ("k1_p1c", "k2_fused_c", "k3_p7c", "k5_axis1", "k6_fused_c",
-           "k6b_fused_c_invh", "k9_chain", "k4_axis0", "k7_block_carry")
+           "k6b_fused_c_invh", "k9_chain", "k4_axis0", "k7_block_carry",
+           "k8_local")
 SOURCES = {
     "k1_p1c": "prmers_tpu_torch/csrc/k1_p1c.cu",
     "k2_fused_c": "prmers_tpu_torch/csrc/k2_fused_c.cu",
@@ -76,6 +86,7 @@ SOURCES = {
     "k9_chain": "prmers_tpu_torch/csrc/k9_chain.cu",
     "k4_axis0": "prmers_tpu_torch/csrc/k4_axis0.cu",
     "k7_block_carry": "prmers_tpu_torch/csrc/k7_block_carry.cu",
+    "k8_local": "prmers_tpu_torch/csrc/k7_block_carry.cu",
 }
 REPLACES = {
     "k1_p1c": "prmers_tpu/ops/pallas/kernels.py:512",
@@ -88,6 +99,7 @@ REPLACES = {
     # _pass_kernel in its axis-0 form, launched by _axis0_pass (:268)
     "k4_axis0": "prmers_tpu/ops/pallas/kernels.py:130",
     "k7_block_carry": "prmers_tpu/ops/pallas/kernels.py:1315",
+    "k8_local": "prmers_tpu/parallel/sharded_pallas.py:201",
 }
 calls = {name: 0 for name in KERNELS}
 
@@ -101,53 +113,76 @@ def reset_calls() -> None:
         calls[name] = 0
 
 
+_U64_TABLES = ("k1_mats", "g2", "mf", "mi", "lane_f", "lane_i", "Mf", "Mi",
+               "tri", "k3_mats")
+_I32_TABLES = ("er", "ec", "wt", "cum", "widths", "bwt", "bcum")
+
+# The shard views of the mesh (sharded_pallas.py:92-136): each table a view
+# keeps, with the axis cut to the rank's part (None: kept whole). Tables a
+# view leaves out are None in it, so a kernel given the wrong view fails.
+# The r2-sharded view serves K1, K3 and K4 on (R1, R2/s, C); the
+# r1-sharded one K5, K6, K6b and K8 on (R1/s, R2, C).
+R2_VIEW = {"k1_mats": 0, "k3_mats": 0, "er": 1, "ec": None, "wt": 1,
+           "cum": 1, "widths": 1}
+R1_VIEW = {"g2": None, "mf": 0, "mi": 0, "lane_f": None, "lane_i": None,
+           "Mf": None, "Mi": None, "tri": 0, "ec": None, "widths": 0,
+           "bwt": 0, "bcum": 0}
+
+
 @dataclasses.dataclass(eq=False)
 class DevTables:
     """The kernel tables on one device: u64 matrices and mids as int64 bit
-    patterns, residues and widths as int32."""
+    patterns, residues and widths as int32. The shape of the register the
+    kernels take is that of the widths."""
     fp: object
-    k1_mats: torch.Tensor
-    g2: torch.Tensor
-    mf: torch.Tensor
-    mi: torch.Tensor
-    lane_f: torch.Tensor
-    lane_i: torch.Tensor
-    Mf: torch.Tensor
-    Mi: torch.Tensor
-    tri: torch.Tensor
-    k3_mats: torch.Tensor
-    er: torch.Tensor
-    ec: torch.Tensor
-    wt: torch.Tensor
-    cum: torch.Tensor
+    k1_mats: torch.Tensor | None
+    g2: torch.Tensor | None
+    mf: torch.Tensor | None
+    mi: torch.Tensor | None
+    lane_f: torch.Tensor | None
+    lane_i: torch.Tensor | None
+    Mf: torch.Tensor | None
+    Mi: torch.Tensor | None
+    tri: torch.Tensor | None
+    k3_mats: torch.Tensor | None
+    er: torch.Tensor | None
+    ec: torch.Tensor | None
+    wt: torch.Tensor | None
+    cum: torch.Tensor | None
     widths: torch.Tensor
     k: int
     ct: int
     rounds: int
-    bwt: torch.Tensor
-    bcum: torch.Tensor
+    bwt: torch.Tensor | None
+    bcum: torch.Tensor | None
     bk: int
+    k8_rounds: int
 
     @classmethod
-    def from_host(cls, kt: tfs.KernelTables, device) -> "DevTables":
-        def u64(a):
-            return gl.from_numpy_u64(a, device)
-
-        def i32(a):
-            return torch.from_numpy(a.astype("int32")).to(device)
-
-        return cls(fp=kt.fp, k1_mats=u64(kt.k1_mats), g2=u64(kt.g2),
-                   mf=u64(kt.mf), mi=u64(kt.mi), lane_f=u64(kt.lane_f),
-                   lane_i=u64(kt.lane_i), Mf=u64(kt.Mf), Mi=u64(kt.Mi),
-                   tri=u64(kt.tri), k3_mats=u64(kt.k3_mats), er=i32(kt.er),
-                   ec=i32(kt.ec), wt=i32(kt.wt), cum=i32(kt.cum),
-                   widths=i32(kt.widths), k=kt.k, ct=kt.ct,
-                   rounds=kt.rounds, bwt=i32(kt.bwt), bcum=i32(kt.bcum),
-                   bk=kt.bk)
+    def from_host(cls, kt: tfs.KernelTables, device, view: dict | None = None,
+                  rank: int = 0, s: int = 1) -> "DevTables":
+        """The tables on device; with a view (R2_VIEW, R1_VIEW), rank's
+        shard of them for s ranks, each cut table one contiguous copy."""
+        tabs = {}
+        for name in _U64_TABLES + _I32_TABLES:
+            a = getattr(kt, name)
+            if view is not None:
+                if name not in view:
+                    tabs[name] = None
+                    continue
+                ax = view[name]
+                if ax is not None:
+                    m = a.shape[ax] // s
+                    a = np.ascontiguousarray(
+                        np.take(a, np.arange(rank * m, (rank + 1) * m), ax))
+            tabs[name] = (gl.from_numpy_u64(a, device) if name in _U64_TABLES
+                          else torch.from_numpy(a.astype("int32")).to(device))
+        return cls(fp=kt.fp, k=kt.k, ct=kt.ct, rounds=kt.rounds, bk=kt.bk,
+                   k8_rounds=kt.k8_rounds, **tabs)
 
     @property
     def shape(self) -> tuple[int, int, int]:
-        return tuple(self.mf.shape)
+        return tuple(self.widths.shape)
 
     @property
     def row_carry_shape(self) -> tuple[int, int, int]:
@@ -168,7 +203,7 @@ class DevTables:
 
     @property
     def device(self) -> torch.device:
-        return self.mf.device
+        return self.widths.device
 
 
 def _on_cpu(x: torch.Tensor) -> bool:
@@ -518,22 +553,24 @@ def _ripple(y0, y1, w, rounds: int):
 
 
 def p7_carry_plain(t: DevTables, x: torch.Tensor, a: int = 1,
-                   sub2: bool = False):
-    return carry_plain(t, p7_dft_plain(t, x, a), sub2)
+                   sub2: bool = False, s2: int = 2):
+    return carry_plain(t, p7_dft_plain(t, x, a), sub2, s2)
 
 
 def p7_carry_pass(t: DevTables, x: torch.Tensor, a: int = 1,
                   sub2: bool = False, out: torch.Tensor | None = None,
-                  co_out: torch.Tensor | None = None):
+                  co_out: torch.Tensor | None = None, s2: int = 2):
     """K3 on the C-transform's output: returns (digits, unit out-carries
-    (R1, R2, T))."""
+    (R1, R2, T)). With sub2, s2 is what comes off the register's digit 0:
+    2, or 0 on a mesh rank that does not hold global digit 0
+    (sharded_pallas.py:493-498)."""
     if sub2 and a != 1:
         raise ValueError("the LL sub2 step never rides the x a path")
     if not 0 < a < (1 << 32):
         raise ValueError(f"multiplier a={a} must be in [1, 2^32)")
     _check(t, (x, out), (co_out,))
     if _on_cpu(x):
-        d, co = p7_carry_plain(t, x, a, sub2)
+        d, co = p7_carry_plain(t, x, a, sub2, s2)
         if out is not None:
             d = out.copy_(d)
         if co_out is not None:
@@ -548,7 +585,7 @@ def p7_carry_pass(t: DevTables, x: torch.Tensor, a: int = 1,
     err = build.lib().prmers_k3_p7c(
         x.data_ptr(), out.data_ptr(), co_out.data_ptr(),
         t.k3_mats.data_ptr(), t.er.data_ptr(), t.ec.data_ptr(), t.fp.n,
-        t.widths.data_ptr(), t.rounds, a, int(a != 1), int(sub2), 2,
+        t.widths.data_ptr(), t.rounds, a, int(a != 1), int(sub2), s2,
         R1, R2, C, t.ct, _stream())
     calls["k3_p7c"] += 1
     build.check(err, "k3_p7c")
@@ -601,7 +638,7 @@ def axis0_pass(t: DevTables, x: torch.Tensor, inverse: bool,
         out = torch.empty_like(x)
     err = build.lib().prmers_k4_axis0(
         x.data_ptr(), out.data_ptr(), int(inverse), _ptr(co),
-        t.bwt.data_ptr(), t.bcum.data_ptr(), t.bk, t.er.data_ptr(),
+        _ptr(t.bwt), _ptr(t.bcum), t.bk, t.er.data_ptr(),
         t.ec.data_ptr(), t.fp.n,
         (t.k3_mats if inverse else t.k1_mats).data_ptr(), R1, R2, C,
         _stream())
@@ -618,8 +655,8 @@ def block_carry_plain(t: DevTables, y: torch.Tensor, a: int = 1,
                       rounds: int | None = None):
     """Plain K7 on K4 inverse's canonical y: optional canon(y * a), then
     the carry of each r1 block of R2*C digits in flat order with `rounds`
-    ripple rounds (default t.rounds, K7's rule; K8 is this with its own
-    rule); returns (digits, block out-carries (R1, 1))."""
+    ripple rounds (default t.rounds, K7's rule; the plain K8 is this with
+    fourstep.k8_rounds); returns (digits, block out-carries (R1, 1))."""
     R1 = t.shape[0]
     y0, y1 = gl.split(y.reshape(R1, -1))
     if a != 1:
@@ -635,13 +672,31 @@ def block_carry_pass(t: DevTables, y: torch.Tensor, a: int = 1,
     """K7 (kernels.py:1407-1443): returns (digits, block out-carries
     (R1, 1)). Not in place: a CUDA block reads digits before its slab that
     another block writes."""
+    return _block_carry(t, y, a, t.rounds, "k7_block_carry", out, co_out)
+
+
+def block_carry_local(t: DevTables, y: torch.Tensor, a: int = 1,
+                      out: torch.Tensor | None = None,
+                      co_out: torch.Tensor | None = None):
+    """K8 (sharded_pallas.py:201-235): K7's kernel with K8's round rule
+    (fourstep.k8_rounds, kept in t.k8_rounds: its numpy min over the
+    widths costs milliseconds at n = 2^23) on the r1 blocks of t, a rank's
+    r1-sharded view on the mesh; returns (digits, block out-carries
+    (R1/s, 1)). Its plain version is block_carry_plain(t, y, a,
+    t.k8_rounds)."""
+    return _block_carry(t, y, a, t.k8_rounds, "k8_local", out, co_out)
+
+
+def _block_carry(t: DevTables, y: torch.Tensor, a: int, rounds: int,
+                 name: str, out: torch.Tensor | None,
+                 co_out: torch.Tensor | None):
     if not 0 < a < (1 << 32):
         raise ValueError(f"multiplier a={a} must be in [1, 2^32)")
     if out is not None and out.data_ptr() == y.data_ptr():
         raise ValueError("K7 cannot run in place")
     _check(t, (y, out), (co_out,), block=True)
     if _on_cpu(y):
-        d, co = block_carry_plain(t, y, a)
+        d, co = block_carry_plain(t, y, a, rounds)
         if out is not None:
             d = out.copy_(d)
         if co_out is not None:
@@ -655,10 +710,10 @@ def block_carry_pass(t: DevTables, y: torch.Tensor, a: int = 1,
                              device=y.device)
     err = build.lib().prmers_k7_block_carry(
         y.data_ptr(), out.data_ptr(), co_out.data_ptr(),
-        t.widths.data_ptr(), a, int(a != 1), t.rounds, R1, R2 * C,
+        t.widths.data_ptr(), a, int(a != 1), rounds, R1, R2 * C,
         _stream())
-    calls["k7_block_carry"] += 1
-    build.check(err, "k7_block_carry")
+    calls[name] += 1
+    build.check(err, name)
     return out, co_out
 
 

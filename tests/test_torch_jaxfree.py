@@ -1,6 +1,7 @@
 """The port never imports jax nor the JAX package: in a fresh interpreter
 (tests/conftest.py imports jax into this one), importing every module of
-prmers_tpu_torch and running one CPU squaring through the engine leaves
+prmers_tpu_torch (the mesh's parallel/ too) and running one CPU squaring
+through the four-step engine and one through the mesh engine leaves
 neither jax nor prmers_tpu in sys.modules. The machine with the CUDA card
 has no jax at all, and the port keeps its own copies of the host modules
 it needs."""
@@ -25,6 +26,11 @@ e = FourStepEngine(p, 2, plan=build_plan(p, n=n), device="cpu")
 e.set(0, 3)
 e.square_mul(0)
 assert e.get_int(0) == 9
+from prmers_tpu_torch.parallel.mesh_engine import MeshEngine
+m = MeshEngine(p, 2, device="cpu", n=n)
+m.set(0, 3)
+m.square_mul(0, 3)
+assert m.get_int(0) == 27
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 print("JAXMODS", bad)
 ref = sorted(k for k in sys.modules

@@ -309,3 +309,59 @@ def test_cuda_kernels_match_plain(case):
             dw, cw = tk.square_chain_plain(t, x, co, a, len(a))
             assert torch.equal(d, dw) and torch.equal(c, cw), a
             x, co = d, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logn,s", [(18, 2), (18, 4), (23, 2), (23, 4)])
+def test_cuda_shard_kernels_match_plain(logn, s):
+    """On the card: the mesh's shard-local launches of the first and the
+    last of s ranks, each against its plain version on the same inputs:
+    K1, K3 (a = 1, 3 and sub2 with the rank's amount) and K4 both ways on
+    the r2-sharded view (R1, R2/s, C); K5, K6, K6b and K8 (a = 1, 3) on
+    the r1-sharded view (R1/s, R2, C)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 1 << logn
+    plan = build_plan(int(n * 16.5) | 1, n=n)
+    kt = tfs.build_tables(tfs.FourStepPlan.from_plan(plan))
+    rng = np.random.default_rng(logn + s)
+
+    def same(got, want):
+        return torch.equal(tgl.canon64(got), tgl.canon64(want))
+
+    for rank in (0, s - 1):
+        t2, t1 = (tk.DevTables.from_host(kt, "cuda", view, rank, s)
+                  for view in (tk.R2_VIEW, tk.R1_VIEW))
+        x = _digits(plan, rng).reshape(kt.widths.shape)
+        m = x.shape[1] // s
+        x2 = _t(np.ascontiguousarray(x[:, rank * m:(rank + 1) * m])).cuda()
+        co = torch.from_numpy(rng.integers(0, 1 << 40,
+                                           size=t2.row_carry_shape,
+                                           dtype=np.int64)).cuda()
+        s2 = tk.p1_carry_pass(t2, x2, co)
+        assert same(s2, tk.p1_carry_plain(t2, x2, co))
+        for inverse, v in ((False, x2), (True, s2)):
+            got = tk.axis0_pass(t2, v, inverse)
+            want = tk.axis0_plain(t2, v, inverse)
+            assert torch.equal(got, want) if inverse else same(got, want)
+        for a, sub2 in ((1, False), (3, False), (1, True)):
+            amt = 2 if rank == 0 else 0
+            d, c = tk.p7_carry_pass(t2, s2, a=a, sub2=sub2, s2=amt)
+            dw, cw = tk.p7_carry_plain(t2, s2, a, sub2, amt)
+            assert torch.equal(d, dw) and torch.equal(c, cw), (a, sub2)
+        y = _t(rng.integers(0, GP, size=t1.shape, dtype=np.uint64)).cuda()
+        for which in ("p2", "p6"):
+            assert same(tk.axis1_pass(t1, y, which),
+                        tk.axis1_plain(t1, y, which))
+        for mode in ("sqr", "fwd", "mul"):
+            u = y if mode == "mul" else None
+            assert same(tk.fused_c_pass(t1, y, mode, u=u, r2fold=False),
+                        tk.fused_c_plain(t1, y, mode, u, r2fold=False))
+        for op in ("sqr", ""):
+            assert same(tk.fused_c_invh_pass(t1, y, op),
+                        tk.fused_c_invh_plain(t1, y, op))
+        z = tgl.canon64(y)
+        for a in (1, 3):
+            d, c = tk.block_carry_local(t1, z, a)
+            dw, cw = tk.block_carry_plain(t1, z, a, t1.k8_rounds)
+            assert torch.equal(d, dw) and torch.equal(c, cw), a
