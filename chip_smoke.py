@@ -69,8 +69,10 @@ Phases; any failure raises and the script exits non-zero with no result:
      forms of rank 0 and the last rank of s = 2 and 4 (K1, K3 with a = 1,
      3 and sub2 with the rank's amount, K4 both ways on the r2-sharded
      view; K5, K6, K6b and K8 on the r1-sharded view), each against its
-     plain version (exact as in phase 2), and K8's time at the shard
-     shapes of s = 1, 2, 4 beside its bound (20 bytes per digit, as K7);
+     plain version (exact as in phase 2), and K8 at the shard shapes of
+     s = 1, 2, 4 (with a = 1 and 3 against its plain version on the input
+     it is then timed on) with its time beside its bound (20 bytes per
+     digit, as K7);
      (b) for every s in {1, 2, 4} that torch.cuda.device_count() allows,
      s rank processes of this script (NCCL, one card each): ShardedStep
      on the block carry (three steps, K8) and MeshEngine (the phase-3
@@ -864,10 +866,18 @@ def main(argv) -> int:
                        canon=False, phase=6)
                 record("k8_local", f"{label} a={a} carries", c, cw,
                        canon=False, phase=6)
-    # K8's time at the shard shapes of s = 1, 2, 4 (rank 0's r1 blocks)
+    # K8 at the shard shapes of s = 1, 2, 4 (rank 0's r1 blocks): held
+    # against its plain version on the timed input, then timed
     for s in (1, 2, 4):
         t1 = views(s, 0)[1]
         z = gl.canon64(residues(t1.shape))
+        for a in (1, 3):
+            d, c = tk.block_carry_local(t1, z, a)
+            dw, cw = tk.block_carry_plain(t1, z, a, t1.k8_rounds)
+            what = f"timed s={s} {t1.shape} a={a}"
+            record("k8_local", what + " digits", d, dw, canon=False, phase=6)
+            record("k8_local", what + " carries", c, cw, canon=False,
+                   phase=6)
         got = compare("k8_local", 23, f"s={s} {t1.shape} a=1",
                       lambda: tk.block_carry_local(t1, z),
                       lambda: tk.block_carry_plain(t1, z, 1, t1.k8_rounds),

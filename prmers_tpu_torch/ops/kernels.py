@@ -629,6 +629,9 @@ def axis0_pass(t: DevTables, x: torch.Tensor, inverse: bool,
     given) or P7 (kernels.py:1619-1639) over the whole register."""
     if inverse and co is not None:
         raise ValueError("K4 inverse takes no carries")
+    if co is not None and t.bwt is None:
+        raise ValueError("K4 forward with carries needs the block spread "
+                         "tables (bwt, bcum), which this view lacks")
     _check(t, (x, out), (co,), block=True)
     if _on_cpu(x):
         r = axis0_plain(t, x, inverse, co)

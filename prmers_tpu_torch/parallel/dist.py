@@ -70,7 +70,10 @@ def init(rank: int, world_size: int, init_method: str,
 def init_from_env(device=None) -> bool:
     """Join the group the environment describes; returns True if there is
     one (a group of one under `torchrun --nproc_per_node=1` too). The
-    device is cuda:LOCAL_RANK unless the caller passes one."""
+    device is cuda:LOCAL_RANK unless the caller passes one; without
+    LOCAL_RANK (the JAX package's variables) it is cuda:RANK, and a group
+    larger than this host's cards raises, for a group across hosts is not
+    ported."""
     if initialized():
         return True
     env = os.environ
@@ -84,8 +87,14 @@ def init_from_env(device=None) -> bool:
         method = f"tcp://{env['PRMERS_COORDINATOR']}"
     else:
         return False
-    local = int(env.get("LOCAL_RANK", rank))
-    init(rank, world, method, f"cuda:{local}" if device is None else device)
+    if device is None:
+        if "LOCAL_RANK" not in env and world > torch.cuda.device_count():
+            raise ValueError(
+                f"{world} ranks without LOCAL_RANK on a host with "
+                f"{torch.cuda.device_count()} cards: a group across hosts "
+                "is not ported (set LOCAL_RANK, or run one host's ranks)")
+        device = f"cuda:{env.get('LOCAL_RANK', rank)}"
+    init(rank, world, method, device)
     return True
 
 

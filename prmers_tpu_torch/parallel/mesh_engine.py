@@ -13,16 +13,14 @@ and renormalize with a carry ring across the ranks (ring_carry), once per
 Gerbicz block, never in the iteration loop. Host exchange gathers through
 parallel/dist, so every rank gets the whole value.
 
-The LL step fuses its -2 into K3 (the amount on rank 0 only) unless
-PRMERS_MESH_SEQ_STEPWISE is set, which makes square_sub2_seq Engine's
-square, then sub, as the JAX reads it (mesh_engine.py:354-356). The engine
-needs the row carry, as the JAX's (mesh_engine.py:228-230): the
-block-carry mesh path is ShardedStep.
+The LL step fuses its -2 into K3 (the amount on rank 0 only). The JAX's
+PRMERS_MESH_SEQ_STEPWISE (square, then sub: mesh_engine.py:354-356) only
+reuses compiled single-step programs, and the port compiles none, so it is
+not read here. The engine needs the row carry, as the JAX's
+(mesh_engine.py:228-230): the block-carry mesh path is ShardedStep.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
@@ -178,9 +176,6 @@ class MeshEngine(Engine):
             self.square_mul(src, int(a))
 
     def square_sub2_seq(self, src: Reg, count: int) -> None:
-        if os.environ.get("PRMERS_MESH_SEQ_STEPWISE"):
-            super().square_sub2_seq(src, count)    # square, then sub
-            return
         for _ in range(count):
             x, co = self._digits(src)
             self.regs[src] = [*row_step(self.tables, x, co, sub2=True),

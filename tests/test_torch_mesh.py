@@ -23,6 +23,7 @@ card (test_torch_kernels.py, chip_smoke.py).
 import os
 import pickle
 import random
+import socket
 import subprocess
 import sys
 
@@ -64,17 +65,32 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _ranks(tmp_path, scenario, s, **args):
+def _ranks(tmp_path, scenario, s, jax_env=False, **args):
     """Run the worker's scenario on s gloo ranks; returns each rank's
-    result, in rank order."""
+    result, in rank order. They meet through a file:// rendezvous, or with
+    jax_env through the JAX package's PRMERS_COORDINATOR variables (a
+    tcp:// rendezvous on a free local port)."""
     d = tmp_path / f"{scenario}_{s}"
     d.mkdir()
     with open(d / "args.pkl", "wb") as f:
         pickle.dump(args, f)
-    env = dict(os.environ, OMP_NUM_THREADS="1", WORLD_SIZE=str(s))
-    cmd = [sys.executable, WORKER, scenario, str(d / "rdzv"), str(d),
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env["OMP_NUM_THREADS"] = "1"
+    if jax_env:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env.update(PRMERS_COORDINATOR=f"127.0.0.1:{port}",
+                   PRMERS_NUM_PROCS=str(s))
+        rank_env = "PRMERS_PROC_ID"
+    else:
+        env["WORLD_SIZE"] = str(s)
+        rank_env = "RANK"
+    cmd = [sys.executable, WORKER, scenario,
+           "env" if jax_env else str(d / "rdzv"), str(d),
            str(d / "args.pkl")]
-    procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r)),
+    procs = [subprocess.Popen(cmd, env=dict(env, **{rank_env: str(r)}),
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(s)]
@@ -180,6 +196,33 @@ def test_moves_match_lax(tmp_path, s):
         assert (got["whole"] == full).all()
 
 
+def test_init_from_jax_env(tmp_path):
+    """init_from_env joins the group that the JAX package's
+    PRMERS_COORDINATOR, PRMERS_NUM_PROCS and PRMERS_PROC_ID describe (a
+    tcp:// rendezvous), each rank at its PRMERS_PROC_ID."""
+    shape = (8, 4, 3)
+    full = np.random.default_rng(9).integers(-(1 << 62), 1 << 62,
+                                             size=shape, dtype=np.int64)
+    port = _ranks(tmp_path, "moves", 2, jax_env=True, shape=shape, seed=9)
+    for r, got in enumerate(port):
+        assert (got["back"] == full[r * 4:(r + 1) * 4]).all()
+        assert (got["whole"] == full).all()
+
+
+def test_init_from_env_refuses_ranks_beyond_the_cards(monkeypatch):
+    """Without LOCAL_RANK the card is cuda:RANK, so a group larger than
+    the host's cards (a launch across hosts) raises before it joins."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("PRMERS_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("PRMERS_NUM_PROCS", "2")
+    monkeypatch.setenv("PRMERS_PROC_ID", "1")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="LOCAL_RANK"):
+        dist.init_from_env()
+    assert not dist.initialized()
+
+
 # ---------------------------------------------------------------------------
 # the shard views of the tables and K8
 # ---------------------------------------------------------------------------
@@ -234,6 +277,10 @@ def test_shard_views_match_full_plain(full18, kern, s, rank):
             assert torch.equal(
                 tk.axis0_pass(t2, v[:, r2].contiguous(), inverse),
                 tk.axis0_plain(t, v, inverse)[:, r2])
+        # the r2 view has no block spread tables: carries are refused
+        with pytest.raises(ValueError, match="bwt"):
+            tk.axis0_pass(t2, x[:, r2].contiguous(), False,
+                          co=torch.zeros((R1, 1), dtype=torch.int64))
     elif kern == "k5_k6":
         ys = y[r1].contiguous()
         for which in ("p2", "p6"):

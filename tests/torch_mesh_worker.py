@@ -3,7 +3,9 @@
     RANK=r WORLD_SIZE=s python tests/torch_mesh_worker.py SCENARIO \
         INIT_FILE OUT_DIR ARGS_PKL
 
-joins a gloo group through the file:// rendezvous INIT_FILE, runs the
+joins a gloo group through the file:// rendezvous INIT_FILE (or, with
+INIT_FILE "env", through dist.init_from_env and the JAX package's
+PRMERS_COORDINATOR, PRMERS_NUM_PROCS and PRMERS_PROC_ID), runs the
 scenario (its arguments a pickled dict in ARGS_PKL) on the CPU with one
 torch thread, and writes what it computed
 to OUT_DIR/<rank>.pkl. It imports the port only: no jax, no prmers_tpu
@@ -86,8 +88,12 @@ SCENARIOS = {"moves": moves, "block_step": block_step, "engine": engine}
 def main():
     scenario, init_file, out_dir, args = sys.argv[1:5]
     torch.set_num_threads(1)
-    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    dist.init(rank, world, f"file://{init_file}", "cpu")
+    if init_file == "env":
+        assert dist.init_from_env("cpu")
+    else:
+        dist.init(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                  f"file://{init_file}", "cpu")
+    rank = dist.rank()
     try:
         with open(args, "rb") as f:
             res = SCENARIOS[scenario](pickle.load(f))
