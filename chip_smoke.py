@@ -3,19 +3,26 @@
 
 Run from the repository root with no arguments: python3 chip_smoke.py
 (one card; `python3 chip_smoke.py --mesh-only` runs phases 1 and 6 alone,
-at every world size the machine's cards allow).
+at every world size the machine's cards allow; `python3 chip_smoke.py
+--mm31` runs phase 1 and the engine at MM31, p = 2^31 - 1, n = 5 * 2^25:
+two squarings of a dense value against GMP, with the host table build's
+time and peak memory).
 
-It drives five paths of the port: the n = 2^23 path (K1, K2, K3 with
+It drives six paths of the port: the n = 2^23 path (K1, K2, K3 with
 whole-row carries), the C = 8192 big-shape path of n = 2^25 and 2^26
 (K1 and K3 with T = 2 carry units per row, K5, K6 "fwd", K6b, K5), the
 chain path of n = 2^15 ... 2^19 (K9, the whole squaring chain in one
-persistent launch; K1-K3 for the multiplicand, mul and LL steps) and the
+persistent launch; K1-K3 for the multiplicand, mul and LL steps), the
 block-carry path (Pipeline(rowcarry=False), PRMERS_NO_ROWCARRY: K4, the
 C-transform, K4 inverse, K7) with its canonical-digit hybrid
 (Pipeline(xla_carry=True), PRMERS_XLA_CARRY: carry_full in place of K7),
-and the mesh (parallel/: one process per card over torch.distributed with
-NCCL; the row-carry MeshEngine runs K1, K5, K6, K5, K3 per rank, the
-block-carry ShardedStep K4, K5, K6, K5, K4, K8, with all-to-alls between).
+the radix-5 path of n = 5 * 2^k (the r2 factor L2 = 5 * 2^b a
+natural-order DFT: K1, K2, K3 up to n = 5 * 2^22, the 100M-digit class
+p = 332192831 at (64, 320, 1024); K1, K5, K6, K5, K3 from 5 * 2^23; K2 and
+K5 at L2 = 160, 320 in their global-matrix form), and the mesh
+(parallel/: one process per card over torch.distributed with NCCL; the
+row-carry MeshEngine runs K1, K5, K6, K5, K3 per rank, the block-carry
+ShardedStep K4, K5, K6, K5, K4, K8, with all-to-alls between).
 Phases; any failure raises and the script exits non-zero with no result:
   1. the card (nvidia-smi name and power limit) and the kernel build
      (one nvcc per prmers_tpu_torch/csrc/*.cu, all at once, timed);
@@ -23,24 +30,30 @@ Phases; any failure raises and the script exits non-zero with no result:
      P6; K6b with head op sqr/mul/none on K6 "fwd"'s output; K3 with a = 1,
      a = 3 and sub2) against its plain torch version on the same inputs on
      the card, at n = 2^15, 2^18, 2^23, 2^25 (p = 600000001) and 2^26
-     (p = 1000000007), and at two forced pipelines (T = 4 carry units at
-     n = 2^16; the split C-transform with T = 2 at 2^18). K3 takes the
-     C-transform's lazy output, as on the main path. Tolerance: none. The
-     arithmetic is exact mod P: K1/K2/K5/K6/K6b outputs are compared after
-     canon, K3's digits and unit carries bit for bit. The host table build
-     time and peak memory are logged at 2^25 and 2^26. K9 at n = 2^15,
-     2^16, 2^17, 2^18 and 2^19: a = [3, 1, 3] from random digits and random
-     carries, then a chain of 2 that consumes the carries; digits and
-     carries bit for bit against its plain version and against as many
-     steps of the CUDA three-kernel path. At each of the first sizes K4
-     forward (without and with (R1, 1) block carries; mod P) and inverse
-     (on K3's input; bit for bit), and K7 with a = 1 and a = 3 on K4
-     inverse's output (digits and block carries bit for bit);
+     (p = 1000000007), at two forced pipelines (T = 4 carry units at
+     n = 2^16; the split C-transform with T = 2 at 2^18), and at the
+     radix-5 n = 5 * 2^16 (L2 = 5), 5 * 2^20 (L2 = 80, the shared-memory
+     axis form at its largest), 5 * 2^21 (L2 = 160), 5 * 2^22 (L2 = 320,
+     p = 332192831) and 5 * 2^23 (p = 700000001, K5 at L2 = 320, K6 at
+     ca = 16), K2 and K5 there as k2_fused_c[r5] and k5_axis1[r5]. K3
+     takes the C-transform's lazy output, as on the main path. Tolerance:
+     none. The arithmetic is exact mod P: K1/K2/K5/K6/K6b outputs are
+     compared after canon, K3's digits and unit carries bit for bit. The
+     host table build time and peak memory are logged at every size. K9
+     at n = 2^15, 2^16, 2^17, 2^18 and 2^19: a = [3, 1, 3] from random
+     digits and random carries, then a chain of 2 that consumes the
+     carries; digits and carries bit for bit against its plain version
+     and against as many steps of the CUDA three-kernel path. At each
+     size K4 forward (without and with (R1, 1) block carries; mod P) and
+     inverse (on K3's input; bit for bit), and K7 with a = 1 and a = 3 on
+     K4 inverse's output (digits and block carries bit for bit);
   3. each path through create_engine and the Engine API the PRP/LL
      modes call, at p = 136279841, at p = 600000001, (the chain path)
      at p = 9999991 (n = 2^19), (the block-carry path) at p = 136279841,
-     600000001 and 756839 (n = 2^15) and (the hybrid) at p = 136279841:
-     squarings and
+     600000001 and 756839 (n = 2^15), (the hybrid) at p = 136279841 and
+     (radix 5) at p = 332192831 on the row and the block carry, p =
+     6972593 (n = 5 * 2^16, a Mersenne prime) and p = 700000001 (n =
+     5 * 2^23, K5 + K6 + K5; no K9 on any radix-5 path): squarings and
      a x3 of a sparse value 3 * 2^s (its exact value is cheap), a dense x3
      squaring, set_multiplicand + mul and an LL sub2 step of dense random
      values, all checked against GMP big-int. The wrapper call counts (one
@@ -49,22 +62,28 @@ Phases; any failure raises and the script exits non-zero with no result:
      chain path K1-K3 run only for set_multiplicand, mul and the LL step,
      and on the block-carry and hybrid paths K1, K3 and K9 never run (nor
      K7 on the hybrid);
-  4. the timed PRP chain (iter/s) at p = 136279841, 600000001 and
-     1000000007, and at p = 756839 and 9999991 through K9 and through the
-     three-kernel step (Pipeline(chain=False)); at p = 136279841 the row
-     carry, the block carry and the hybrid in turns; K9 against the
-     three-kernel step and the plain chain, ms per squaring, at each n
-     from 2^15 to 2^19; each kernel's time against its plain version at
-     n = 2^23 (K1-K3, K4, K7), 2^25 (the big-shape kernels, K4 and K7
-     again) and 2^19 (K9), by CUDA events,
+  4. the timed PRP chain (iter/s) at p = 136279841, 600000001,
+     1000000007, 332192831 (row and block carry) and 700000001, and at
+     p = 756839 and 9999991 through K9 and through the three-kernel step
+     (Pipeline(chain=False)); at p = 136279841 the row carry, the block
+     carry and the hybrid in turns; K9 against the three-kernel step and
+     the plain chain, ms per squaring, at each n from 2^15 to 2^19; each
+     kernel's time against its plain version at n = 2^23 (K1-K3, K4, K7),
+     2^25 (the big-shape kernels, K4 and K7 again), 2^19 (K9), 5 * 2^22
+     (K2 at L2 = 320) and 5 * 2^23 (K5 at L2 = 320), by CUDA events
+     around each launch, queued behind a device sleep so that they time
+     the device and not the host's enqueue,
      beside its bound: the larger of its bytes (each input read once, each
      output written once) over 3.35 TB/s and its mod-P products, 64 int8
      MACs = 128 int8 operations each in the JAX package's limb-plane form,
      over 1,979 TOP/s. No PyTorch call computes a Goldilocks product, so
      library_ms is null;
   5. `python -m prmers_tpu_torch 756839 -noproof` in a subprocess: the
-     PRP of M756839 (n = 2^15, through K9) must report prime; then the
-     same with PRMERS_NO_ROWCARRY=1 (the block-carry path);
+     whole PRP of M756839 (n = 2^15, through K9) must report prime; then
+     the PRP/LL driver in this process on the same engine, stopped (its
+     Ctrl-C path) 20000 squarings before the end, leaves a checkpoint,
+     from which the same CLI with PRMERS_NO_ROWCARRY=1 (the block-carry
+     path) resumes and must report prime;
   6. the mesh at p = 136279841: (a) on this card, the shard-local kernel
      forms of rank 0 and the last rank of s = 2 and 4 (K1, K3 with a = 1,
      3 and sub2 with the rank's amount, K4 both ways on the r2-sharded
@@ -83,13 +102,14 @@ Phases; any failure raises and the script exits non-zero with no result:
      the block carry (32), and each collective's ms per squaring (CUDA
      events on the stream, the wait for the other ranks included);
      (c) `python -m torch.distributed.run --nproc_per_node=1 -m
-     prmers_tpu_torch 756839 -noproof -backend sharded` must report
-     prime. A failure in any rank fails the run.
+     prmers_tpu_torch 756839 -noproof -backend sharded` resumes from the
+     same checkpoint and must report prime. A failure in any rank fails
+     the run.
 
-The last three lines of standard output are the per-kernel JSON object
-(k8_local's launches from the s = 1 ranks' drive, its time at the s = 1
-shape), the card's name and power limit, and {"ok": true, "device":
-{...}}.
+The last lines of standard output are the smoke's total seconds, the
+per-kernel JSON object (k8_local's launches from the s = 1 ranks' drive,
+its time at the s = 1 shape), the card's name and power limit, and {"ok":
+true, "device": {...}}.
 """
 
 import json
@@ -101,12 +121,19 @@ import subprocess
 import sys
 import time
 import tracemalloc
+from concurrent.futures import ThreadPoolExecutor
 
 P_MAIN = 136279841      # n = 2^23
 P_BIG = 600000001       # n = 2^25
 P_HUGE = 1000000007     # n = 2^26
 P_CHAIN = 9999991       # n = 2^19, the top of K9's range (L2 = 8)
 P_GOLDEN = 756839       # n = 2^15, K9's smallest shape
+P_R5 = 332192831        # n = 5 * 2^22, (64, 320, 1024): 100M digits
+P_R5_SMALL = 6972593    # n = 5 * 2^16, (64, 5, 1024); M6972593 is prime
+P_R5_BIG = 700000001    # n = 5 * 2^23, (64, 320, 2048): K5 + K6 + K5
+P_MM31 = 2147483647     # n = 5 * 2^25, (64, 320, 8192), T = 2 (--mm31)
+GOLDEN_TAIL = 20000     # squarings the resumed CLI runs of M756839 take
+DRIVE_K = 8             # the sparse chain's squarings in a phase-3 drive
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 OPS_PER_PRODUCT = 128   # 64 int8 MACs per mod-P product (limb planes)
@@ -114,7 +141,8 @@ OPS_PER_PRODUCT = 128   # 64 int8 MACs per mod-P product (limb planes)
 # (name in the JSON line, wrapper counter, the path whose counts it
 # reports); the main path's kernels are timed at n = 2^23, the big path's
 # at 2^25, K9 at 2^19 (per squaring), the block path's K4 and K7 at 2^23
-# (the block path's p = 136279841)
+# (the block path's p = 136279841), K2 at L2 = 320 at n = 5 * 2^22 and K5
+# at L2 = 320 at 5 * 2^23
 ENTRIES = [
     ("k1_p1c", "k1_p1c", "main"),
     ("k2_fused_c", "k2_fused_c", "main"),
@@ -128,6 +156,8 @@ ENTRIES = [
     ("k4_axis0", "k4_axis0", "block"),
     ("k7_block_carry", "k7_block_carry", "block"),
     ("k8_local", "k8_local", "mesh"),
+    ("k2_fused_c[r5]", "k2_fused_c", "r5"),
+    ("k5_axis1[r5]", "k5_axis1", "r5 big"),
 ]
 MESH_KERNELS = ("k1_p1c", "k3_p7c", "k4_axis0", "k5_axis1", "k6_fused_c",
                 "k8_local")
@@ -136,6 +166,26 @@ MESH_OFF = ("k2_fused_c", "k7_block_carry", "k9_chain")
 
 def log(*args):
     print(*args, flush=True)
+
+
+def drive_values(p: int):
+    """The values a phase-3 drive at p sets, from random.Random(p), and
+    what GMP says its ops must give: (v, w, s, (the sparse chain
+    (3 * 2^s)^(2^DRIVE_K) ^2 * 3, v^2 * 3 * w, w^2 - 2)). The GMP products
+    release the GIL, so the smoke computes these on threads while the card
+    works."""
+    from prmers_tpu_torch.utils import gmp
+    mp = (1 << p) - 1
+    rnd = random.Random(p)
+    v, w = rnd.getrandbits(p - 1), rnd.getrandbits(p - 1)
+    s = rnd.randrange(p // 2, p)
+    c, e = 3, s                             # value c * 2^e mod M_p
+    for _ in range(DRIVE_K + 1):
+        c, e = c * c, 2 * e % p
+    vv = gmp.mersenne_mod(gmp.mul(v, v) * 3, p)
+    return v, w, s, (gmp.mersenne_mod(c * 3 << e, p),
+                     gmp.mersenne_mod(gmp.mul(vv, w), p),
+                     (gmp.mersenne_mod(gmp.mul(w, w), p) - 2) % mp)
 
 
 def mesh_rank(out_dir: str) -> int:
@@ -156,15 +206,18 @@ def mesh_rank(out_dir: str) -> int:
 
     dist.init_from_env()
     s, rank = dist.process_count(), dist.rank()
-    p, K = P_MAIN, 8
+    p = P_MAIN
     mp = (1 << p) - 1
-    rnd = random.Random(p)
-    v, w = rnd.getrandbits(p - 1), rnd.getrandbits(p - 1)
-    sh = rnd.randrange(p // 2, p)
+    v = random.Random(p).getrandbits(p - 1)       # drive_values' v
     res = {"s": s, "rank": rank, "device": str(dist.device())}
 
     def sqr(x, a=1):
         return gmp.mersenne_mod(gmp.mul(x, x) * a, p)
+
+    # the GMP side, on threads while the card works
+    pool = ThreadPoolExecutor(max_workers=2)
+    expected = pool.submit(drive_values, p)
+    block_want = pool.submit(lambda: sqr(sqr(sqr(v)), 3))
 
     # the block carry: ShardedStep, K8 at the end of each step
     t0 = time.perf_counter()
@@ -178,7 +231,7 @@ def mesh_rank(out_dir: str) -> int:
     st.step(1, 3)
     torch.cuda.synchronize()
     res["block_calls"] = dict(tk.calls)
-    res["block_ok"] = st.get_int() == sqr(sqr(sqr(v)), 3)
+    res["block_ok"] = st.get_int() == block_want.result()
     st.step(4)
     torch.cuda.synchronize()
     dist.barrier()
@@ -188,19 +241,21 @@ def mesh_rank(out_dir: str) -> int:
     res["block_ips"] = 32 / (time.perf_counter() - t0)
     del st
 
-    # the row carry: MeshEngine through create_engine
+    # the row carry: MeshEngine through create_engine, phase 3's ops
     eng = create_engine(p, 6, backend="sharded")
+    v, w, sh, want = expected.result()
+    pool.shutdown()
     eng.set(0, 3 << sh)
     eng.set(1, v)
     eng.set(2, w)
-    eng.set(4, w)
+    eng.copy(4, 2)
     eng.set(5, 81)
     eng.sync()
     dist.barrier()
     tk.reset_calls()
     c0 = dict(dist.counts)
     t0 = time.perf_counter()
-    eng.square_mul_seq(0, [1] * K)          # (3 * 2^sh)^(2^K)
+    eng.square_mul_seq(0, [1] * DRIVE_K)    # (3 * 2^sh)^(2^K)
     eng.square_mul(0, 3)                    # ^2 * 3
     eng.square_mul(1, 3)                    # v^2 * 3
     eng.set_multiplicand(3, 2)
@@ -212,14 +267,9 @@ def mesh_rank(out_dir: str) -> int:
     res["engine_s"] = time.perf_counter() - t0
     res["engine_calls"] = dict(tk.calls)
     res["collectives"] = {k: n - c0[k] for k, n in dist.counts.items()}
-    c, e = 3, sh
-    for _ in range(K + 1):
-        c, e = c * c, 2 * e % p
-    res["engine_ok"] = [
-        eng.get_int(0) == gmp.mersenne_mod(c * 3 << e, p),
-        eng.get_int(1) == gmp.mersenne_mod(gmp.mul(sqr(v, 3), w), p),
-        eng.get_int(4) == (sqr(w) - 2) % mp,
-        eng.get_int(5) == (79 - 100) % mp]
+    res["engine_ok"] = [eng.get_int(r) == want[i]
+                        for i, r in enumerate((0, 1, 4))]
+    res["engine_ok"].append(eng.get_int(5) == (79 - 100) % mp)
 
     # PRP iter/s, then each collective's ms per squaring
     eng.set(0, 3)
@@ -311,11 +361,54 @@ def mesh_drive(root: str, card: str) -> dict:
     return out
 
 
+def mm31(dev, card) -> None:
+    """The engine at MM31 (p = 2^31 - 1, n = 5 * 2^25, (64, 320, 8192)
+    with T = 2: K1, K5, K6 "fwd", K6b, K5, K3): the host table build's
+    time and peak memory, then two squarings of a dense value against
+    GMP, with the wrapper counts of the squarings."""
+    import torch
+    from prmers_tpu_torch.engine.factory import create_engine
+    from prmers_tpu_torch.ops import fourstep as tfs
+    from prmers_tpu_torch.ops import kernels as tk
+    from prmers_tpu_torch.utils import gmp
+    p = P_MM31
+    t0 = time.perf_counter()
+    tracemalloc.start()
+    eng = create_engine(p, 2, device=dev)
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    fp = eng.t.fp
+    log(f"[mm31] p={p} n={fp.n} (R1, R2, C)={fp.shape} carry_ct "
+        f"{tfs.carry_ct(fp)}: engine and tables in "
+        f"{time.perf_counter() - t0:.3f} s, host peak {peak / 2**30:.3f} GiB")
+    v = random.Random(p).getrandbits(p - 1)
+    eng.set(0, v)
+    eng.sync()
+    tk.reset_calls()
+    t0 = time.perf_counter()
+    eng.square_mul_seq(0, [1, 1])
+    eng.sync()
+    calls = dict(tk.calls)
+    log(f"[mm31] two squarings in {time.perf_counter() - t0:.3f} s; "
+        f"wrapper calls {calls} ({card})")
+    t0 = time.perf_counter()
+    want = gmp.mersenne_mod(gmp.mul(v, v), p)
+    want = gmp.mersenne_mod(gmp.mul(want, want), p)
+    ok = eng.get_int(0) == want
+    log(f"[mm31] against GMP in {time.perf_counter() - t0:.3f} s: {ok}")
+    need = ("k1_p1c", "k3_p7c", "k5_axis1", "k6_fused_c", "k6b_fused_c_invh")
+    if not ok or any(calls[k] <= 0 for k in need) or calls["k9_chain"]:
+        raise AssertionError(f"MM31: GMP {ok}, wrapper calls {calls}")
+    del eng
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import numpy as np
@@ -343,6 +436,10 @@ def main(argv) -> int:
     build.lib()
     log(f"[1] kernels {'built' if built else 'reused'} in "
         f"{time.perf_counter() - t0:.3f} s ({build.library_path()})")
+    if "--mm31" in argv:
+        mm31(dev, card)
+        print(card)
+        return 0
     if "--mesh-only" in argv:
         mesh = mesh_drive(root, card)
         print(json.dumps({"mesh": {s: {
@@ -352,6 +449,14 @@ def main(argv) -> int:
             for s, ranks in mesh.items()}}))
         print(card)
         return 0
+
+    # the GMP side of phase 3, on threads from here on
+    log(f"[1] HAVE_GMP {gmp.HAVE_GMP}")
+    if not gmp.HAVE_GMP:
+        raise RuntimeError("libgmp is needed for the big-int checks")
+    pool = ThreadPoolExecutor(max_workers=4)
+    expected = {p: pool.submit(drive_values, p) for p in (
+        P_R5_BIG, P_BIG, P_R5, P_MAIN, P_CHAIN, P_R5_SMALL, P_GOLDEN)}
 
     # ---- 2: every kernel against its plain version -----------------------
     errs = {e[0]: 0.0 for e in ENTRIES}
@@ -393,19 +498,24 @@ def main(argv) -> int:
         big = t.ct < t.shape[2]
         k1, k3 = ("k1_p1c[T>1]", "k3_p7c[T>1]") if big else \
             ("k1_p1c", "k3_p7c")
+        # the radix-5 r2 DFT's forms are entries of their own
+        r5 = "[r5]" if n % 5 == 0 else ""
         rng = np.random.default_rng(n.bit_length())
-        v = int.from_bytes(rng.bytes(p // 8 + 1), "little") % ((1 << p) - 1)
-        x = gl.from_numpy_u64(dg.int_to_digits(v, plan.widths),
-                              dev).reshape(t.shape)
+        # random digits, each below 2^width: a register of the plan
+        wid = plan.widths.astype(np.uint64)
+        x = gl.from_numpy_u64(
+            rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+            & ((np.uint64(1) << wid) - np.uint64(1)), dev).reshape(t.shape)
         co = torch.from_numpy(rng.integers(0, 1 << 40, size=t.carry_shape,
                                            dtype=np.int64)).to(dev)
         sp = tk.p1_carry_plain(t, x, co)
         record(k1, label, tk.p1_carry_pass(t, x, co), sp)
         for which in ("p2", "p6"):
-            record("k5_axis1", f"{label} {which}", tk.axis1_pass(t, sp, which),
-                   tk.axis1_plain(t, sp, which))
+            record("k5_axis1" + r5, f"{label} {which}",
+                   tk.axis1_pass(t, sp, which), tk.axis1_plain(t, sp, which))
         u = gl.canon64(tk.fused_c_plain(t, sp, "fwd"))
-        for r2fold, entry in ((True, "k2_fused_c"), (False, "k6_fused_c")):
+        for r2fold, entry in ((True, "k2_fused_c" + r5),
+                              (False, "k6_fused_c")):
             for mode in ("sqr", "fwd", "mul"):
                 um = u if mode == "mul" else None
                 got = tk.fused_c_pass(t, sp, mode, u=um, r2fold=r2fold)
@@ -458,6 +568,12 @@ def main(argv) -> int:
     big_in = case("n=2^25", P_BIG, cached_plan(P_BIG).n)
     case("n=2^26", P_HUGE, cached_plan(P_HUGE).n)
     torch.cuda.empty_cache()
+    case("n=5*2^16", P_R5_SMALL, 5 << 16)
+    for logn in (20, 21):
+        case(f"n=5*2^{logn}", int((5 << logn) * 16.5) | 1, 5 << logn)
+    r5_in = case("n=5*2^22", P_R5, 5 << 22)
+    r5_big_in = case("n=5*2^23", P_R5_BIG, 5 << 23)
+    torch.cuda.empty_cache()
 
     def chain_case(logn):
         """K9 from random digits and carries, a = [3, 1, 3], then a chain
@@ -494,29 +610,25 @@ def main(argv) -> int:
     chain_in = {logn: chain_case(logn) for logn in range(15, 20)}
 
     # ---- 3: both paths through the Engine API, against GMP ----------------
-    log(f"[3] HAVE_GMP {gmp.HAVE_GMP}")
-    if not gmp.HAVE_GMP:
-        raise RuntimeError("libgmp is needed for the big-int checks")
-    K = 8
     counts = {}
 
     def drive(p, path, kernels, pipe=None):
         """The ops of a PRP/LL run on one engine (create_engine's pipeline,
         or pipe); returns the call counts of the driven ops (reset just
         before, read just after)."""
-        mp = (1 << p) - 1
         eng = create_engine(p, 6, device=dev, pipe=pipe)
-        rnd = random.Random(p)
-        v, w = rnd.getrandbits(p - 1), rnd.getrandbits(p - 1)
-        s = rnd.randrange(p // 2, p)
+        t1 = time.perf_counter()
+        v, w, s, want = expected[p].result()
+        log(f"[3] {path} path p={p}: waited {time.perf_counter() - t1:.3f} "
+            f"s for GMP")
         eng.set(0, 3 << s)
         eng.set(1, v)
         eng.set(2, w)
-        eng.set(4, w)
+        eng.copy(4, 2)
         eng.sync()
         tk.reset_calls()
         t1 = time.perf_counter()
-        eng.square_mul_seq(0, [1] * K)          # (3 * 2^s)^(2^K)
+        eng.square_mul_seq(0, [1] * DRIVE_K)    # (3 * 2^s)^(2^K)
         eng.square_mul(0, 3)                    # ^2 * 3
         eng.square_mul(1, 3)                    # v^2 * 3
         eng.set_multiplicand(3, 2)
@@ -524,23 +636,14 @@ def main(argv) -> int:
         eng.square_sub2_seq(4, 1)               # w^2 - 2
         eng.sync()
         got = dict(tk.calls)
-        log(f"[3] {path} path p={p} (n=2^{eng.get_size().bit_length() - 1}"
-            f"): {K + 5} steps in {time.perf_counter() - t1:.3f} s; "
-            f"wrapper calls {got}")
+        log(f"[3] {path} path p={p} (n={eng.get_size()}): {DRIVE_K + 5} "
+            f"steps in {time.perf_counter() - t1:.3f} s; wrapper calls {got}")
         for name in kernels:
             if got[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the {path}"
                                      " path")
         t1 = time.perf_counter()
-        c, e = 3, s                             # value c * 2^e mod M_p
-        for _ in range(K + 1):
-            c, e = c * c, 2 * e % p
-        want0 = gmp.mersenne_mod(c * 3 << e, p)
-        vv = gmp.mersenne_mod(gmp.mul(v, v) * 3, p)
-        want1 = gmp.mersenne_mod(gmp.mul(vv, w), p)
-        want4 = (gmp.mersenne_mod(gmp.mul(w, w), p) - 2) % mp
-        ok = [eng.get_int(0) == want0, eng.get_int(1) == want1,
-              eng.get_int(4) == want4]
+        ok = [eng.get_int(r) == want[i] for i, r in enumerate((0, 1, 4))]
         log(f"[3] {path} path big-int check in "
             f"{time.perf_counter() - t1:.3f} s: sparse chain {ok[0]}, "
             f"x3 + mul {ok[1]}, sub2 {ok[2]}")
@@ -582,13 +685,34 @@ def main(argv) -> int:
         if any(counts[key][name] for name in off):
             raise AssertionError(f"{path} path ran {off}: {counts[key]}")
         torch.cuda.empty_cache()
+    # radix 5: K2 up to n = 5 * 2^22, K5 + K6 + K5 from 5 * 2^23; K9
+    # never (chain_ok needs a power-of-two L2), and no row-carry kernel
+    # on the block carry
+    for key, p, kernels, pipe in (
+            ("r5", P_R5, ("k1_p1c", "k2_fused_c", "k3_p7c"), None),
+            ("r5 block", P_R5, ("k4_axis0", "k2_fused_c", "k7_block_carry"),
+             block),
+            ("r5 small", P_R5_SMALL, ("k1_p1c", "k2_fused_c", "k3_p7c"),
+             None),
+            ("r5 big", P_R5_BIG, ("k1_p1c", "k3_p7c", "k5_axis1",
+                                  "k6_fused_c"), None)):
+        counts[key] = drive(p, key, kernels, pipe)
+        off = ("k9_chain",) + (("k1_p1c", "k3_p7c") if pipe else ())
+        if any(counts[key][name] for name in off):
+            raise AssertionError(f"{key} path ran {off}: {counts[key]}")
+        torch.cuda.empty_cache()
+    pool.shutdown()
+    del expected
 
     # ---- 4: timings -------------------------------------------------------
     for p, warm, iters in ((P_MAIN, 16, 192), (P_BIG, 4, 48),
-                           (P_HUGE, 4, 24)):
+                           (P_HUGE, 4, 24), (P_R5, 4, 48), (P_R5_BIG, 4, 24)):
         ips = bench.measure(p, warm=warm, iters=iters)
         log(f"[4] PRP {ips:.6f} iter/s @ p={p} ({card})")
         torch.cuda.empty_cache()
+    ips = bench.measure(P_R5, warm=4, iters=48, pipe=block)
+    log(f"[4] PRP {ips:.6f} iter/s @ p={P_R5} through the block carry "
+        f"({card})")
     got = {"row carry": [], "block carry": [], "hybrid": []}
     pipes = {"row carry": tfs.Pipeline(), "block carry": block,
              "hybrid": hybrid}
@@ -626,62 +750,96 @@ def main(argv) -> int:
 
     ms = {}
 
-    def compare(entry, logn, what, kern, plain, reps, phase=4):
+    def device_timed(fn, reps):
+        """ms per call of fn on the device: CUDA events around each call,
+        each pair queued behind a device sleep (~1 ms) so that the host
+        has enqueued the call before the device reaches the first event;
+        back-to-back calls would time the host's enqueue wherever it is
+        slower than the kernel."""
+        fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(reps):
+            torch.cuda._sleep(2_000_000)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+    def compare(entry, at, what, kern, plain, reps, phase=4):
         p0 = timed(plain, 3)
-        k0 = timed(kern, reps)
-        k1 = timed(kern, reps)
+        k0 = device_timed(kern, reps)
+        k1 = device_timed(kern, reps)
         p1 = timed(plain, 3)
         got = ((k0 + k1) / 2, (p0 + p1) / 2)
-        log(f"[{phase}] {entry} {what} n=2^{logn}: kernel {got[0]:.6f} ms, "
+        log(f"[{phase}] {entry} {what} {at}: kernel {got[0]:.6f} ms, "
             f"plain {got[1]:.6f} ms ({card})")
         return got
 
-    def block_kernels(logn, reps, inputs):
+    def block_kernels(at, reps, inputs):
         """K4 (the mean of forward with carries and inverse) and K7 (a = 1)
         as the block path runs them."""
         t, x, _co, _sp, _spec, z, bco, y = inputs
-        f = compare("k4_axis0", logn, "fwd+carries",
+        f = compare("k4_axis0", at, "fwd+carries",
                     lambda: tk.axis0_pass(t, x, False, co=bco),
                     lambda: tk.axis0_plain(t, x, False, co=bco), reps)
-        i = compare("k4_axis0", logn, "inverse",
+        i = compare("k4_axis0", at, "inverse",
                     lambda: tk.axis0_pass(t, z, True),
                     lambda: tk.axis0_plain(t, z, True), reps)
-        k7 = compare("k7_block_carry", logn, "a=1",
+        k7 = compare("k7_block_carry", at, "a=1",
                      lambda: tk.block_carry_pass(t, y),
                      lambda: tk.block_carry_plain(t, y), reps)
         return ((f[0] + i[0]) / 2, (f[1] + i[1]) / 2), k7
 
-    ms["k4_axis0"], ms["k7_block_carry"] = block_kernels(23, 20, main_in)
-    block_kernels(25, 10, big_in)
+    ms["k4_axis0"], ms["k7_block_carry"] = block_kernels("n=2^23", 20,
+                                                         main_in)
+    block_kernels("n=2^25", 10, big_in)
     t, x, co, sp, spec, z, _bco, _y = main_in
-    ms["k1_p1c"] = compare("k1_p1c", 23, "", lambda: tk.p1_carry_pass(t, x, co),
+    ms["k1_p1c"] = compare("k1_p1c", "n=2^23", "",
+                           lambda: tk.p1_carry_pass(t, x, co),
                            lambda: tk.p1_carry_plain(t, x, co), 20)
     ms["k2_fused_c"] = compare(
-        "k2_fused_c", 23, "sqr", lambda: tk.fused_c_pass(t, sp, "sqr"),
+        "k2_fused_c", "n=2^23", "sqr", lambda: tk.fused_c_pass(t, sp, "sqr"),
         lambda: tk.fused_c_plain(t, sp, "sqr"), 20)
-    ms["k3_p7c"] = compare("k3_p7c", 23, "a=1",
+    ms["k3_p7c"] = compare("k3_p7c", "n=2^23", "a=1",
                            lambda: tk.p7_carry_pass(t, z),
                            lambda: tk.p7_carry_plain(t, z), 20)
     t, x, co, sp, spec, z, _bco, _y = big_in
     ms["k1_p1c[T>1]"] = compare(
-        "k1_p1c[T>1]", 25, "", lambda: tk.p1_carry_pass(t, x, co),
+        "k1_p1c[T>1]", "n=2^25", "", lambda: tk.p1_carry_pass(t, x, co),
         lambda: tk.p1_carry_plain(t, x, co), 10)
     ms["k3_p7c[T>1]"] = compare(
-        "k3_p7c[T>1]", 25, "a=1", lambda: tk.p7_carry_pass(t, z),
+        "k3_p7c[T>1]", "n=2^25", "a=1", lambda: tk.p7_carry_pass(t, z),
         lambda: tk.p7_carry_plain(t, z), 10)
-    p2 = compare("k5_axis1", 25, "p2", lambda: tk.axis1_pass(t, sp, "p2"),
-                 lambda: tk.axis1_plain(t, sp, "p2"), 10)
-    p6 = compare("k5_axis1", 25, "p6", lambda: tk.axis1_pass(t, sp, "p6"),
-                 lambda: tk.axis1_plain(t, sp, "p6"), 10)
-    ms["k5_axis1"] = ((p2[0] + p6[0]) / 2, (p2[1] + p6[1]) / 2)
+
+    def k5_mean(entry, at, t, sp, reps):
+        """K5: the mean of P2 and P6."""
+        p2 = compare(entry, at, "p2", lambda: tk.axis1_pass(t, sp, "p2"),
+                     lambda: tk.axis1_plain(t, sp, "p2"), reps)
+        p6 = compare(entry, at, "p6", lambda: tk.axis1_pass(t, sp, "p6"),
+                     lambda: tk.axis1_plain(t, sp, "p6"), reps)
+        return (p2[0] + p6[0]) / 2, (p2[1] + p6[1]) / 2
+
+    ms["k5_axis1"] = k5_mean("k5_axis1", "n=2^25", t, sp, 10)
     ms["k6_fused_c"] = compare(
-        "k6_fused_c", 25, "fwd",
+        "k6_fused_c", "n=2^25", "fwd",
         lambda: tk.fused_c_pass(t, sp, "fwd", r2fold=False),
         lambda: tk.fused_c_plain(t, sp, "fwd", r2fold=False), 10)
     ms["k6b_fused_c_invh"] = compare(
-        "k6b_fused_c_invh", 25, "sqr",
+        "k6b_fused_c_invh", "n=2^25", "sqr",
         lambda: tk.fused_c_invh_pass(t, spec, "sqr"),
         lambda: tk.fused_c_invh_plain(t, spec, "sqr"), 10)
+    t, x, co, sp, spec, z, _bco, _y = r5_in
+    ms["k2_fused_c[r5]"] = compare(
+        "k2_fused_c[r5]", "n=5*2^22", "sqr",
+        lambda: tk.fused_c_pass(t, sp, "sqr"),
+        lambda: tk.fused_c_plain(t, sp, "sqr"), 5)
+    ms["k5_axis1[r5]"] = k5_mean("k5_axis1[r5]", "n=5*2^23", r5_big_in[0],
+                                 r5_big_in[3], 5)
     # the least time the card could take for each timed call
     def nbytes(*tensors):
         return sum(a.numel() * a.element_size() for a in tensors)
@@ -767,6 +925,18 @@ def main(argv) -> int:
         return (bound(L1 * n, 16 * n + tabs + nbytes(t.er, t.ec)),
                 bound(0, 20 * n + 8 * t.block_carry_shape[0]))
 
+    # radix 5: K2 with L2 = 320 at 5 * 2^22 (its two r2 passes, the
+    # C-transform and the square: 915 products per digit); K5 with L2 = 320
+    # at 5 * 2^23, the mean of P2 (g2, mf) and P6 (tri, mi)
+    t = r5_in[0]
+    L1, L2, ca, n, _ = shape_of(t)
+    bounds["k2_fused_c[r5]"] = bound(
+        (2 * L2 + 2 * ca + 2 * 128 + 3) * n, 16 * n + nbytes(
+            t.g2, t.mf, t.lane_f, t.lane_i, t.Mf, t.Mi, t.mi, t.tri))
+    t = r5_big_in[0]
+    L1, L2, ca, n, _ = shape_of(t)
+    bounds["k5_axis1[r5]"] = bound(
+        (L2 + 1) * n, 16 * n + (nbytes(t.g2, t.mf) + nbytes(t.tri, t.mi)) / 2)
     bounds["k4_axis0"], bounds["k7_block_carry"] = block_bounds(
         main_in[0], main_in[6])
     for entry, b in zip(("k4_axis0", "k7_block_carry"),
@@ -775,14 +945,19 @@ def main(argv) -> int:
     for entry, (b, by) in bounds.items():
         log(f"[4] {entry} bound {b:.6f} ms ({by}); kernel "
             f"{ms[entry][0]:.6f} ms")
-    del main_in, big_in, chain_in, t, x, co, sp, spec, z
+    del main_in, big_in, chain_in, r5_in, r5_big_in, t, x, co, sp, spec, z
     torch.cuda.empty_cache()
 
-    # ---- 5: M756839 through the CLI, on K9 and on the block carry ---------
+    # ---- 5: M756839 through the CLI: whole on K9, resumed on the block carry
     run_dir = os.path.join(root, "build", "smoke_run")
 
-    def cli_prime(phase, label, launcher=(), env=None, args=()):
-        shutil.rmtree(run_dir, ignore_errors=True)   # no checkpoint to resume
+    def cli_prime(phase, label, launcher=(), env=None, args=(), resume=None):
+        """The CLI's PRP of M756839 in a subprocess, from the start or (with
+        resume) from that checkpoint; it must report prime."""
+        shutil.rmtree(run_dir, ignore_errors=True)
+        os.makedirs(run_dir)
+        if resume is not None:
+            shutil.copy(resume, run_dir)
         t1 = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", *launcher,
                             "prmers_tpu_torch", str(P_GOLDEN), "-noproof",
@@ -791,14 +966,51 @@ def main(argv) -> int:
                            timeout=400, env=dict(os.environ, **(env or {})))
         dt = time.perf_counter() - t1
         tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
-        log(f"[{phase}] M{P_GOLDEN} PRP through the {label} "
+        how = "resumed" if resume else "whole"
+        log(f"[{phase}] M{P_GOLDEN} PRP ({how}) through the {label} "
             f"rc={r.returncode} in {dt:.3f} s: {tail}")
-        if r.returncode != 0 or '"status":"P"' not in tail.replace(" ", ""):
-            raise AssertionError(f"M{P_GOLDEN} was not reported prime:\n"
-                                 f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+        if r.returncode != 0 or '"status":"P"' not in tail.replace(" ", "") \
+                or (resume and "Resuming from a checkpoint." not in r.stdout):
+            raise AssertionError(f"M{P_GOLDEN} was not reported prime ({how}):"
+                                 f"\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+
+    def golden_checkpoint() -> str:
+        """The PRP/LL driver in this process, on the engine the CLI takes
+        (K9), stopped through its Ctrl-C path before the chunk that would
+        pass GOLDEN_TAIL squarings from the end; returns the checkpoint it
+        writes there."""
+        from prmers_tpu_torch.core import checkpoints as ck
+        from prmers_tpu_torch.io.cli import parse_args
+        from prmers_tpu_torch.modes.prp_ll import R0, run_prp_or_ll
+        ck_dir = os.path.join(root, "build", "smoke_ckpt")
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        opts = parse_args([str(P_GOLDEN), "-noproof", "-save-dir", ck_dir])
+        eng = create_engine(P_GOLDEN, 8, device=dev)
+        seq, done = eng.square_mul_seq, [0]
+
+        def stop_near_end(src, a_vec):
+            if src == R0:
+                if done[0] + len(a_vec) > P_GOLDEN - GOLDEN_TAIL:
+                    raise KeyboardInterrupt
+                done[0] += len(a_vec)
+            seq(src, a_vec)
+
+        eng.square_mul_seq = stop_near_end
+        t1 = time.perf_counter()
+        r = run_prp_or_ll(opts, eng=eng, log=lambda *a, **k: None)
+        path = ck.ckpt_filename(P_GOLDEN, "prp", False, ck_dir)
+        log(f"[5] M{P_GOLDEN} PRP in this process stopped at iteration "
+            f"{r.iteration} of {P_GOLDEN} in {time.perf_counter() - t1:.3f} "
+            f"s; checkpoint {path}")
+        if not r.interrupted or r.iteration < P_GOLDEN - 2 * GOLDEN_TAIL \
+                or not os.path.exists(path):
+            raise AssertionError("no checkpoint near the end of M756839")
+        return path
 
     cli_prime(5, "K9")
-    cli_prime(5, "block carry", env={"PRMERS_NO_ROWCARRY": "1"})
+    golden = golden_checkpoint()
+    cli_prime(5, "block carry", env={"PRMERS_NO_ROWCARRY": "1"},
+              resume=golden)
 
     # ---- 6: the mesh ------------------------------------------------------
     # (a) the shard-local kernel forms on this card, s = 2 and 4
@@ -878,7 +1090,7 @@ def main(argv) -> int:
             record("k8_local", what + " digits", d, dw, canon=False, phase=6)
             record("k8_local", what + " carries", c, cw, canon=False,
                    phase=6)
-        got = compare("k8_local", 23, f"s={s} {t1.shape} a=1",
+        got = compare("k8_local", "n=2^23", f"s={s} {t1.shape} a=1",
                       lambda: tk.block_carry_local(t1, z),
                       lambda: tk.block_carry_plain(t1, z, 1, t1.k8_rounds),
                       20, phase=6)
@@ -900,13 +1112,13 @@ def main(argv) -> int:
             f"mesh at s={s} against {row_ips:.6f} through the single-card "
             f"row carry ({card})")
 
-    # (c) M756839 through the CLI on the mesh, one rank
+    # (c) M756839 through the CLI on the mesh, one rank, resumed
     cli_prime(6, "mesh (-backend sharded, torchrun, 1 rank)",
               launcher=("torch.distributed.run", "--standalone",
                         "--nproc_per_node=1", "-m"),
               env={"NCCL_SOCKET_IFNAME": os.environ.get(
                   "NCCL_SOCKET_IFNAME", "lo")},
-              args=("-backend", "sharded"))
+              args=("-backend", "sharded"), resume=golden)
 
     kernels = [{"name": entry, "route": "cuda", "source": tk.SOURCES[name],
                 "replaces": tk.REPLACES[name],
@@ -915,6 +1127,7 @@ def main(argv) -> int:
                 "bound_ms": bounds[entry][0], "bound_by": bounds[entry][1],
                 "library_ms": None}
                for entry, name, path in ENTRIES]
+    log(f"[smoke] total {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

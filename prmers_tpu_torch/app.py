@@ -3,8 +3,10 @@
 Counterpart of prmers_tpu/core/app.py:92-124. It parses with the port's
 copy of the CLI (io/cli.parse_args), runs its copy of the PRP/LL driver
 (modes/prp_ll.run_prp_or_ll) on the port's engine, and prints the
-PrimeNet result JSON (io/json_out). Other modes and PRP proofs are not
-ported yet and stop with a message saying so.
+PrimeNet result JSON (io/json_out). Other modes, PRP proofs, the second
+arithmetic (`-arith fft3161`, its `-pfa*` aliases, PRMERS_ARITH=fft3161)
+and `-profile` are not ported yet and stop with a message saying so,
+rather than run Goldilocks unprofiled under a flag that asked otherwise.
 
 Under torchrun (or the JAX package's PRMERS_COORDINATOR variables) each
 process joins the group first (parallel/dist.init_from_env, as
@@ -36,10 +38,19 @@ def run(opts, device=None, log=print):
             and opts.exponent > 128):
         raise SystemExit("PRP proof generation is not yet ported to "
                          "prmers_tpu_torch; pass -noproof")
+    if "fft3161" in (opts.arith, os.environ.get("PRMERS_ARITH")):
+        raise SystemExit("the fft3161 arithmetic (-arith fft3161, -pfa*, "
+                         "PRMERS_ARITH) is not yet ported to "
+                         "prmers_tpu_torch (Goldilocks only)")
+    if opts.profile:
+        raise SystemExit("-profile is not yet ported to prmers_tpu_torch; "
+                         "python -m prmers_tpu_torch.profile <p> profiles "
+                         "the kernels")
     if opts.save_dir:
         os.makedirs(opts.save_dir, exist_ok=True)
     eng = create_engine(opts.exponent, 8, device=device,
-                        backend=opts.backend)
+                        backend=opts.backend, arith=opts.arith,
+                        workload="prp")
     r = run_prp_or_ll(opts, eng=eng, proof_set=None, log=log)
     if opts.mode == "prp" and opts.known_factors:
         status = "PRP" if r.cofactor_prp else "C"

@@ -22,13 +22,18 @@
 // matrices, same DIF order), so a multiplicand agrees mod P with the JAX
 // one and a checkpoint carries it across. All three run in place on out.
 //
-// What bounds it on the H100: 2*64 + 2*(ca + 128) + 3 mod-P products per
-// digit (419 at ca = 16), so the integer pipe; the slot matrices (2 x 2 MB at
-// ca = 16) stream from L2 once per block of rows. The design keeps each
-// row's two working copies in shared memory, reuses every matrix word
-// for all the block's rows, and reduces each dot product once (192-bit
-// accumulator); the direct products are the simple form that a
-// tensor-core or butterfly formulation would replace.
+// At the radix-5 plans (n = 5 * 2^k, L2 = 5 * 2^b up to 320) K2a and K2c
+// take the natural-order r2 DFT matrices (mxu_dft.py:60-67), and from L2 =
+// 160 on, where the matrix no longer fits a block's shared memory beside
+// the slab, axis_dft.cuh's global-matrix form; K2b does not change.
+//
+// What bounds it on the H100: 2*L2 + 2*(ca + 128) + 3 mod-P products per
+// digit (419 at L2 = 64, ca = 16; 915 at L2 = 320, ca = 8), so the integer
+// pipe; the slot matrices (2 x 2 MB at ca = 16) stream from L2 once per
+// block of rows. The design keeps each row's two working copies in shared
+// memory, reuses every matrix word for all the block's rows, and reduces
+// each dot product once (192-bit accumulator); the direct products are the
+// simple form that a tensor-core or butterfly formulation would replace.
 
 #include <cuda_runtime.h>
 

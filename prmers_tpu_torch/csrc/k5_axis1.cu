@@ -1,6 +1,7 @@
 // K5: one r2 pass alone, P2 or P6, for the shapes whose r2 passes do not
 // fold into the C-transform kernel (R2 * C above the r2fold budget: n =
-// 2^26, and the split pipeline at n = 2^25).
+// 2^26, the split pipeline at n = 2^25, and the radix-5 plans from n =
+// 5 * 2^23, where R2 * C = 320 * 2048 and more).
 //
 // Replaces prmers_tpu/ops/pallas/kernels.py:_pass_kernel in its axis-1
 // form (:130, launched by _axis1_pass :391 from _p2_pass / _p6_pass
@@ -11,13 +12,17 @@
 // These are exactly the first and last launches of K2 (axis_dft.cuh modes
 // AX_K2A and AX_K2C), launched alone over the (R1, L2, C) register. The
 // Pallas pass tiles the lane axis to bound VMEM; here a block already
-// takes a slab of 32 columns.
+// takes a slab of 32 columns. At a radix-5 L2 = 5 * 2^b the matrices are
+// natural-order Vandermonde DFTs (ops/fourstep.dft_matrix), as the JAX's.
 //
 // What bounds it on the H100: L2 mod-P products per digit (64 at 2^25,
-// 128 at 2^26) on the integer pipe; 16 B of device traffic per digit. At
-// L2 = 128 the L2 x L2 matrix (128 KiB) and the 128 x 32 slab take 160 KiB
-// of shared memory, one block of 8 warps per SM; each block reads the
-// matrix once from L2 for 32 columns.
+// 128 at 2^26, 320 at 5 * 2^23 and up) on the integer pipe; 16 B of device
+// traffic per digit. At L2 = 128 the L2 x L2 matrix (128 KiB) and the
+// 128 x 32 slab take 160 KiB of shared memory, one block of 8 warps per
+// SM; each block reads the matrix once from L2 for 32 columns. At L2 = 320
+// the matrix (800 KB) cannot be staged, so the launch takes axis_dft.cuh's
+// global-matrix form: the slab alone in shared memory (80 KB), the matrix
+// words read as warp-wide broadcasts through the read-only path from L2.
 
 #include <cuda_runtime.h>
 
@@ -27,7 +32,7 @@ extern "C" int prmers_k5_axis1(const u64* x, u64* out, const u64* mats,
                                const u64* tab, int inverse, int R1, int L2,
                                int C, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (L2 > 128 || C % AX_TC) return -1;
+    if (C % AX_TC) return -1;
     AxisArgs g = {};
     g.x = x;
     g.out = out;

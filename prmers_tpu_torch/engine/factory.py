@@ -11,6 +11,14 @@ ValueError with the shape, for there is no XLA mesh engine to fall back
 on. "pallas" is the four-step engine as "auto" is on one rank; "jax" and
 "numpy" name engines the port does not have.
 
+The arithmetic (`arith=`, or PRMERS_ARITH, as factory.py:135 reads them)
+is Goldilocks: "auto" and "gl64" give the engines above, and "fft3161",
+the paired GF(M31^2) x GF(M61^2) NTT of the JAX package's Engine3161, is
+not ported and raises NotImplementedError. "auto" needs no tune record to
+decide, since without one the JAX's policy picks gl64 too
+(policy.py:170-186), so `workload=` (what the JAX's policy weighs) is
+taken for the callers' sake and changes nothing.
+
 The pipeline is the JAX package's default unless the caller passes one,
 or the environment names one with the JAX package's own switches, read
 here and nowhere else in the port: PRMERS_NO_ROWCARRY (the block-carry
@@ -33,6 +41,7 @@ from .api import Engine
 from .fourstep_engine import FourStepEngine
 
 BACKENDS = ("auto", "pallas", "sharded", "jax", "numpy")
+ARITHS = ("auto", "gl64", "fft3161")
 
 
 def pipeline_from_env() -> Pipeline:
@@ -46,13 +55,18 @@ def pipeline_from_env() -> Pipeline:
 
 def create_engine(p: int, reg_count: int, device=None,
                   pipe: Pipeline | None = None,
-                  backend: str | None = None) -> Engine:
+                  backend: str | None = None, arith: str | None = None,
+                  workload: str = "generic") -> Engine:
     b = backend or os.environ.get("PRMERS_BACKEND") or "auto"
     if b not in BACKENDS:
         raise ValueError(f"unknown backend {b!r}")
-    if b in ("jax", "numpy"):
-        raise NotImplementedError(f"the {b!r} engine is not ported to "
-                                  "prmers_tpu_torch")
+    a = arith or os.environ.get("PRMERS_ARITH") or "auto"
+    if a not in ARITHS:
+        raise ValueError(f"unknown arithmetic {a!r}")
+    for name in (b, a):
+        if name in ("jax", "numpy", "fft3161"):
+            raise NotImplementedError(f"the {name!r} engine is not ported "
+                                      "to prmers_tpu_torch")
     pipe = pipeline_from_env() if pipe is None else pipe
     if b == "sharded" or (b == "auto" and dist.process_count() > 1):
         return MeshEngine(p, reg_count, device=device, pipe=pipe)

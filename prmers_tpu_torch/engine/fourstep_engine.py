@@ -44,20 +44,37 @@ _HOST_TABLES: dict = {}
 _DEV_TABLES: dict = {}
 
 
+# The radix-5 transforms: n = 5 * 2^k from 163840 (the JAX's floor,
+# factory.py:51-53) up to this cap, 5 * 2^25 (MM31), the largest plan the
+# JAX four-step path takes.
+R5_MIN, R5_MAX = 5 << 15, 5 << 25
+
+
 def check_shape(fp: tfs.FourStepPlan) -> None:
-    """The shapes this engine covers: n = 2^k, 2^15 <= n <= 2^26, with
-    every branch of the JAX row-carry pipeline the plan selects (r2 passes
-    folded or as K5, the C-transform whole or split, carry units of 256 to
-    4096 digits). Anything else (5*2^k, n outside the range) raises: the
-    port never falls back to another pipeline."""
+    """The shapes this engine covers, with every branch of the JAX
+    row-carry pipeline the plan selects (r2 passes folded or as K5, the
+    C-transform whole or split, carry units of 256 to 4096 digits): n = 2^k
+    with 2^15 <= n <= 2^26, and n = 5 * 2^k with 163840 <= n <= 5 * 2^25
+    (L2 = 5 * 2^b <= 320) under the plan conditions of the JAX
+    _pallas_eligible (factory.py:45-59: L1 >= 32, C % 128 = 0, 2 <= ca <=
+    64, ca a power of two). Anything else raises: the port never falls
+    back to another pipeline."""
     n = fp.n
-    ok = (n & (n - 1) == 0 and (1 << 15) <= n <= (1 << 26)
-          and fp.rs.L1 >= 32 and fp.rs.L2 & (fp.rs.L2 - 1) == 0
+    L2, ca = fp.rs.L2, fp.C // tfs.LANES
+    if n % 5:
+        sized = n & (n - 1) == 0 and (1 << 15) <= n <= (1 << 26) \
+            and L2 & (L2 - 1) == 0
+    else:
+        b = n // 5
+        sized = b & (b - 1) == 0 and R5_MIN <= n <= R5_MAX and L2 <= 320
+    ok = (sized and fp.rs.L1 >= 32 and fp.C % tfs.LANES == 0
+          and 2 <= ca <= 64 and ca & (ca - 1) == 0
           and 256 <= tfs.carry_ct(fp) <= 4096)
     if not ok:
         raise NotImplementedError(
-            f"prmers_tpu_torch covers n = 2^k with 2^15 <= n <= 2^26; this "
-            f"plan has n={n} (R1={fp.rs.L1}, R2={fp.rs.L2}, C={fp.C}, "
+            f"prmers_tpu_torch covers n = 2^k with 2^15 <= n <= 2^26 and "
+            f"n = 5*2^k with {R5_MIN} <= n <= {R5_MAX}; this plan has "
+            f"n={n} (R1={fp.rs.L1}, R2={L2}, C={fp.C}, "
             f"carry_ct={tfs.carry_ct(fp)})")
 
 

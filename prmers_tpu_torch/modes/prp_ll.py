@@ -74,7 +74,8 @@ def run_prp_or_ll(opts: Options, eng: Engine | None = None,
         return PrpLlResult(p=p, mode=mode, is_prime=qc, quick=True)
 
     if eng is None:
-        eng = create_engine(p, 8)
+        eng = create_engine(p, 8, backend=opts.backend,
+                            arith=opts.arith, workload="prp")
     n = eng.get_size()
     mp = res.mersenne(p)
     if opts.verbose:

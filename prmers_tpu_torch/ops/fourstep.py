@@ -9,14 +9,17 @@ The JAX package stores its folded matrices as int8 limb planes for the
 TPU's matrix unit. The port keeps them as u64 mod-P matrices, BEFORE that
 split: the CUDA kernels multiply natively in 64 bits. Every matrix, twiddle
 and weight is the same element of GF(P) as the JAX table it replaces, and
-every transform keeps the JAX's DIF output order, so each stage boundary
-(and the spectral multiplicand) agrees with the JAX pipeline mod P.
+every transform keeps the JAX's output order (DIF for a power-of-two
+length, natural for the radix-5 r2 factor L2 = 5 * 2^b of n = 5 * 2^k),
+so each stage boundary (and the spectral multiplicand) agrees with the JAX
+pipeline mod P.
 
 Tables built here, all canonical u64 numpy arrays unless noted:
 
   k1_mats (R2, L1, L1)  tr_fwd_w: DFT_L1 with row scale t_r and column
                         scale wr (the weights' r-part), one per r2
-  g2      (L2, L2)      the generic forward r2 DFT
+  g2      (L2, L2)      the generic forward r2 DFT (natural order at
+                        L2 = 5 * 2^b)
   mf, mi  (R1, R2, C)   mid / mid_inv with the weights' ca-part and the
                         root-of-2 wrap folded in
   lane_f, lane_i (ca, ca)  the lane-tile DFT over ca = c >> 7
@@ -376,18 +379,21 @@ def cin_row_k(fp: FourStepPlan) -> int:
 # ---------------------------------------------------------------------------
 
 def dft_matrix(L: int, inverse: bool) -> np.ndarray:
-    """(L, L) u64 power-of-two DFT matrix in the DIF order of
-    fourstep.dft_axis0 (mxu_dft.py:53-92, closed form). Forward: output
-    position k holds frequency freq(k), M[k][j] = w^(freq(k) * j).
+    """(L, L) u64 DFT matrix of mxu_dft.dft_matrix (:53-92, closed form).
+    A power-of-two L keeps the DIF order of fourstep.dft_axis0. Forward:
+    output position k holds frequency freq(k), M[k][j] = w^(freq(k) * j).
     Inverse (mirrored DIT, consumes the forward order, natural out):
-    M[k][j] = w^(-k * freq(j))."""
-    assert L & (L - 1) == 0, "power-of-two DFT lengths only"
-    freq = dif_freq_of_pos(L)
+    M[k][j] = w^(-k * freq(j)). Any other L (the radix-5 r2 factors L2 =
+    5 * 2^b, which the JAX runs only as MXU matrices) is the natural-order
+    Vandermonde M[k][j] = w^(k * j), with w inverted for the inverse."""
     w = root_554(L)
     if inverse:
         w = field.inv(w)
     pw = pow_table(w, L)
     k = np.arange(L, dtype=np.int64)
+    if L & (L - 1):
+        return pw[(k[:, None] * k[None, :]) % L]
+    freq = dif_freq_of_pos(L)
     if not inverse:
         e = (freq[:, None] * k[None, :]) % L
     else:
@@ -511,7 +517,6 @@ def fused_c_mats(fp: FourStepPlan):
 def build_tables(fp: FourStepPlan) -> KernelTables:
     """All of the port's kernel tables for one plan (numpy, host)."""
     assert fp.rs.L1 >= 32, "weight folds need rs.L1 >= 32"
-    assert fp.rs.L2 & (fp.rs.L2 - 1) == 0, "power-of-two R2 only"
     assert int(fp.widths.max()) < 32, "digit widths must fit one u32 word"
     base = FourStepTables.build(fp)
     n, R, C = fp.n, fp.R, fp.C

@@ -18,8 +18,8 @@ Products use 16-bit limbs: a limb product is < 2^32 and a sum of the few
 products that share a position stays far below 2^63; `_fold7` turns the
 seven limb-position sums back into a lazy pair with 2^64 = 2^32 - 1 and
 2^96 = -1. Matrix products (`matmul_mod`) take the same limbs through
-float64 matmuls, exact while each dot stays below 2^53 (128 terms of
-2^32 is 2^39).
+float64 matmuls, exact while each dot stays below 2^53 (512 terms of
+2^32 is 2^41).
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def norm(lo: torch.Tensor, hi: torch.Tensor):
 
 def _fold7(T):
     """Seven limb-position sums T[k] (value sum_k T[k] * 2^(16k), each
-    T[k] < 2^42) -> lazy pair mod P."""
+    T[k] < 2^43) -> lazy pair mod P."""
     w0 = T[0] + (T[1] << 16)
     w1 = T[2] + (T[3] << 16)
     w2 = T[4] + (T[5] << 16)
@@ -153,8 +153,10 @@ def canon64(x: torch.Tensor) -> torch.Tensor:
 
 def matmul_mod(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """(A @ B) mod P for packed u64 operands A (..., K, J) and B (..., J, N)
-    with J <= 128: sixteen float64 limb matmuls, exact below 2^53."""
-    assert A.shape[-1] <= 128
+    with J <= 512 (the radix-5 r2 DFT has J = 320): sixteen float64 limb
+    matmuls, exact below 2^53, and each position sum of four of them below
+    the 2^43 that _fold7 takes."""
+    assert A.shape[-1] <= 512
     Al = [((A >> (16 * i)) & M16).to(torch.float64) for i in range(4)]
     Bl = [((B >> (16 * i)) & M16).to(torch.float64) for i in range(4)]
     T = [None] * 7

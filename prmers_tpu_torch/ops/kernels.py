@@ -55,6 +55,15 @@ elements it writes before writing them. Where the JAX package takes its
 whole-chain kernel (fourstep.chain_ok), a chain of squarings is one K9
 launch that runs the row-carry stages as its phases.
 
+The radix-5 plans (n = 5 * 2^k, R2 = L2 = 5 * 2^b up to 320) go through
+the same wrappers: no wrapper, plain version or kernel other than the r2
+DFT needs a power-of-two R2. K1, K3's first launch and K4 take R2 as the
+grid's r2 extent, K3b, K7 and the row kernel count rows or units of it,
+and the r2 DFT (K2a/K2c, K5) reads its natural-order matrices from the
+tables (ops/fourstep.dft_matrix); at L2 = 160 and 320 the CUDA launch
+takes csrc/axis_dft.cuh's global-matrix form. K9 never runs there
+(fourstep.chain_ok asks for a power-of-two L2, as the JAX does).
+
 On the mesh (parallel/sharded_kernels.py) every wrapper runs on a rank's
 shard view of the tables (DevTables.from_host with R2_VIEW: K1, K3, K4 on
 (R1, R2/s, C); with R1_VIEW: K5, K6, K6b, K8 on (R1/s, R2, C)), whose

@@ -62,7 +62,11 @@ def check_mesh(fp: tfs.FourStepPlan, s: int) -> None:
     sharded_pallas.py:62-76): the lane-tiled carry (not the hybrid), s
     dividing R1 and R2, and the fused C-transform's tables (R1 >= 32, ca =
     C / 128 a power of two from 2 to 64); ValueError with the shape
-    otherwise."""
+    otherwise. The radix-5 plans (n = 5 * 2^k) are not yet ported to the
+    mesh: no card has run them there."""
+    if fp.n % 5 == 0:
+        raise ValueError(f"the mesh at n={fp.n} = 5 * 2^k is not yet ported "
+                         "to prmers_tpu_torch")
     R1, R2, C = fp.shape
     ca = C // tfs.LANES
     if tfs.use_xla_carry(fp) or R1 % s or R2 % s or C % tfs.LANES or \

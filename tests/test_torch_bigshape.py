@@ -167,14 +167,6 @@ def test_big_exponents_take_the_split_pipeline(p, shape, r2fold):
     check_shape(fp)
 
 
-def test_radix5_plan_raises():
-    """The 100M-digit class (p = 332192831, n = 5 * 2^22) needs radix-5
-    tables the port does not have yet."""
-    from prmers_tpu_torch.engine.factory import create_engine
-    with pytest.raises(NotImplementedError):
-        create_engine(332192831, 2, device="cpu")
-
-
 def test_split_t2_spread_tables_match_jax(monkeypatch):
     """wt/cum per carry unit (T = 2) equal the JAX cinrow tables with
     their 128-lane padding per unit taken off (kernels.py:702-726)."""

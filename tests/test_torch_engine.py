@@ -188,6 +188,47 @@ def test_cli_refuses_what_is_not_ported():
                 device="cpu")
 
 
+@pytest.mark.parametrize("argv,env", [
+    (["-arith", "fft3161"], {}),
+    (["-pfa3"], {}),
+    (["-pfa9"], {}),
+    ([], {"PRMERS_ARITH": "fft3161"}),
+    (["-profile"], {}),
+])
+def test_cli_refuses_fft3161_and_profile(argv, env, monkeypatch):
+    """The second arithmetic and -profile are not ported: the run stops
+    with a message (a non-zero exit) instead of running Goldilocks
+    unprofiled."""
+    from prmers_tpu_torch import app
+    monkeypatch.delenv("PRMERS_ARITH", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit) as exc:
+        app.main([str(P_EXP), "-noproof", *argv])
+    assert isinstance(exc.value.code, str)
+    assert "not yet ported to prmers_tpu_torch" in exc.value.code
+
+
+def test_create_engine_takes_arith_and_workload(monkeypatch):
+    """The reference's keywords: "auto" and "gl64" (any workload) give
+    the default engine; "fft3161", by argument or PRMERS_ARITH, raises."""
+    from prmers_tpu_torch.engine.factory import create_engine
+    monkeypatch.delenv("PRMERS_ARITH", raising=False)
+    base = create_engine(756839, 2, device="cpu")
+    for kw in ({"arith": "gl64", "workload": "prp"}, {"arith": "auto"},
+               {"workload": "ecm"}):
+        e = create_engine(756839, 2, device="cpu", **kw)
+        assert type(e) is type(base) and e.t.fp.shape == base.t.fp.shape
+        assert e.t.fp.pipe == base.t.fp.pipe
+    with pytest.raises(NotImplementedError, match="fft3161"):
+        create_engine(756839, 2, device="cpu", arith="fft3161")
+    with pytest.raises(ValueError):
+        create_engine(756839, 2, device="cpu", arith="m31")
+    monkeypatch.setenv("PRMERS_ARITH", "fft3161")
+    with pytest.raises(NotImplementedError, match="fft3161"):
+        create_engine(756839, 2, device="cpu")
+
+
 def test_default_device_is_cuda():
     """No silent CPU fallback: without a card and without device='cpu'
     the port raises."""

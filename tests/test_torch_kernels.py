@@ -233,13 +233,18 @@ def test_wrappers_refuse_bad_operands(port):
         tk.p7_carry_pass(t, x, co_out=co.reshape(-1))
 
 
-GPU_CASES = {str(logn): (logn, tfs.Pipeline()) for logn in range(15, 27)}
+GPU_CASES = {str(logn): (1 << logn, tfs.Pipeline())
+             for logn in range(15, 27)}
 GPU_CASES.update({
-    "16-t4": (16, tfs.Pipeline(carry_max=16384)),
-    "18-split-t2": (18, tfs.Pipeline(r2fold_max=2048, carry_max=1 << 17,
-                                     fc_split=True)),
-    "18-k6": (18, tfs.Pipeline(r2fold_max=2048)),
+    "16-t4": (1 << 16, tfs.Pipeline(carry_max=16384)),
+    "18-split-t2": (1 << 18, tfs.Pipeline(r2fold_max=2048,
+                                          carry_max=1 << 17, fc_split=True)),
+    "18-k6": (1 << 18, tfs.Pipeline(r2fold_max=2048)),
 })
+# the radix-5 plans: L2 = 5 (5 * 2^16), 80 (the shared-memory axis form at
+# its largest), 160 and 320 (the global-matrix form; K5 at 5 * 2^23)
+GPU_CASES.update({f"5x2^{logn}": (5 << logn, tfs.Pipeline())
+                  for logn in (16, 20, 21, 22, 23)})
 
 
 @pytest.mark.gpu
@@ -248,8 +253,9 @@ def test_cuda_kernels_match_plain(case):
     """On the card: every kernel wrapper against its plain version at each
     n = 2^logn the engine takes, 2^15 ... 2^26 (R2 = 1 ... 128, C = 1024
     ... 8192, so every rows-per-block branch of the row kernel and every
-    carry unit of K3b), and at the forced big-shape pipelines (T = 4 and
-    T = 2 carry units at small n). K3 takes the C-transform's lazy output,
+    carry unit of K3b), at the forced big-shape pipelines (T = 4 and T = 2
+    carry units at small n), and at the radix-5 n = 5 * 2^16, 2^20, 2^21,
+    2^22 and 2^23 (L2 = 5 ... 320). K3 takes the C-transform's lazy output,
     as on the main path; K6b takes K6 "fwd"'s. K4 runs forward with and
     without block carries and inverse on that lazy output; K7 takes K4
     inverse's output with a = 1 and a = 3. Where fourstep.chain_ok holds
@@ -257,12 +263,11 @@ def test_cuda_kernels_match_plain(case):
     carries, bit for bit against its plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    logn, pipe = GPU_CASES[case]
-    n = 1 << logn
+    n, pipe = GPU_CASES[case]
     plan = build_plan(int(n * 16.5) | 1, n=n)
     t = tk.DevTables.from_host(
         tfs.build_tables(tfs.FourStepPlan.from_plan(plan, pipe)), "cuda")
-    rng = np.random.default_rng(logn)
+    rng = np.random.default_rng(n)
     x = _t(_digits(plan, rng).reshape(t.shape)).cuda()
     co = torch.from_numpy(rng.integers(0, 1 << 40, size=t.carry_shape,
                                        dtype=np.int64)).cuda()
