@@ -3,12 +3,13 @@
 
 Run from the repository root with no arguments: python3 chip_smoke.py
 (one card; `python3 chip_smoke.py --mesh-only` runs phases 1 and 6 alone,
-at every world size the machine's cards allow; `python3 chip_smoke.py
+at every world size the machine's cards allow; `--tools-only` phases 1
+and 7; `python3 chip_smoke.py
 --mm31` runs phase 1 and the engine at MM31, p = 2^31 - 1, n = 5 * 2^25:
 two squarings of a dense value against GMP, with the host table build's
 time and peak memory).
 
-It drives six paths of the port: the n = 2^23 path (K1, K2, K3 with
+It drives seven paths of the port: the n = 2^23 path (K1, K2, K3 with
 whole-row carries), the C = 8192 big-shape path of n = 2^25 and 2^26
 (K1 and K3 with T = 2 carry units per row, K5, K6 "fwd", K6b, K5), the
 chain path of n = 2^15 ... 2^19 (K9, the whole squaring chain in one
@@ -22,7 +23,9 @@ p = 332192831 at (64, 320, 1024); K1, K5, K6, K5, K3 from 5 * 2^23; K2 and
 K5 at L2 = 160, 320 in their global-matrix form), and the mesh
 (parallel/: one process per card over torch.distributed with NCCL; the
 row-carry MeshEngine runs K1, K5, K6, K5, K3 per rank, the block-carry
-ShardedStep K4, K5, K6, K5, K4, K8, with all-to-alls between).
+ShardedStep K4, K5, K6, K5, K4, K8, with all-to-alls between), and the
+tools (prmers_tpu_torch/tools/: the pass profiler's unfolded r passes K4u
+and K5u, the microbenchmarks and the probes).
 Phases; any failure raises and the script exits non-zero with no result:
   1. the card (nvidia-smi name and power limit) and the kernel build
      (one nvcc per prmers_tpu_torch/csrc/*.cu, all at once, timed);
@@ -46,7 +49,9 @@ Phases; any failure raises and the script exits non-zero with no result:
      and against as many steps of the CUDA three-kernel path. At each
      size K4 forward (without and with (R1, 1) block carries; mod P) and
      inverse (on K3's input; bit for bit), and K7 with a = 1 and a = 3 on
-     K4 inverse's output (digits and block carries bit for bit);
+     K4 inverse's output (digits and block carries bit for bit). At n =
+     2^15 the four unfolded passes (K4u and K5u: forward_r with a scalar
+     carry, inverse_r) in the matrix and the shift form, mod P;
   3. each path through create_engine and the Engine API the PRP/LL
      modes call, at p = 136279841, at p = 600000001, (the chain path)
      at p = 9999991 (n = 2^19), (the block-carry path) at p = 136279841,
@@ -104,11 +109,27 @@ Phases; any failure raises and the script exits non-zero with no result:
      (c) `python -m torch.distributed.run --nproc_per_node=1 -m
      prmers_tpu_torch 756839 -noproof -backend sharded` resumes from the
      same checkpoint and must report prime. A failure in any rank fails
-     the run.
+     the run;
+  7. the tools at full width: the pass profiler (tools/profile_passes) at
+     p = 136279841, n = 2^23: K4 forward, K2, K4 inverse, and the unfolded
+     passes K4u forward (with a scalar carry), K5u forward, K5u inverse,
+     K4u inverse in the matrix and the shift form; the microbenchmarks
+     (tools/microbench: the library's serial int8/bf16 products, probe_vpu
+     and probe_mulmod with their rates; tools/microbench_fields:
+     probe_fields for gl64, GF(M31^2) and GF(M61^2) mul/sqr and the fft3161
+     ratio) and the probes (tools/probe_shapes: cases a-n;
+     tools/probe_bitcast: the byte order). The wrapper counts are reset
+     just before and read just after, and every kernel of the phase must
+     be > 0; then each timed launch's output is held against its plain
+     version on the same inputs (exact mod P for K4u/K5u and the field
+     ops after canon, bit for bit for the rest), and each time stands
+     beside its bound and the card.
 
 The last lines of standard output are the smoke's total seconds, the
 per-kernel JSON object (k8_local's launches from the s = 1 ranks' drive,
-its time at the s = 1 shape), the card's name and power limit, and {"ok":
+its time at the s = 1 shape; k4u_pass and k5u_pass the mean of their
+forward and inverse pass at n = 2^23, in each form; probe_fields and
+probe_shapes the sums over their ops and cases), the card's name and power limit, and {"ok":
 true, "device": {...}}.
 """
 
@@ -158,6 +179,15 @@ ENTRIES = [
     ("k8_local", "k8_local", "mesh"),
     ("k2_fused_c[r5]", "k2_fused_c", "r5"),
     ("k5_axis1[r5]", "k5_axis1", "r5 big"),
+    ("k4u_pass", "k4u_pass", "tools"),
+    ("k4u_pass[shift]", "k4u_pass", "tools"),
+    ("k5u_pass", "k5u_pass", "tools"),
+    ("k5u_pass[shift]", "k5u_pass", "tools"),
+    ("probe_vpu", "probe_vpu", "tools"),
+    ("probe_mulmod", "probe_mulmod", "tools"),
+    ("probe_fields", "probe_fields", "tools"),
+    ("probe_bitcast", "probe_bitcast", "tools"),
+    ("probe_shapes", "probe_shapes", "tools"),
 ]
 MESH_KERNELS = ("k1_p1c", "k3_p7c", "k4_axis0", "k5_axis1", "k6_fused_c",
                 "k8_local")
@@ -361,6 +391,55 @@ def mesh_drive(root: str, card: str) -> dict:
     return out
 
 
+def tools_drive(dev, card):
+    """Phase 7: the tools' kernels at full width (the pass profiler at p =
+    136279841, the microbenchmarks, the probes), the wrapper counts of
+    their run (reset just before, read just after; each > 0), then every
+    timed launch held against its plain version; returns (the checked
+    Timed, the counts)."""
+    import torch
+    from prmers_tpu_torch import tools
+    from prmers_tpu_torch.ops import kernels as tk
+    from prmers_tpu_torch.ops import probes as pr
+    from prmers_tpu_torch.tools import (microbench, microbench_fields,
+                                        probe_bitcast, probe_shapes,
+                                        profile_passes)
+    t1 = time.perf_counter()
+    tk.reset_calls()
+    pr.reset_calls()
+    _t, passes = profile_passes.measure(P_MAIN, reps=10)
+    mm = microbench.matmul_rates(dev)
+    mb, rates = microbench.measure()
+    mf, per_el = microbench_fields.measure()
+    ps, int_mm = probe_shapes.measure()
+    pb, order, col = probe_bitcast.measure()
+    torch.cuda.synchronize()
+    calls = {**tk.calls, **pr.calls}
+    log(f"[7] tools' run in {time.perf_counter() - t1:.3f} s; wrapper calls "
+        f"{calls}")
+    missing = [k for k in ("k4u_pass", "k5u_pass", "k4_axis0", "k2_fused_c")
+               + pr.KERNELS if calls[k] <= 0]
+    if missing:
+        raise AssertionError(f"not launched in phase 7: {missing}")
+    timed7 = tools.check(passes + mb + mf + ps + [pb])
+    for e in timed7:
+        log(f"[7]   {e.kernel} {e.what}: kernel {e.ms:.6f} ms, plain "
+            f"{e.plain_ms:.6f} ms, bound {e.bound_ms:.6f} ms "
+            f"({e.bound_by}), max_abs_err {e.max_abs_err} ({card})")
+    for r in mm:
+        log(f"[7] library {r['kind']} product {r['shape']} serial: "
+            f"{r['ms']:.6f} ms, {r['rate_T']:.3f} T/s ({card})")
+    for name, r in list(rates.items()) + list(per_el.items()):
+        log(f"[7] {name} rate from the slope: {r['ns_per_el']:.6f} ns per "
+            f"rep and element, {r['rate_G_per_s']} G/s ({card})")
+    log(f"[7] fft3161 word vs two gl64 words: "
+        f"{microbench_fields.ratios(per_el)} ({card})")
+    log(f"[7] torch._int_mm on cases b, e: {int_mm} ms; bitcast order "
+        f"{order} {col} ({card})")
+    log(f"[7] phase 7 in {time.perf_counter() - t1:.3f} s")
+    return timed7, calls
+
+
 def mm31(dev, card) -> None:
     """The engine at MM31 (p = 2^31 - 1, n = 5 * 2^25, (64, 320, 8192)
     with T = 2: K1, K5, K6 "fwd", K6b, K5, K3): the host table build's
@@ -422,6 +501,8 @@ def main(argv) -> int:
     from prmers_tpu_torch.ops import fourstep as tfs
     from prmers_tpu_torch.ops import gl64 as gl
     from prmers_tpu_torch.ops import kernels as tk
+    from prmers_tpu_torch.ops import probes as pr
+    from prmers_tpu_torch.tools import profile_passes
     from prmers_tpu_torch.utils import digits as dg
     from prmers_tpu_torch.utils import gmp
 
@@ -438,6 +519,12 @@ def main(argv) -> int:
         f"{time.perf_counter() - t0:.3f} s ({build.library_path()})")
     if "--mm31" in argv:
         mm31(dev, card)
+        print(card)
+        return 0
+    if "--tools-only" in argv:
+        timed7, calls = tools_drive(dev, card)
+        print(json.dumps({"tools": [e.row() for e in timed7],
+                          "calls": calls}))
         print(card)
         return 0
     if "--mesh-only" in argv:
@@ -557,9 +644,27 @@ def main(argv) -> int:
                    canon=False)
         return t, x, co, sp, spec, z, bco, y
 
+    def unfolded_case(label, t, x):
+        """K4u and K5u: the four passes of forward_r (with a scalar carry)
+        and inverse_r in each form, against their plain versions, mod P."""
+        tu = tk.with_unfolded(t)
+        z = gl.from_numpy_u64(np.random.default_rng(t.fp.n).integers(
+            0, gl.P, size=t.shape, dtype=np.uint64), dev)
+        for shift in (False, True):
+            ps = tk.r_passes(tu, shift, profile_passes.CIN)
+            for name in tk.R_PASSES:
+                axis, inverse, kw = ps[name]
+                v = x if name.endswith("fwd") else z
+                record(("k4u_pass" if axis == 0 else "k5u_pass")
+                       + ("[shift]" if shift else ""), f"{label} {name}",
+                       tk.axis_pass(v, axis, inverse, **kw),
+                       tk.axis_pass_plain(v, axis, inverse, **kw))
+
     for logn in (15, 18):
         n = 1 << logn
-        case(f"n=2^{logn}", int(n * 16.5) | 1, n)
+        got = case(f"n=2^{logn}", int(n * 16.5) | 1, n)
+        if logn == 15:
+            unfolded_case("n=2^15", got[0], got[1])
     case("n=2^16 T=4", int((1 << 16) * 16.5) | 1, 1 << 16,
          tfs.Pipeline(carry_max=16384))
     case("n=2^18 split T=2", int((1 << 18) * 16.5) | 1, 1 << 18,
@@ -1120,8 +1225,30 @@ def main(argv) -> int:
                   "NCCL_SOCKET_IFNAME", "lo")},
               args=("-backend", "sharded"), resume=golden)
 
-    kernels = [{"name": entry, "route": "cuda", "source": tk.SOURCES[name],
-                "replaces": tk.REPLACES[name],
+    # ---- 7: the tools: the pass profiler, microbenchmarks, probes ---------
+    timed7, counts["tools"] = tools_drive(dev, card)
+
+    def fold(entry, sel, how):
+        """A row from phase 7's Timed: mean (or sum) of the selected."""
+        es = [e for e in timed7 if sel(e)]
+        f = (lambda v: sum(v) / len(v)) if how == "mean" else sum
+        ms[entry] = (f([e.ms for e in es]), f([e.plain_ms for e in es]))
+        top = max(es, key=lambda e: e.bound_ms)
+        bounds[entry] = (f([e.bound_ms for e in es]), top.bound_by)
+        errs[entry] = max([errs[entry]] + [e.max_abs_err for e in es])
+
+    for kern in ("k4u_pass", "k5u_pass"):
+        for form in ("matrix", "shift"):
+            fold(kern + ("[shift]" if form == "shift" else ""),
+                 lambda e, kern=kern, form=form: e.kernel == kern
+                 and e.what.endswith(form), "mean")
+    for kern in pr.KERNELS:
+        fold(kern, lambda e, kern=kern: e.kernel == kern, "sum")
+
+    sources = {**tk.SOURCES, **pr.SOURCES}
+    replaces = {**tk.REPLACES, **pr.REPLACES}
+    kernels = [{"name": entry, "route": "cuda", "source": sources[name],
+                "replaces": replaces[name],
                 "launches": counts[path][name], "max_abs_err": errs[entry],
                 "ms": ms[entry][0], "plain_ms": ms[entry][1],
                 "bound_ms": bounds[entry][0], "bound_by": bounds[entry][1],

@@ -7,6 +7,13 @@ name and power limit go to stderr. The timed region ends in
 torch.cuda.synchronize(). A failure fails the run: there is no ladder of
 slower pipelines to fall back on.
 
+`python -m prmers_tpu_torch.bench --ab <root>` compares this tree with
+another checkout of the repository at <root> (e.g. the parent commit
+unpacked with `git archive` into build/parent): each tree's measure() in
+its own process, in turns root, this, this, root, on the same card; one
+JSON line with both runs of each and the change's mean against the
+root's, in percent.
+
 On the mesh, one process per card:
 `python -m torch.distributed.run --nproc_per_node=<s> -m
 prmers_tpu_torch.bench -backend sharded` times the mesh engine
@@ -58,9 +65,32 @@ def measure(p: int = P_BENCH, warm: int = WARM, iters: int = ITERS,
     return iters / (time.perf_counter() - t0)
 
 
+def ab(root: str, p: int = P_BENCH) -> dict:
+    """iter/s at p of the checkout at root and of this tree, in turns."""
+    import os
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys; sys.path.insert(0, '.'); "
+            "from prmers_tpu_torch import bench; "
+            f"print('IPS', bench.measure({p}))")
+    got = {"root": [], "this": []}
+    for label in ("root", "this", "this", "root"):
+        r = subprocess.run([sys.executable, "-c", code],
+                           cwd=root if label == "root" else here,
+                           capture_output=True, text=True, check=True)
+        ips = [ln for ln in r.stdout.splitlines() if ln.startswith("IPS")]
+        got[label].append(float(ips[-1].split()[1]))
+    a, b = sum(got["root"]) / 2, sum(got["this"]) / 2
+    return {"metric": f"PRP iter/s @ p={p}", "root": root,
+            "root_runs": got["root"], "this_runs": got["this"],
+            "delta_percent": 100 * (b - a) / a, "card": card()}
+
+
 def main(argv=None) -> None:
     from .parallel import dist
     argv = sys.argv[1:] if argv is None else argv
+    if "--ab" in argv:
+        print(json.dumps(ab(argv[argv.index("--ab") + 1])))
+        return
     backend = argv[argv.index("-backend") + 1] if "-backend" in argv \
         else None
     dist.init_from_env()

@@ -27,6 +27,18 @@ pipeline, kernels.py:917), PRMERS_XLA_CARRY (the canonical-digit hybrid,
 `PRMERS_NO_ROWCARRY=1 python -m prmers_tpu_torch <p> -noproof` and the
 bench reach those pipelines with no flag of their own. The mesh engine
 takes only the row carry and raises under the other two.
+
+The JAX package's other three pipeline switches, PRMERS_NO_MXU (the
+unfolded passes with shift-twiddle butterflies, kernels.py:1453),
+PRMERS_NO_WFOLD (the unfolded weights, :1473-1474) and PRMERS_NO_FUSE (no
+fused C-transform, :1482 and pallas_engine.py:55), make create_engine
+raise NotImplementedError: the pipelines they select give wrong results in
+the reference (its get_int differs from big-int under the first two, the
+folded C-transform tables apply the weights twice, fourstep.py:629-633 and
+kernels.py:1619-1628, and the third ends in the assert at :1675), so the
+port has no such pipeline. The unfolded passes themselves are ported
+(ops/kernels.forward_r, inverse_r) and run through
+tools/profile_passes, as in the reference.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from .fourstep_engine import FourStepEngine
 
 BACKENDS = ("auto", "pallas", "sharded", "jax", "numpy")
 ARITHS = ("auto", "gl64", "fft3161")
+UNPORTED_SWITCHES = ("PRMERS_NO_MXU", "PRMERS_NO_WFOLD", "PRMERS_NO_FUSE")
 
 
 def pipeline_from_env() -> Pipeline:
@@ -67,6 +80,14 @@ def create_engine(p: int, reg_count: int, device=None,
         if name in ("jax", "numpy", "fft3161"):
             raise NotImplementedError(f"the {name!r} engine is not ported "
                                       "to prmers_tpu_torch")
+    for name in UNPORTED_SWITCHES:
+        if os.environ.get(name):
+            raise NotImplementedError(
+                f"{name} selects a pipeline prmers_tpu_torch does not have: "
+                "the reference's pipelines under PRMERS_NO_MXU, "
+                "PRMERS_NO_WFOLD and PRMERS_NO_FUSE give wrong results "
+                "(ROADMAP queue 3); unset it. The unfolded passes run "
+                "through python -m prmers_tpu_torch.tools.profile_passes")
     pipe = pipeline_from_env() if pipe is None else pipe
     if b == "sharded" or (b == "auto" and dist.process_count() > 1):
         return MeshEngine(p, reg_count, device=device, pipe=pipe)

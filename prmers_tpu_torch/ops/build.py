@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U32 = ctypes.c_uint32
 _U64 = ctypes.c_uint64
+_LL = ctypes.c_longlong
 
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: a bare Python int would be passed as a 32-bit int)
@@ -52,6 +53,13 @@ SIGNATURES = {
     "prmers_k4_axis0": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _U32, _P, _I, _I,
                         _I, _P],
     "prmers_k7_block_carry": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
+    "prmers_k4u_pass": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _U64, _P,
+                        _I, _P, _P, _U32, _I, _I, _I, _I, _I, _P],
+    # the probes (ops/probes.py)
+    "prmers_probe_reps": [_I, _P, _P, _I, _I, _LL, _P],
+    "prmers_probe_bitcast": [_P, _P, _I, _I, _P],
+    "prmers_probe_copy": [_I, _P, _P, _LL, _I, _I, _I, _P],
+    "prmers_probe_dot8": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 

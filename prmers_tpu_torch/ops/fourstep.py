@@ -35,6 +35,10 @@ Tables built here, all canonical u64 numpy arrays unless noted:
                         injection (the first bk digits of each r1 block)
   rounds, k8_rounds     the carry's ripple rounds: K3 and K7's rule, K8's
 
+and, only when asked for (build_unfolded: the pass profiler and the tests,
+never the engine), the unfolded tables of the JAX's `_forward_r` and
+`_inverse_r` (UnfoldedTables below).
+
 Which kernels a step runs follows the JAX pipeline's shape predicates
 (use_rowcarry, use_xla_carry, use_r2fold, fc_split, carry_ct below); a
 plan's `Pipeline` holds the budgets and switches they read, so the tests
@@ -555,3 +559,82 @@ def build_tables(fp: FourStepPlan) -> KernelTables:
         widths=fp.widths.reshape(R1, R2, C).astype(np.uint32),
         k=k, ct=carry_ct(fp), rounds=carry_rounds(fp), bwt=bwt, bcum=bcum,
         bk=bk, k8_rounds=k8_rounds(fp))
+
+
+# ---------------------------------------------------------------------------
+# The unfolded tables (the JAX's _forward_r / _inverse_r forms)
+# ---------------------------------------------------------------------------
+
+def has_matrix(L: int) -> bool:
+    """Whether the JAX builds a generic matrix for a length-L factor
+    (attach_mxu_tables, fourstep.py:803-810): from L = 32 on, and always
+    for a radix-5 factor; the shorter power-of-two factors run only as
+    shift-twiddle butterflies."""
+    return L >= 32 or L & (L - 1) != 0
+
+
+@dataclasses.dataclass(eq=False)
+class UnfoldedTables:
+    """The tables of the unfolded passes, canonical u64 unless noted, as
+    the JAX's FourStepTables.build and attach_mxu_tables make them:
+
+      w, iw        (R1, R2, C)  the IBDWT weights, and their inverses x 1/n
+      t_r, t_r_inv (R1, R2, 1)  the R-pass T layer, broadcast over lanes
+      mid, mid_inv (R1, R2, C)  omega_n^(+-c * kR)
+      tr_fwd  (R2, L1, L1)  DFT_L1 with row scale t_r^T, one per r2
+                            ("tr_fwd", fourstep.py:818-819)
+      d1i     (L1, L1)      the inverse r1 DFT ((L1, True), :810)
+      g2      (L2, L2)      the forward r2 DFT ((L2, False), :810)
+      tri     (R1, L2, L2)  the inverse r2 DFT with row scale t_r_inv, one
+                            per r1 ("tr_inv", :820-821)
+      cin_widths (k,) u32   the leading digit widths that cover 64 bits,
+                            the scalar injection's spread (kernels.py:1463)
+
+    A matrix the JAX does not build (has_matrix False) is None: that
+    factor runs as shift butterflies in both forms, as `_mx` finds no
+    table for it."""
+    fp: FourStepPlan
+    w: np.ndarray
+    iw: np.ndarray
+    t_r: np.ndarray
+    t_r_inv: np.ndarray
+    mid: np.ndarray
+    mid_inv: np.ndarray
+    tr_fwd: np.ndarray | None
+    d1i: np.ndarray | None
+    g2: np.ndarray | None
+    tri: np.ndarray | None
+    cin_widths: np.ndarray
+
+
+def cin_widths(fp: FourStepPlan) -> np.ndarray:
+    """The widths of the leading digits whose sum first reaches 64 bits
+    (kernels.py:_cin_widths :1463-1468), u32."""
+    acc = np.cumsum(fp.widths.astype(np.int64))
+    k = int(np.searchsorted(acc, 64)) + 1
+    return fp.widths[:k].astype(np.uint32)
+
+
+def build_unfolded(fp: FourStepPlan) -> UnfoldedTables:
+    """The unfolded tables of a plan (host numpy; four n-word tables, 256
+    MiB at n = 2^23)."""
+    base = FourStepTables.build(fp)
+    n, R1, R2, C = fp.n, fp.rs.L1, fp.rs.L2, fp.C
+    e_w = (-(fp.p % n) * np.arange(n, dtype=np.int64)) % n
+    nr2 = field.root_two_nth(n)
+    w = pow_table(nr2, n)[e_w]
+    iw = mulmod(pow_table(field.inv(nr2), n)[e_w],
+                np.uint64(field.inv(n)))
+    L1, L2 = R1, R2
+    return UnfoldedTables(
+        fp=fp, w=w.reshape(R1, R2, C), iw=iw.reshape(R1, R2, C),
+        t_r=base.t_r.reshape(R1, R2, 1),
+        t_r_inv=base.t_r_inv.reshape(R1, R2, 1),
+        mid=base.mid, mid_inv=base.mid_inv,
+        tr_fwd=(_fold_rows(dft_matrix(L1, False), base.t_r.T.copy())
+                if has_matrix(L1) else None),
+        d1i=dft_matrix(L1, True) if has_matrix(L1) else None,
+        g2=dft_matrix(L2, False) if has_matrix(L2) else None,
+        tri=(_fold_rows(dft_matrix(L2, True), base.t_r_inv)
+             if has_matrix(L2) else None),
+        cin_widths=cin_widths(fp))

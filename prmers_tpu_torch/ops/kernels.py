@@ -45,6 +45,11 @@ mode "fwd"; K3 two; the others one).
   K8  block_carry_local     csrc/k7_block_carry.cu  K7's kernel with K8's
                                                 round rule, on a rank's
                                                 r1 blocks (the mesh)
+  K4u axis_pass, axis 0     csrc/k4u_pass.cu    the unfolded r passes:
+  K5u axis_pass, axis 1                         [halve], [inject], [x pre],
+                                                DFT (matrix or shift
+                                                butterflies), [x post],
+                                                [double, canon]
 
 A row-carry step runs K1, the C-transform span `fused_mid` and K3;
 `fused_mid` picks K2, or K5 + K6 + K5, or K5 + K6 "fwd" + K6b + K5, exactly
@@ -53,7 +58,11 @@ span, K4 inverse and K7; the hybrid the same with carry_full in place of
 K7. All but K7 may run in place (out is x): each CUDA block reads the
 elements it writes before writing them. Where the JAX package takes its
 whole-chain kernel (fourstep.chain_ok), a chain of squarings is one K9
-launch that runs the row-carry stages as its phases.
+launch that runs the row-carry stages as its phases. No step runs K4u or
+K5u: they are the JAX's `_forward_r` / `_inverse_r` (forward_r,
+inverse_r below, on DevTables' optional `unfolded` view), which only the
+pass profiler (tools/profile_passes.py) and the tests reach, as in the
+reference.
 
 The radix-5 plans (n = 5 * 2^k, R2 = L2 = 5 * 2^b up to 320) go through
 the same wrappers: no wrapper, plain version or kernel other than the r2
@@ -84,7 +93,7 @@ from . import gl64 as gl
 
 KERNELS = ("k1_p1c", "k2_fused_c", "k3_p7c", "k5_axis1", "k6_fused_c",
            "k6b_fused_c_invh", "k9_chain", "k4_axis0", "k7_block_carry",
-           "k8_local")
+           "k8_local", "k4u_pass", "k5u_pass")
 SOURCES = {
     "k1_p1c": "prmers_tpu_torch/csrc/k1_p1c.cu",
     "k2_fused_c": "prmers_tpu_torch/csrc/k2_fused_c.cu",
@@ -96,6 +105,8 @@ SOURCES = {
     "k4_axis0": "prmers_tpu_torch/csrc/k4_axis0.cu",
     "k7_block_carry": "prmers_tpu_torch/csrc/k7_block_carry.cu",
     "k8_local": "prmers_tpu_torch/csrc/k7_block_carry.cu",
+    "k4u_pass": "prmers_tpu_torch/csrc/k4u_pass.cu",
+    "k5u_pass": "prmers_tpu_torch/csrc/k4u_pass.cu",
 }
 REPLACES = {
     "k1_p1c": "prmers_tpu/ops/pallas/kernels.py:512",
@@ -109,6 +120,10 @@ REPLACES = {
     "k4_axis0": "prmers_tpu/ops/pallas/kernels.py:130",
     "k7_block_carry": "prmers_tpu/ops/pallas/kernels.py:1315",
     "k8_local": "prmers_tpu/parallel/sharded_pallas.py:201",
+    # _pass_kernel's unfolded forms, through _axis0_pass's pallas_call
+    # (:365) and _axis1_pass's (:452)
+    "k4u_pass": "prmers_tpu/ops/pallas/kernels.py:365",
+    "k5u_pass": "prmers_tpu/ops/pallas/kernels.py:452",
 }
 calls = {name: 0 for name in KERNELS}
 
@@ -166,6 +181,7 @@ class DevTables:
     bcum: torch.Tensor | None
     bk: int
     k8_rounds: int
+    unfolded: "UnfoldedView | None" = None
 
     @classmethod
     def from_host(cls, kt: tfs.KernelTables, device, view: dict | None = None,
@@ -866,3 +882,315 @@ def square_chain(t: DevTables, x: torch.Tensor, co: torch.Tensor, a_vec,
     calls["k9_chain"] += 1
     build.check(err, "k9_chain")
     return out, co_out
+
+
+# ---------------------------------------------------------------------------
+# K4u / K5u: the unfolded r passes (kernels.py:130-375, :1530-1571)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class UnfoldedView:
+    """fourstep.UnfoldedTables on a device: the u64 tables as int64 bit
+    patterns, cin_widths as int32; a matrix the JAX does not build is
+    None."""
+    w: torch.Tensor
+    iw: torch.Tensor
+    t_r: torch.Tensor
+    t_r_inv: torch.Tensor
+    mid: torch.Tensor
+    mid_inv: torch.Tensor
+    tr_fwd: torch.Tensor | None
+    d1i: torch.Tensor | None
+    g2: torch.Tensor | None
+    tri: torch.Tensor | None
+    cin_widths: torch.Tensor
+
+    @classmethod
+    def from_host(cls, u: tfs.UnfoldedTables, device) -> "UnfoldedView":
+        def put(name):
+            a = getattr(u, name)
+            if a is None:
+                return None
+            if name == "cin_widths":
+                return torch.from_numpy(a.astype("int32")).to(device)
+            return gl.from_numpy_u64(a, device)
+        return cls(**{f.name: put(f.name) for f in dataclasses.fields(cls)})
+
+
+def with_unfolded(t: DevTables,
+                  u: tfs.UnfoldedTables | None = None) -> DevTables:
+    """A copy of t that holds the unfolded view (built from t.fp unless u
+    is given); t itself, and so an engine's cached tables, stay as they
+    are."""
+    if u is None:
+        u = tfs.build_unfolded(t.fp)
+    return dataclasses.replace(t, unfolded=UnfoldedView.from_host(
+        u, t.device))
+
+
+# The JAX tiles the lanes of an axis-0 pass once L * S * C reaches 2^22
+# (kernels.py:262, AXIS0_BUDGET_EL), and then refuses the scalar injection
+# (:280); the port refuses it at the same shapes.
+AXIS0_BUDGET_EL = 1 << 22
+
+
+def _axis0_lane_tiled(L: int, R2: int, C: int) -> bool:
+    S = tfs._r2_tile(R2)
+    return L * S * C >= AXIS0_BUDGET_EL and C % 256 == 0 and C > 256
+
+
+def _check_pass(x, axis, pre, post, mats, cin, cin_widths, wcorr, out):
+    if x.dim() != 3 or x.dtype != torch.int64 or not x.is_contiguous():
+        raise ValueError("the register must be contiguous int64 "
+                         f"(R1, R2, C) (got {x.dtype} {tuple(x.shape)})")
+    if axis not in (0, 1):
+        raise ValueError(f"axis {axis}: 0 (r1) or 1 (r2)")
+    R1, R2, C = x.shape
+    L = x.shape[axis]
+    for name, a, shapes in (
+            ("pre", pre, ((R1, R2, C), (R1, R2, 1))),
+            ("post", post, ((R1, R2, C), (R1, R2, 1))),
+            ("mats", mats, ((L, L), ((R2, R1)[axis], L, L))),
+            ("out", out, ((R1, R2, C),))):
+        if a is None:
+            continue
+        if a.dtype != torch.int64 or not a.is_contiguous() or \
+                a.device != x.device or tuple(a.shape) not in shapes:
+            raise ValueError(f"{name} must be contiguous int64 of shape "
+                             f"{' or '.join(map(str, shapes))} on "
+                             f"{x.device} (got {a.dtype} {tuple(a.shape)} "
+                             f"on {a.device})")
+    if mats is None and (L > 64 or 64 % L):
+        raise ValueError(f"no shift-twiddle butterflies for L={L} (L must "
+                         "divide 64): the pass needs its matrix")
+    if axis == 1 and (cin is not None or wcorr is not None):
+        raise ValueError("the axis-1 pass takes no injection and no wrap "
+                         "correction (kernels.py:391)")
+    if cin is not None:
+        if not 0 <= cin < (1 << 64):
+            raise ValueError(f"cin={cin} outside [0, 2^64)")
+        if cin_widths is None or cin_widths.dtype != torch.int32 or \
+                cin_widths.dim() != 1 or cin_widths.device != x.device or \
+                not 0 < cin_widths.numel() <= C:
+            raise ValueError("cin needs its widths: int32 (k,), k <= C, on "
+                             "the register's device")
+        if _axis0_lane_tiled(L, R2, C):
+            raise ValueError("a lane-tiled axis-0 pass cannot carry the "
+                             "injection strip (kernels.py:280)")
+    if wcorr is not None:
+        er, ec, _n = wcorr
+        if er.dtype != torch.int32 or tuple(er.shape) != (R1, R2) or \
+                ec.dtype != torch.int32 or tuple(ec.shape) != (C,) or \
+                er.device != x.device or ec.device != x.device:
+            raise ValueError("wcorr is (er int32 (R1, R2), ec int32 (C,), "
+                             "n) on the register's device")
+
+
+def cin_parts(cin: int, widths) -> list[int]:
+    """The scalar carry spread base-2^width over the widths: the low 32
+    bits of cin >> (the widths before), masked to its width but for the
+    last part (kernels.py:189-206)."""
+    parts, q = [], 0
+    widths = [int(w) for w in widths]
+    for j, w in enumerate(widths):
+        part = (cin >> q) & gl.M32 if q < 64 else 0
+        if j < len(widths) - 1:
+            part &= (1 << w) - 1
+        parts.append(part)
+        q += w
+    return parts
+
+
+def _twiddles(exps, inverse: bool, like: torch.Tensor):
+    """(lo, hi) of a level's twiddles 2^e (the inverse's 2^(96 - e), and 1
+    at e = 0), shaped (1, m, 1...) against the level's (B, m, rest)
+    halves."""
+    m = len(exps)
+    vals = [pow(2, (96 - e) if inverse and e else e, gl.P) for e in exps]
+    sh = (1, m) + (1,) * (like.dim() - 2)
+    return tuple(torch.tensor([f(v) for v in vals], dtype=torch.int64,
+                              device=like.device).reshape(sh)
+                 for f in (lambda v: v & gl.M32, lambda v: v >> 32))
+
+
+def dft_shift_plain(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The length-L shift-twiddle DIF (or its mirrored DIT) along dim 0 of
+    x (L, ...) (fourstep.py:339-389): per level of half-size m, a + b and
+    (a - b) * 2^e; inverse, b * 2^(96 - e) and the swapped outputs at
+    j > 0."""
+    L = x.shape[0]
+    levels = tfs.shift_exponents(L)
+    if inverse:
+        levels = levels[::-1]
+    rest = tuple(x.shape[1:])
+    x0, x1 = gl.split(x)
+    for m, exps in levels:
+        sh = (L // (2 * m), 2, m) + rest
+        v0, v1 = x0.reshape(sh), x1.reshape(sh)
+        a0, a1, b0, b1 = v0[:, 0], v1[:, 0], v0[:, 1], v1[:, 1]
+        w0, w1 = _twiddles(exps, inverse, a0)
+        if not inverse:
+            s0, s1 = gl.add(a0, a1, b0, b1)
+            d0, d1 = gl.mul(*gl.sub(a0, a1, b0, b1), w0, w1)
+        else:
+            bt = gl.mul(b0, b1, w0, w1)
+            s0, s1 = gl.add(a0, a1, *bt)
+            d0, d1 = gl.sub(a0, a1, *bt)
+            if m > 1:
+                first = torch.zeros((1, m) + (1,) * len(rest),
+                                    dtype=torch.bool, device=x.device)
+                first[:, 0] = True
+                s0, d0 = torch.where(first, s0, d0), torch.where(first, d0, s0)
+                s1, d1 = torch.where(first, s1, d1), torch.where(first, d1, s1)
+        x0 = torch.stack([s0, d0], dim=1).reshape((L,) + rest)
+        x1 = torch.stack([s1, d1], dim=1).reshape((L,) + rest)
+    return gl.join(x0, x1)
+
+
+def axis_pass_plain(x: torch.Tensor, axis: int, inverse: bool,
+                    pre=None, post=None, mats=None, cin: int | None = None,
+                    cin_widths=None, wcorr=None,
+                    canon: bool = False) -> torch.Tensor:
+    """Plain K4u (axis 0, the length-R1 DFT over r1) or K5u (axis 1, over
+    r2), in _pass_kernel's order: halve where wrapped (wcorr = (er, ec, n),
+    not with canon), inject cin's parts into digits 0 ... k-1, x pre, the
+    DFT (mats None: the shift butterflies; (L, L): one matrix; (V, L, L):
+    one per r2 on axis 0, per r1 on axis 1), x post, and with canon the
+    double where wrapped and the reduction to [0, P)."""
+    R1, R2, C = x.shape
+    y = x
+    mask = None
+    if wcorr is not None:
+        er, ec, n = wcorr
+        mask = (er.to(torch.int64).reshape(R1, R2, 1)
+                + ec.to(torch.int64).reshape(1, 1, C)) >= n
+        if not canon:
+            y = gl.join(*gl.halve_where(*gl.split(y), mask))
+    if cin is not None:
+        parts = cin_parts(cin, cin_widths.tolist())
+        y = y.clone()
+        y[0, 0, :len(parts)] += torch.tensor(parts, dtype=torch.int64,
+                                             device=y.device)
+    if pre is not None:
+        y = gl.mulmod(y, pre)
+    if axis == 1:
+        y = y.permute(1, 0, 2)            # the transform axis first
+    if mats is None:
+        y = dft_shift_plain(y.contiguous(), inverse)
+    else:
+        # (L, V, C) with V the other axis: out[k, v, c] = sum_j
+        # mats[v][k][j] * y[j, v, c] (or one matrix for every v)
+        y = gl.matmul_mod(mats, y.permute(1, 0, 2)).permute(1, 0, 2)
+    if axis == 1:
+        y = y.permute(1, 0, 2)
+    y = y.contiguous()
+    if post is not None:
+        y = gl.mulmod(y, post)
+    if canon:
+        y0, y1 = gl.split(y)
+        if mask is not None:
+            y0, y1 = gl.double_where(y0, y1, mask)
+        y = gl.join(*gl.canon(y0, y1))
+    return y
+
+
+def axis_pass(x: torch.Tensor, axis: int, inverse: bool, pre=None,
+              post=None, mats=None, cin: int | None = None, cin_widths=None,
+              wcorr=None, canon: bool = False,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """K4u (axis 0) or K5u (axis 1) over the whole register, with the
+    operands of axis_pass_plain; in place when out is x."""
+    _check_pass(x, axis, pre, post, mats, cin, cin_widths, wcorr, out)
+    if _on_cpu(x):
+        r = axis_pass_plain(x, axis, inverse, pre, post, mats, cin,
+                            cin_widths, wcorr, canon)
+        return r if out is None else out.copy_(r)
+    R1, R2, C = x.shape
+    if out is None:
+        out = torch.empty_like(x)
+    O, L, S = (1, R1, R2) if axis == 0 else (R1, R2, 1)
+    var_o = int(mats is not None and mats.dim() == 3 and axis == 1)
+    var_s = int(mats is not None and mats.dim() == 3 and axis == 0)
+    er, ec, n = wcorr if wcorr is not None else (None, None, 0)
+    name = "k4u_pass" if axis == 0 else "k5u_pass"
+    err = build.lib().prmers_k4u_pass(
+        x.data_ptr(), out.data_ptr(), _ptr(pre),
+        int(pre is not None and pre.shape[2] == 1), _ptr(post),
+        int(post is not None and post.shape[2] == 1), _ptr(mats), var_o,
+        var_s, int(inverse), 0 if cin is None else cin,
+        _ptr(cin_widths if cin is not None else None),
+        0 if cin is None else cin_widths.numel(), _ptr(er), _ptr(ec), n,
+        int(canon), O, L, S, C, _stream())
+    calls[name] += 1
+    build.check(err, name)
+    return out
+
+
+def _unfolded(t: DevTables) -> UnfoldedView:
+    if t.unfolded is None:
+        raise ValueError("the unfolded passes need the tables' unfolded "
+                         "view: kernels.with_unfolded(t)")
+    return t.unfolded
+
+
+R_PASSES = ("k4u_fwd", "k5u_fwd", "k5u_inv", "k4u_inv")
+
+
+def r_passes(t: DevTables, shift: bool, cin: int | None = None) -> dict:
+    """The four unfolded passes of forward_r ("k4u_fwd", "k5u_fwd") and
+    inverse_r ("k5u_inv", "k4u_inv"): name -> (axis, inverse, operands of
+    axis_pass), in the matrix form, or with shift the butterflies on every
+    factor (the JAX under PRMERS_NO_MXU)."""
+    u = _unfolded(t)
+    m1 = None if shift else u.tr_fwd
+    m6 = None if shift else u.tri
+    return {
+        "k4u_fwd": (0, False, dict(
+            pre=u.w, post=u.t_r if m1 is None else None, mats=m1, cin=cin,
+            cin_widths=u.cin_widths if cin is not None else None)),
+        "k5u_fwd": (1, False, dict(post=u.mid,
+                                   mats=None if shift else u.g2)),
+        "k5u_inv": (1, True, dict(
+            pre=u.mid_inv, post=u.t_r_inv if m6 is None else None,
+            mats=m6)),
+        "k4u_inv": (0, True, dict(post=u.iw, mats=None if shift else u.d1i,
+                                  canon=True)),
+    }
+
+
+def _run_passes(run, t: DevTables, x, names, cin, shift: bool):
+    ps = r_passes(t, shift, cin)
+    for name in names:
+        axis, inverse, kw = ps[name]
+        x = run(x, axis, inverse, **kw)
+    return x
+
+
+def forward_r(t: DevTables, x: torch.Tensor, cin: int | None = None,
+              shift: bool = False) -> torch.Tensor:
+    """The JAX `_forward_r` (kernels.py:1530-1550) without the weight fold:
+    K4u (inject the scalar carry cin, x w, the r1 DFT: tr_fwd with t_r
+    folded, or with shift the butterflies and then x t_r), then K5u (the
+    r2 DFT, x mid). A factor the JAX builds no matrix for (fourstep.
+    has_matrix) runs as butterflies in both forms; shift=True is the
+    PRMERS_NO_MXU form, every factor as butterflies."""
+    return _run_passes(axis_pass, t, x, R_PASSES[:2], cin, shift)
+
+
+def forward_r_plain(t: DevTables, x: torch.Tensor, cin: int | None = None,
+                    shift: bool = False) -> torch.Tensor:
+    return _run_passes(axis_pass_plain, t, x, R_PASSES[:2], cin, shift)
+
+
+def inverse_r(t: DevTables, z: torch.Tensor,
+              shift: bool = False) -> torch.Tensor:
+    """The JAX `_inverse_r` (kernels.py:1553-1571) without the weight fold:
+    K5u (x mid_inv, the r2 inverse DFT: tr_inv with t_r_inv folded, or the
+    butterflies and then x t_r_inv), then K4u (the r1 inverse DFT (L1,
+    True) or the butterflies, x iw, canon); canonical out."""
+    return _run_passes(axis_pass, t, z, R_PASSES[2:], None, shift)
+
+
+def inverse_r_plain(t: DevTables, z: torch.Tensor,
+                    shift: bool = False) -> torch.Tensor:
+    return _run_passes(axis_pass_plain, t, z, R_PASSES[2:], None, shift)

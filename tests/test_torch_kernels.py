@@ -370,3 +370,68 @@ def test_cuda_shard_kernels_match_plain(logn, s):
             d, c = tk.block_carry_local(t1, z, a)
             dw, cw = tk.block_carry_plain(t1, z, a, t1.k8_rounds)
             assert torch.equal(d, dw) and torch.equal(c, cw), a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logn", [15, 17, 23])
+def test_cuda_unfolded_passes_match_plain(logn):
+    """On the card: K4u and K5u, each of the four passes of forward_r (with
+    a nonzero scalar carry) and inverse_r in the matrix and the shift form,
+    against its plain version on the same inputs, exact mod P; then the
+    two r passes whole against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 1 << logn
+    plan = build_plan(136279841 if logn == 23 else int(n * 16.5) | 1, n=n)
+    fp = tfs.FourStepPlan.from_plan(plan)
+    t = tk.with_unfolded(tk.DevTables.from_host(tfs.build_tables(fp),
+                                                "cuda"))
+    rng = np.random.default_rng(logn)
+    x = _t(_digits(plan, rng).reshape(t.shape)).cuda()
+    z = _t(rng.integers(0, GP, size=t.shape, dtype=np.uint64)).cuda()
+    cin = 0x9E3779B97F4A7C15
+
+    def same(got, want):
+        return torch.equal(tgl.canon64(got), tgl.canon64(want))
+
+    for shift in (False, True):
+        ps = tk.r_passes(t, shift, cin)
+        for name, v in (("k4u_fwd", x), ("k5u_fwd", x), ("k5u_inv", z),
+                        ("k4u_inv", z)):
+            axis, inverse, kw = ps[name]
+            got = tk.axis_pass(v, axis, inverse, **kw)
+            assert same(got, tk.axis_pass_plain(v, axis, inverse, **kw)), \
+                (name, shift)
+        assert same(tk.forward_r(t, x, cin, shift),
+                    tk.forward_r_plain(t, x, cin, shift)), shift
+        assert torch.equal(tk.inverse_r(t, z, shift),
+                           tk.inverse_r_plain(t, z, shift)), shift
+
+
+@pytest.mark.gpu
+def test_cuda_probes_match_plain():
+    """On the card: every probe kernel against its plain version on the
+    same inputs at the TPU tools' shapes (the rep loops with fewer reps):
+    probe_vpu and probe_mulmod (512, 1024), probe_fields (256, 1024) per
+    op after canon, probe_bitcast and every probe_shapes case bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from prmers_tpu_torch.ops import probes as pr
+    x = pr.rep_inputs("vpu", (512, 1024), device="cuda")[0].contiguous()
+    assert torch.equal(pr.vpu(x, 16),
+                       pr.reps_plain("vpu", x.unsqueeze(0), 16)[0])
+    ab = pr.rep_inputs("gl_mul", (512, 1024), device="cuda")
+    assert torch.equal(pr.canon_planes("gl_mul", pr.mulmod(ab, 8)),
+                       pr.canon_planes("gl_mul",
+                                       pr.reps_plain("gl_mul", ab, 8)[:2]))
+    for op in pr.FIELD_OPS:
+        v = pr.rep_inputs(op, (256, 1024), device="cuda")
+        assert torch.equal(pr.canon_planes(op, pr.fields(op, v, 8)),
+                           pr.canon_planes(op, pr.reps_plain(op, v, 8))), op
+    w = torch.from_numpy(pr.bitcast_pattern().view(np.int32)).cuda()
+    assert torch.equal(pr.bitcast(w), pr.bitcast_plain(w))
+    for case in pr.SHAPE_CASES:
+        xs = pr.shape_inputs(case, device="cuda")
+        assert torch.equal(pr.shape_case(case, *xs),
+                           pr.shape_plain(case, *xs)), case
