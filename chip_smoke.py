@@ -19,8 +19,8 @@ C-transform, K4 inverse, K7) with its canonical-digit hybrid
 (Pipeline(xla_carry=True), PRMERS_XLA_CARRY: carry_full in place of K7),
 the radix-5 path of n = 5 * 2^k (the r2 factor L2 = 5 * 2^b a
 natural-order DFT: K1, K2, K3 up to n = 5 * 2^22, the 100M-digit class
-p = 332192831 at (64, 320, 1024); K1, K5, K6, K5, K3 from 5 * 2^23; K2 and
-K5 at L2 = 160, 320 in their global-matrix form), and the mesh
+p = 332192831 at (64, 320, 1024); K1, K5, K6, K5, K3 from 5 * 2^23; the r2
+launches of K2 and K5 in the 5 x 2^b split form), and the mesh
 (parallel/: one process per card over torch.distributed with NCCL; the
 row-carry MeshEngine runs K1, K5, K6, K5, K3 per rank, the block-carry
 ShardedStep K4, K5, K6, K5, K4, K8, with all-to-alls between), and the
@@ -35,11 +35,12 @@ Phases; any failure raises and the script exits non-zero with no result:
      the card, at n = 2^15, 2^18, 2^23, 2^25 (p = 600000001) and 2^26
      (p = 1000000007), at two forced pipelines (T = 4 carry units at
      n = 2^16; the split C-transform with T = 2 at 2^18), and at the
-     radix-5 n = 5 * 2^16 (L2 = 5), 5 * 2^20 (L2 = 80, the shared-memory
-     axis form at its largest), 5 * 2^21 (L2 = 160), 5 * 2^22 (L2 = 320,
-     p = 332192831) and 5 * 2^23 (p = 700000001, K5 at L2 = 320, K6 at
-     ca = 16), K2 and K5 there as k2_fused_c[r5] and k5_axis1[r5]. K3
-     takes the C-transform's lazy output, as on the main path. Tolerance:
+     radix-5 n = 5 * 2^16 (L2 = 5), 5 * 2^17, 2^18, 2^19, 2^20, 2^21 (L2 =
+     10, 20, 40, 80, 160), 5 * 2^22 (L2 = 320, p = 332192831) and 5 * 2^23
+     (p = 700000001, K5 at L2 = 320, K6 at ca = 16), K2 and K5 there (the
+     r2 DFT in the split form, csrc/r2_split.cuh) as k2_fused_c[r5] and
+     k5_axis1[r5]. K3 takes the C-transform's lazy output, as on the
+     main path. Tolerance:
      none. The arithmetic is exact mod P: K1/K2/K5/K6/K6b outputs are
      compared after canon, K3's digits and unit carries bit for bit. The
      host table build time and peak memory are logged at every size. K9
@@ -674,7 +675,7 @@ def main(argv) -> int:
     case("n=2^26", P_HUGE, cached_plan(P_HUGE).n)
     torch.cuda.empty_cache()
     case("n=5*2^16", P_R5_SMALL, 5 << 16)
-    for logn in (20, 21):
+    for logn in (17, 18, 19, 20, 21):
         case(f"n=5*2^{logn}", int((5 << logn) * 16.5) | 1, 5 << logn)
     r5_in = case("n=5*2^22", P_R5, 5 << 22)
     r5_big_in = case("n=5*2^23", P_R5_BIG, 5 << 23)
@@ -1030,18 +1031,23 @@ def main(argv) -> int:
         return (bound(L1 * n, 16 * n + tabs + nbytes(t.er, t.ec)),
                 bound(0, 20 * n + 8 * t.block_carry_shape[0]))
 
-    # radix 5: K2 with L2 = 320 at 5 * 2^22 (its two r2 passes, the
-    # C-transform and the square: 915 products per digit); K5 with L2 = 320
-    # at 5 * 2^23, the mean of P2 (g2, mf) and P6 (tri, mi)
+    # radix 5, the r2 DFT in the split form (fourstep.r2_split_products
+    # per pass, ~4 at L2 = 320): K2 at 5 * 2^22, its two r2 passes with
+    # x mf, x mi and x t_r_inv, the C-transform and the square (~284
+    # products per digit); K5 with L2 = 320 at 5 * 2^23, the mean of P2
+    # (x mf) and P6 (x mi, x t_r_inv), the register and mf or mi once
     t = r5_in[0]
     L1, L2, ca, n, _ = shape_of(t)
+    split = (t.dft5_f, t.dft5_i, t.tw_f, t.tw_i, t.sh_exp, t.t_r_inv)
     bounds["k2_fused_c[r5]"] = bound(
-        (2 * L2 + 2 * ca + 2 * 128 + 3) * n, 16 * n + nbytes(
-            t.g2, t.mf, t.lane_f, t.lane_i, t.Mf, t.Mi, t.mi, t.tri))
+        (2 * tfs.r2_split_products(L2) + 2 * ca + 2 * 128 + 4) * n,
+        16 * n + nbytes(t.mf, t.lane_f, t.lane_i, t.Mf, t.Mi, t.mi, *split))
     t = r5_big_in[0]
     L1, L2, ca, n, _ = shape_of(t)
     bounds["k5_axis1[r5]"] = bound(
-        (L2 + 1) * n, 16 * n + (nbytes(t.g2, t.mf) + nbytes(t.tri, t.mi)) / 2)
+        (tfs.r2_split_products(L2) + 1.5) * n, 16 * n + (
+            nbytes(t.mf, t.dft5_f, t.tw_f, t.sh_exp) +
+            nbytes(t.mi, t.dft5_i, t.tw_i, t.sh_exp, t.t_r_inv)) / 2)
     bounds["k4_axis0"], bounds["k7_block_carry"] = block_bounds(
         main_in[0], main_in[6])
     for entry, b in zip(("k4_axis0", "k7_block_carry"),
@@ -1245,9 +1251,12 @@ def main(argv) -> int:
     for kern in pr.KERNELS:
         fold(kern, lambda e, kern=kern: e.kernel == kern, "sum")
 
-    sources = {**tk.SOURCES, **pr.SOURCES}
+    # K5 at L2 = 320 is r2_split.cuh's kernel, launched from k5_axis1.cu
+    sources = {**tk.SOURCES, **pr.SOURCES,
+               "k5_axis1[r5]": "prmers_tpu_torch/csrc/r2_split.cuh"}
     replaces = {**tk.REPLACES, **pr.REPLACES}
-    kernels = [{"name": entry, "route": "cuda", "source": sources[name],
+    kernels = [{"name": entry, "route": "cuda",
+                "source": sources.get(entry, sources[name]),
                 "replaces": replaces[name],
                 "launches": counts[path][name], "max_abs_err": errs[entry],
                 "ms": ms[entry][0], "plain_ms": ms[entry][1],

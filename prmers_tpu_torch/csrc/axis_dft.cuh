@@ -1,7 +1,8 @@
 // Length-L DFT down one axis of the (R1, R2, C) register, as a direct
 // mod-P matrix product on a shared-memory tile. Shared by K1 (the r1 axis,
-// one matrix per r2), the two r2 launches of K2 and the two K5 passes (the
-// r2 axis, one matrix, or one per r1), the first launch of K3 (the r1
+// one matrix per r2), the two r2 launches of K2 and the two K5 passes at a
+// power-of-two L2 (the r2 axis, one matrix, or one per r1; also K9's r2
+// phases), the first launch of K3 (the r1
 // axis again) and both forms of K4 (K1 and K3's first launch with the
 // carry of the block-carry pipeline).
 //
@@ -16,17 +17,9 @@
 // may run in place (out == x). At L = 128 the tile is 160 KiB of shared
 // memory, so one block (8 warps) per SM.
 //
-// The radix-5 r2 factors L = 160 and 320 (n = 5 * 2^k) do not fit: the
-// matrix alone is 200 and 800 KB, a block has at most 227 KB. There the
-// launch takes the global-matrix form (GM): the block stages only its
-// L x AX_TC input slab (80 KB at 320), and each thread reads the words of
-// its output row k from the matrix in device memory through the read-only
-// path (__ldg). The 32 threads of a warp share k, so each read is one
-// broadcast word, and a row's words are consecutive, so one L1 line serves
-// sixteen of them; the matrix (one, or one per r1 at 800 KB each) stays
-// in the 50 MB L2 while the blocks of its columns run. A block still forms
-// all L outputs of its columns, so the form runs in place as well. Only
-// the r2 modes (AX_K2A, AX_K2C) take it: the r1 axis never exceeds 64.
+// The radix-5 r2 factors L = 5 * 2^b (n = 5 * 2^k) do not come here: K2
+// and K5 take them to r2_split.cuh's 5 x 2^b split, and the r1 axis
+// never exceeds 64.
 #pragma once
 
 #include "gl64.cuh"
@@ -75,12 +68,11 @@ namespace {
 // One tile of the transform: the (o, s) pair, the slab of AX_TC columns
 // starting at cb * AX_TC and the outputs k0 <= k < k1, on AX_TC * AX_TY
 // threads (tid = ty * AX_TC + tx) and (L * L + L * AX_TC) u64 of shared
-// memory at smem, or with GM (the matrix read from device memory) L *
-// AX_TC u64. A tile of part of the outputs reads all L inputs, so it runs
+// memory at smem. A tile of part of the outputs reads all L inputs, so it runs
 // in place only when it takes all of them (k0 = 0, k1 = L). It opens with
 // a barrier, so a block may run one tile after another on the same buffer
 // (the persistent K9 kernel does).
-template <int MODE, bool GM = false>
+template <int MODE>
 __device__ __forceinline__ void axis_dft_tile(const AxisArgs& g, int o, int s,
                                               int cb, int k0, int k1,
                                               u64* smem, int tid) {
@@ -92,11 +84,9 @@ __device__ __forceinline__ void axis_dft_tile(const AxisArgs& g, int o, int s,
     if (MODE == AX_K1 || MODE == AX_K3A || MODE == AX_K4F) var = s;
     if (MODE == AX_K2C) var = o;
     const u64* M = g.mats + (size_t)var * L * L;
-    u64* xs = GM ? smem : smem + L * L;     // L * AX_TC
-    const u64* Ms = GM ? M : smem;          // L * L
+    u64* xs = smem + L * L;     // L * AX_TC
     __syncthreads();
-    if (!GM)
-        for (int i = tid; i < L * L; i += AX_TC * AX_TY) smem[i] = M[i];
+    for (int i = tid; i < L * L; i += AX_TC * AX_TY) smem[i] = M[i];
 
     for (int j = ty; j < L; j += AX_TY) {
         const size_t idx = ((size_t)(o * L + j) * S + s) * C + c;
@@ -139,10 +129,10 @@ __device__ __forceinline__ void axis_dft_tile(const AxisArgs& g, int o, int s,
     __syncthreads();
 
     for (int k = k0 + ty; k < k1; k += AX_TY) {
-        const u64* Mk = Ms + k * L;
+        const u64* Mk = smem + k * L;
         GlAcc sum = gl_acc_zero();
         for (int j = 0; j < L; ++j)
-            gl_acc_madd(sum, GM ? __ldg(Mk + j) : Mk[j], xs[j * AX_TC + tx]);
+            gl_acc_madd(sum, Mk[j], xs[j * AX_TC + tx]);
         u64 acc = gl_acc_reduce(sum);
         const size_t idx = ((size_t)(o * L + k) * S + s) * C + c;
         if (MODE == AX_K2A) acc = gl_mul(acc, g.tab[idx]);
@@ -155,42 +145,30 @@ __device__ __forceinline__ void axis_dft_tile(const AxisArgs& g, int o, int s,
     }
 }
 
-template <int MODE, bool GM>
+template <int MODE>
 __global__ void __launch_bounds__(AX_TC * AX_TY)
 axis_dft_kernel(AxisArgs g) {
     extern __shared__ u64 ax_smem[];
-    axis_dft_tile<MODE, GM>(g, blockIdx.z, blockIdx.y, blockIdx.x, 0, g.L,
-                            ax_smem, threadIdx.y * AX_TC + threadIdx.x);
-}
-
-template <int MODE, bool GM>
-static int axis_dft_launch_form(const AxisArgs& g, size_t smem,
-                                cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(
-        axis_dft_kernel<MODE, GM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(g.C / AX_TC, g.S, g.O);
-    dim3 block(AX_TC, AX_TY);
-    axis_dft_kernel<MODE, GM><<<grid, block, smem, stream>>>(g);
-    return (int)cudaGetLastError();
+    axis_dft_tile<MODE>(g, blockIdx.z, blockIdx.y, blockIdx.x, 0, g.L,
+                        ax_smem, threadIdx.y * AX_TC + threadIdx.x);
 }
 
 }  // namespace
 
-// Launch over the whole (O, L, S, C) array: the matrix in shared memory
-// where it fits beside the slab, else (the r2 modes at L = 160, 320) the
-// global-matrix form; returns cudaGetLastError(), or -1 for a length no
-// form takes.
+// Launch over the whole (O, L, S, C) array, the matrix and the slab in
+// shared memory; returns cudaGetLastError(), or -1 for a length whose
+// tile exceeds a block's shared memory.
 template <int MODE>
 static int axis_dft_launch(const AxisArgs& g, cudaStream_t stream) {
-    const size_t slab = (size_t)g.L * AX_TC * sizeof(u64);
-    const size_t whole = slab + (size_t)g.L * g.L * sizeof(u64);
-    if (whole <= AX_SMEM_MAX)
-        return axis_dft_launch_form<MODE, false>(g, whole, stream);
-    if constexpr (MODE == AX_K2A || MODE == AX_K2C) {
-        if (slab <= AX_SMEM_MAX)
-            return axis_dft_launch_form<MODE, true>(g, slab, stream);
-    }
-    return -1;
+    const size_t smem = ((size_t)g.L * AX_TC + (size_t)g.L * g.L) *
+                        sizeof(u64);
+    if (smem > AX_SMEM_MAX) return -1;
+    cudaError_t err = cudaFuncSetAttribute(
+        axis_dft_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(g.C / AX_TC, g.S, g.O);
+    dim3 block(AX_TC, AX_TY);
+    axis_dft_kernel<MODE><<<grid, block, smem, stream>>>(g);
+    return (int)cudaGetLastError();
 }

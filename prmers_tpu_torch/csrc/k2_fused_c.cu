@@ -22,15 +22,18 @@
 // matrices, same DIF order), so a multiplicand agrees mod P with the JAX
 // one and a checkpoint carries it across. All three run in place on out.
 //
-// At the radix-5 plans (n = 5 * 2^k, L2 = 5 * 2^b up to 320) K2a and K2c
-// take the natural-order r2 DFT matrices (mxu_dft.py:60-67), and from L2 =
-// 160 on, where the matrix no longer fits a block's shared memory beside
-// the slab, axis_dft.cuh's global-matrix form; K2b does not change.
+// At the radix-5 plans (n = 5 * 2^k, L2 = 5 * 2^b up to 320), where the
+// JAX multiplies by natural-order r2 DFT matrices (mxu_dft.py:60-67), K2a
+// and K2c are r2_split.cuh's 5 x 2^b split with a slab of `slab` columns,
+// which reads neither g2 nor tri (the wrapper passes null for both
+// there); K2b does not change.
 //
 // What bounds it on the H100: 2*L2 + 2*(ca + 128) + 3 mod-P products per
-// digit (419 at L2 = 64, ca = 16; 915 at L2 = 320, ca = 8), so the integer
-// pipe; the slot matrices (2 x 2 MB at ca = 16) stream from L2 once per
-// block of rows. The design keeps each row's two working copies in shared
+// digit at a power-of-two L2 (419 at L2 = 64, ca = 16), so the integer
+// pipe; at L2 = 320 the split r2 passes take ~6 products per digit each,
+// so the row kernel's 2*(ca + 128) (272 at ca = 8) is most of it. The slot
+// matrices (2 x 2 MB at ca = 16) stream from L2 once per block of rows.
+// The design keeps each row's two working copies in shared
 // memory, reuses every matrix word for all the block's rows, and reduces
 // each dot product once (192-bit accumulator); the direct products are the
 // simple form that a tensor-core or butterfly formulation would replace.
@@ -39,6 +42,7 @@
 
 #include "axis_dft.cuh"
 #include "fused_c_row.cuh"
+#include "r2_split.cuh"
 
 enum { K2_SQR = 0, K2_MUL = 1, K2_FWD = 2 };
 
@@ -47,8 +51,13 @@ extern "C" int prmers_k2_fused_c(const u64* x, u64* out, const u64* u,
                                  const u64* lane_f, const u64* lane_i,
                                  const u64* Mf, const u64* Mi,
                                  const u64* mi, const u64* tri,
-                                 int R1, int L2, int C, void* stream) {
+                                 const u64* d5f, const u64* d5i,
+                                 const u64* twf, const u64* twi,
+                                 const int* ex, const u64* trs,
+                                 int R1, int L2, int C, int slab,
+                                 void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
+    const bool r5 = L2 % 5 == 0;
     AxisArgs g = {};
     g.x = x;
     g.out = out;
@@ -58,7 +67,9 @@ extern "C" int prmers_k2_fused_c(const u64* x, u64* out, const u64* u,
     g.L = L2;
     g.S = 1;
     g.C = C;
-    int err = axis_dft_launch<AX_K2A>(g, st);
+    R5Args r = {x, out, mf, d5f, twf, ex, trs, R1, L2, C};
+    int err = r5 ? r2_split_launch<AX_K2A>(r, slab, st)
+                 : axis_dft_launch<AX_K2A>(g, st);
     if (err) return err;
 
     const int op = mode == K2_SQR ? ROW_SQR : mode == K2_MUL ? ROW_MUL
@@ -67,6 +78,10 @@ extern "C" int prmers_k2_fused_c(const u64* x, u64* out, const u64* u,
                        Mf, Mi, R1 * L2, C, st);
     if (err || mode == K2_FWD) return err;
 
+    if (r5) {
+        r = R5Args{out, out, mi, d5i, twi, ex, trs, R1, L2, C};
+        return r2_split_launch<AX_K2C>(r, slab, st);
+    }
     g.x = out;
     g.mats = tri;
     g.tab = mi;

@@ -12,26 +12,36 @@
 // These are exactly the first and last launches of K2 (axis_dft.cuh modes
 // AX_K2A and AX_K2C), launched alone over the (R1, L2, C) register. The
 // Pallas pass tiles the lane axis to bound VMEM; here a block already
-// takes a slab of 32 columns. At a radix-5 L2 = 5 * 2^b the matrices are
-// natural-order Vandermonde DFTs (ops/fourstep.dft_matrix), as the JAX's.
+// takes a slab of columns. At a radix-5 L2 = 5 * 2^b (n = 5 * 2^23 and
+// up: L2 = 320) the JAX multiplies by natural-order Vandermonde matrices;
+// here the pass is r2_split.cuh's 5 x 2^b split (the 5-point DFT, the
+// twiddles, b levels of shift butterflies), which reads neither g2 nor
+// tri, with a slab of `slab` columns.
 //
-// What bounds it on the H100: L2 mod-P products per digit (64 at 2^25,
-// 128 at 2^26, 320 at 5 * 2^23 and up) on the integer pipe; 16 B of device
-// traffic per digit. At L2 = 128 the L2 x L2 matrix (128 KiB) and the
-// 128 x 32 slab take 160 KiB of shared memory, one block of 8 warps per
-// SM; each block reads the matrix once from L2 for 32 columns. At L2 = 320
-// the matrix (800 KB) cannot be staged, so the launch takes axis_dft.cuh's
-// global-matrix form: the slab alone in shared memory (80 KB), the matrix
-// words read as warp-wide broadcasts through the read-only path from L2.
+// What bounds it on the H100: at a power-of-two L2, L2 mod-P products per
+// digit (64 at 2^25, 128 at 2^26) on the integer pipe; 16 B of device
+// traffic per digit. At L2 = 128 the L2 x L2 matrix (128 KiB) and the 128
+// x 32 slab take 160 KiB of shared memory, one block of 8 warps per SM;
+// each block reads the matrix once from L2 for 32 columns. The split form
+// does ~5-6 products per digit and moves 24 bytes (x, out, mf or mi), so
+// the bytes bound it.
 
 #include <cuda_runtime.h>
 
 #include "axis_dft.cuh"
+#include "r2_split.cuh"
 
 extern "C" int prmers_k5_axis1(const u64* x, u64* out, const u64* mats,
-                               const u64* tab, int inverse, int R1, int L2,
-                               int C, void* stream) {
+                               const u64* tab, const u64* d5, const u64* tw,
+                               const int* ex, const u64* trs, int inverse,
+                               int R1, int L2, int C, int slab,
+                               void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
+    if (L2 % 5 == 0) {
+        const R5Args r = {x, out, tab, d5, tw, ex, trs, R1, L2, C};
+        return inverse ? r2_split_launch<AX_K2C>(r, slab, st)
+                       : r2_split_launch<AX_K2A>(r, slab, st);
+    }
     if (C % AX_TC) return -1;
     AxisArgs g = {};
     g.x = x;

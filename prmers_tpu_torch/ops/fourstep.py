@@ -26,6 +26,10 @@ Tables built here, all canonical u64 numpy arrays unless noted:
   Mf, Mi  (ca, 128, 128)   per-slot right-side matrices: omega_C twiddles
                         and the weights' lane part
   tri     (R1, L2, L2)  tr_inv: inverse r2 DFT with row scale t_r_inv
+  dft5_f, dft5_i, tw_f, tw_i, sh_exp, t_r_inv
+                        the 5 x 2^b split of a radix-5 r2 DFT, which the
+                        CUDA r2 passes run there in place of g2 and tri
+                        (r2_split_tables; None at a power-of-two L2)
   k3_mats (R2, L1, L1)  iw_inv: inverse DFT_L1 with row scale iwr / n
   er (R1, R2), ec (C,)  u32 wrap residues: halve/double where er+ec >= n
   wt, cum (R1, R2, T, k)  u32 per-carry-unit spread widths / bit offsets
@@ -405,6 +409,43 @@ def dft_matrix(L: int, inverse: bool) -> np.ndarray:
     return pw[e]
 
 
+def r2_split_tables(L2: int, t_r_inv: np.ndarray) -> dict | None:
+    """The tables of the 5 x 2^b split of the radix-5 r2 DFT
+    (csrc/r2_split.cuh), L2 = 5 * M with M = 2^b | 64, w = root_554(L2);
+    None at a power-of-two L2:
+
+      dft5_f, dft5_i (5, 5)  W5^(+-k j), W5 = w^M = root_554(5)
+      tw_f, tw_i     (L2,)   the twiddles w^(+-k1 j2) at k1 * M + j2
+      sh_exp         (M-1,)  i32: the M-point DIF's shift exponents
+                             (shift_exponents(M)), the level of
+                             half-size m at offset M - 2m
+      t_r_inv        (R1, L2)  the inverse pass's row scales
+
+    With j = j1 * M + j2 and k = k1 + 5 * k2, w^(k j) = W5^(k1 j1) *
+    w^(k1 j2) * (w^5)^(k2 j2), and w^5 = root_554(M) = 2^(192 / M)."""
+    if L2 % 5:
+        return None
+    M = L2 // 5
+    assert M & (M - 1) == 0 and 64 % M == 0, L2
+    pw = pow_table(root_554(L2), L2)
+    k = np.arange(5, dtype=np.int64)
+    j2 = np.arange(M, dtype=np.int64)
+    e5 = (k[:, None] * k[None, :] * M) % L2
+    etw = (k[:, None] * j2[None, :]).reshape(L2) % L2
+    sh = [e for _m, exps in shift_exponents(M) for e in exps]
+    return dict(dft5_f=pw[e5], dft5_i=pw[(-e5) % L2], tw_f=pw[etw],
+                tw_i=pw[(-etw) % L2], sh_exp=np.array(sh, dtype=np.int32),
+                t_r_inv=np.ascontiguousarray(t_r_inv))
+
+
+def r2_split_products(L2: int) -> float:
+    """General mod-P products per digit of the split's DFT (no prologue or
+    epilogue) at L2 = 5 * M: 16 per 5-point DFT of 5 digits and 4 twiddles
+    per j2 > 0; the butterflies' shifted reductions are not products."""
+    M = L2 // 5
+    return (16 * M + 4 * (M - 1)) / L2
+
+
 # ---------------------------------------------------------------------------
 # Tables
 # ---------------------------------------------------------------------------
@@ -467,6 +508,12 @@ class KernelTables:
     bcum: np.ndarray
     bk: int
     k8_rounds: int
+    dft5_f: np.ndarray | None = None
+    dft5_i: np.ndarray | None = None
+    tw_f: np.ndarray | None = None
+    tw_i: np.ndarray | None = None
+    sh_exp: np.ndarray | None = None
+    t_r_inv: np.ndarray | None = None
 
 
 def _fold_rows(M: np.ndarray, row_scale: np.ndarray,
@@ -558,7 +605,8 @@ def build_tables(fp: FourStepPlan) -> KernelTables:
         wt=wt, cum=cum,
         widths=fp.widths.reshape(R1, R2, C).astype(np.uint32),
         k=k, ct=carry_ct(fp), rounds=carry_rounds(fp), bwt=bwt, bcum=bcum,
-        bk=bk, k8_rounds=k8_rounds(fp))
+        bk=bk, k8_rounds=k8_rounds(fp),
+        **(r2_split_tables(R2, base.t_r_inv) or {}))
 
 
 # ---------------------------------------------------------------------------

@@ -67,11 +67,13 @@ reference.
 The radix-5 plans (n = 5 * 2^k, R2 = L2 = 5 * 2^b up to 320) go through
 the same wrappers: no wrapper, plain version or kernel other than the r2
 DFT needs a power-of-two R2. K1, K3's first launch and K4 take R2 as the
-grid's r2 extent, K3b, K7 and the row kernel count rows or units of it,
-and the r2 DFT (K2a/K2c, K5) reads its natural-order matrices from the
-tables (ops/fourstep.dft_matrix); at L2 = 160 and 320 the CUDA launch
-takes csrc/axis_dft.cuh's global-matrix form. K9 never runs there
-(fourstep.chain_ok asks for a power-of-two L2, as the JAX does).
+grid's r2 extent, K3b, K7 and the row kernel count rows or units of it.
+The plain r2 DFT multiplies by the natural-order matrices g2 and tri
+(ops/fourstep.dft_matrix), the JAX's; the CUDA r2 launches (K2a/K2c, K5)
+run csrc/r2_split.cuh's 5 x 2^b split on the split tables instead
+(fourstep.r2_split_tables; r2_split_plain below is its torch model, for
+the tests). K9 never runs there (fourstep.chain_ok asks for a
+power-of-two L2, as the JAX does).
 
 On the mesh (parallel/sharded_kernels.py) every wrapper runs on a rank's
 shard view of the tables (DevTables.from_host with R2_VIEW: K1, K3, K4 on
@@ -138,8 +140,15 @@ def reset_calls() -> None:
 
 
 _U64_TABLES = ("k1_mats", "g2", "mf", "mi", "lane_f", "lane_i", "Mf", "Mi",
-               "tri", "k3_mats")
-_I32_TABLES = ("er", "ec", "wt", "cum", "widths", "bwt", "bcum")
+               "tri", "k3_mats", "dft5_f", "dft5_i", "tw_f", "tw_i",
+               "t_r_inv")
+_I32_TABLES = ("er", "ec", "wt", "cum", "widths", "bwt", "bcum", "sh_exp")
+# The split form's slab width: columns per block of csrc/r2_split.cuh
+# (16, 32 or 64). 16 measured fastest on the H100 (`tools.profile_passes
+# --r5`, PERF.md): its 40 KB slab at L2 = 320 lets five blocks share an
+# SM (two at 32, one at 64), and a half-warp's row is still a whole
+# 128-byte line.
+R5_SLAB = 16
 
 # The shard views of the mesh (sharded_pallas.py:92-136): each table a view
 # keeps, with the axis cut to the rank's part (None: kept whole). Tables a
@@ -181,6 +190,12 @@ class DevTables:
     bcum: torch.Tensor | None
     bk: int
     k8_rounds: int
+    dft5_f: torch.Tensor | None = None
+    dft5_i: torch.Tensor | None = None
+    tw_f: torch.Tensor | None = None
+    tw_i: torch.Tensor | None = None
+    sh_exp: torch.Tensor | None = None
+    t_r_inv: torch.Tensor | None = None
     unfolded: "UnfoldedView | None" = None
 
     @classmethod
@@ -191,6 +206,9 @@ class DevTables:
         tabs = {}
         for name in _U64_TABLES + _I32_TABLES:
             a = getattr(kt, name)
+            if a is None:
+                tabs[name] = None
+                continue
             if view is not None:
                 if name not in view:
                     tabs[name] = None
@@ -361,9 +379,23 @@ def axis1_plain(t: DevTables, x: torch.Tensor, which: str) -> torch.Tensor:
     raise ValueError(which)
 
 
+def _split_ptrs(t: DevTables, inverse: bool):
+    """The split tables of one direction for csrc/r2_split.cuh: (dft5,
+    twiddles, shift exponents, t_r_inv), or four nulls at a power-of-two
+    L2."""
+    if t.dft5_f is None:
+        return (None,) * 4
+    return ((t.dft5_i if inverse else t.dft5_f).data_ptr(),
+            (t.tw_i if inverse else t.tw_f).data_ptr(), _ptr(t.sh_exp),
+            t.t_r_inv.data_ptr())
+
+
 def axis1_pass(t: DevTables, x: torch.Tensor, which: str,
-               out: torch.Tensor | None = None) -> torch.Tensor:
-    """K5: P2 or P6 over the whole register (kernels.py:1574-1594)."""
+               out: torch.Tensor | None = None,
+               slab: int = R5_SLAB) -> torch.Tensor:
+    """K5: P2 or P6 over the whole register (kernels.py:1574-1594); at a
+    radix-5 L2 the split form with `slab` columns per block (the matrices
+    g2 and tri are not passed)."""
     if which not in ("p2", "p6"):
         raise ValueError(which)
     _check(t, (x, out))
@@ -374,14 +406,72 @@ def axis1_pass(t: DevTables, x: torch.Tensor, which: str,
     if out is None:
         out = torch.empty_like(x)
     inverse = which == "p6"
+    split = _split_ptrs(t, inverse)
     err = build.lib().prmers_k5_axis1(
         x.data_ptr(), out.data_ptr(),
-        (t.tri if inverse else t.g2).data_ptr(),
-        (t.mi if inverse else t.mf).data_ptr(), int(inverse), R1, R2, C,
-        _stream())
+        None if split[0] else (t.tri if inverse else t.g2).data_ptr(),
+        (t.mi if inverse else t.mf).data_ptr(), *split, int(inverse), R1,
+        R2, C, slab, _stream())
     calls["k5_axis1"] += 1
     build.check(err, "k5_axis1")
     return out
+
+
+def r2_split_plain(t: DevTables, x: torch.Tensor,
+                   inverse: bool) -> torch.Tensor:
+    """A torch model of csrc/r2_split.cuh's schedule at L2 = 5 * M, for the
+    tests (the wrappers' plain version stays axis1_plain, the dense
+    product, which this equals mod P): "p6" (inverse: x mi first) or "p2";
+    the 5-point DFT down stride M by dft5 (row and column 0 ones), the
+    twiddles, the b levels of shift butterflies on the five M-point
+    sub-columns (DIF, exponents sh_exp; the inverse multiplies b - a by
+    2^(96 - e), and a - b at e = 0), the store of position (k1, p) to row
+    k1 + 5 bitrev(p), then x mf (forward) or x t_r_inv (inverse)."""
+    R1, L2, C = x.shape
+    M = L2 // 5
+    if inverse:
+        x = gl.mulmod(x, t.mi)
+    x0, x1 = gl.split(x.reshape(R1, 5, M, C))
+    xs = [(x0[:, j], x1[:, j]) for j in range(5)]
+    d5 = gl.split(t.dft5_i if inverse else t.dft5_f)
+    tw = gl.split((t.tw_i if inverse else t.tw_f).reshape(5, 1, M, 1))
+    ys = [xs[0]]
+    for j in range(1, 5):
+        ys[0] = gl.add(*ys[0], *xs[j])
+    for k in range(1, 5):
+        acc = xs[0]
+        for j in range(1, 5):
+            acc = gl.add(*acc, *gl.mul(*xs[j], d5[0][k, j], d5[1][k, j]))
+        ys.append(gl.mul(*acc, tw[0][k], tw[1][k]))
+    y0 = torch.stack([y[0] for y in ys], dim=1)      # (R1, 5, M, C)
+    y1 = torch.stack([y[1] for y in ys], dim=1)
+    exps = t.sh_exp.tolist()
+    m = M // 2
+    while m >= 1:
+        sh = (R1, 5, M // (2 * m), 2, m, C)
+        v0, v1 = y0.reshape(sh), y1.reshape(sh)
+        a = (v0[:, :, :, 0], v1[:, :, :, 0])
+        b = (v0[:, :, :, 1], v1[:, :, :, 1])
+        s0, s1 = gl.add(*a, *b)
+        d = gl.sub(*b, *a) if inverse else gl.sub(*a, *b)
+        es = exps[M - 2 * m:M - m]
+        w = [(pow(2, 96 - e, gl.P) if e else gl.P - 1) if inverse
+             else pow(2, e, gl.P) for e in es]
+        w0, w1 = (torch.tensor([f(v) for v in w], dtype=torch.int64,
+                               device=x.device).reshape(1, 1, 1, m, 1)
+                  for f in (lambda v: v & gl.M32, lambda v: v >> 32))
+        d0, d1 = gl.mul(*d, w0, w1)
+        y0 = torch.stack([s0, d0], dim=3).reshape(R1, 5, M, C)
+        y1 = torch.stack([s1, d1], dim=3).reshape(R1, 5, M, C)
+        m //= 2
+    z = gl.join(y0, y1).reshape(R1, L2, C)
+    rows = (torch.arange(5).reshape(5, 1) + 5 * torch.from_numpy(
+        tfs.dif_freq_of_pos(M)).reshape(1, M)).reshape(L2).to(x.device)
+    out = torch.empty_like(z)
+    out[:, rows] = z
+    if inverse:
+        return gl.mulmod(out, t.t_r_inv.reshape(R1, L2, 1))
+    return gl.mulmod(out, t.mf)
 
 
 # ---------------------------------------------------------------------------
@@ -447,11 +537,15 @@ def fused_c_pass(t: DevTables, x: torch.Tensor, mode: str,
     lib = build.lib()
     if r2fold:
         name = "k2_fused_c"
+        fwd, inv = _split_ptrs(t, False), _split_ptrs(t, True)
+        dense = fwd[0] is None
         err = lib.prmers_k2_fused_c(
             x.data_ptr(), out.data_ptr(), _ptr(u), MODES[mode],
-            t.g2.data_ptr(), t.mf.data_ptr(), t.lane_f.data_ptr(),
-            t.lane_i.data_ptr(), t.Mf.data_ptr(), t.Mi.data_ptr(),
-            t.mi.data_ptr(), t.tri.data_ptr(), R1, R2, C, _stream())
+            t.g2.data_ptr() if dense else None, t.mf.data_ptr(),
+            t.lane_f.data_ptr(), t.lane_i.data_ptr(), t.Mf.data_ptr(),
+            t.Mi.data_ptr(), t.mi.data_ptr(),
+            t.tri.data_ptr() if dense else None, fwd[0], inv[0], fwd[1],
+            inv[1], fwd[2], fwd[3], R1, R2, C, R5_SLAB, _stream())
     else:
         name = "k6_fused_c"
         err = lib.prmers_k6_fused_c(

@@ -22,6 +22,14 @@ version on the same inputs, exact mod P. The line gives the card's name
 and power limit first. The unfolded tables are built for the run alone
 (kernels.with_unfolded), so an engine's cached tables do not grow.
 
+`python -m prmers_tpu_torch.tools.profile_passes --r5 [p] [reps]`
+(default p = 700000001, n = 5 * 2^23, (64, 320, 2048)) times K5's two r2
+passes (P2, P6) at a radix-5 plan in the split form (csrc/r2_split.cuh)
+with each slab width it takes, 16, 32 and 64 columns per block (in
+turns, back-to-back launches), each beside its bound (24 bytes per digit
+against the split's products) and held against the dense plain version:
+the measurement behind kernels.R5_SLAB.
+
 The reference tool is stale (it calls kn._to_ay, _middle and _to_ax,
 which are gone); this twin times what the reference still has.
 """
@@ -33,10 +41,13 @@ import math
 import sys
 
 from . import (OPS_PER_PRODUCT, Timed, bound, check, device_ms, nbytes,
-               require_card)
+               require_card, stream_ms)
 from ..bench import card
+from ..ops import fourstep as tfs
 
 P_DEFAULT = 136279841
+P_R5 = 700000001                # n = 5 * 2^23, (64, 320, 2048)
+R5_SLABS = (16, 32, 64)
 CIN = 0x9E3779B97F4A7C15        # the scalar carry K4u forward injects
 
 
@@ -63,7 +74,6 @@ def measure(p: int = P_DEFAULT, reps: int = 10):
 
     from ..core.plan import cached_plan
     from ..engine.fourstep_engine import get_tables
-    from ..ops import fourstep as tfs
     from ..ops import gl64 as gl
     from ..ops import kernels as tk
     dev = require_card()
@@ -141,14 +151,67 @@ def measure(p: int = P_DEFAULT, reps: int = 10):
     return t, out
 
 
+def split_bound(t, which: str):
+    """K5 in the split form: the split's products per digit and the
+    epilogue's product (and the prologue's in P6), against the register in
+    and out and mf or mi once (24 bytes per digit) and the small tables."""
+    R1, L2, C = t.shape
+    n = R1 * L2 * C
+    inv = which == "p6"
+    per = tfs.r2_split_products(L2) + (2 if inv else 1)
+    moved = 24 * n + nbytes(t.dft5_f, t.tw_f, t.sh_exp)
+    if inv:
+        moved += nbytes(t.t_r_inv)
+    return bound(per * n * OPS_PER_PRODUCT, moved)
+
+
+def measure_r5(p: int = P_R5, reps: int = 10):
+    """K5's P2 and P6 at a radix-5 plan, in the split form with each slab
+    width; returns (the tables, the list of Timed). The widths run in
+    turns (16, 32, 64, 64, 32, 16), each turn `reps` launches back to
+    back, as the engine's squarings queue them (a ~1 ms launch dwarfs the
+    host's enqueue), and each row is the mean of its two turns."""
+    import numpy as np
+
+    from ..core.plan import cached_plan
+    from ..engine.fourstep_engine import get_tables
+    from ..ops import gl64 as gl
+    from ..ops import kernels as tk
+    dev = require_card()
+    t = get_tables(cached_plan(p), dev)
+    if t.dft5_f is None:
+        raise ValueError(f"p = {p} plans no radix-5 r2 factor")
+    z = gl.from_numpy_u64(np.random.default_rng(p).integers(
+        0, gl.P, size=t.shape, dtype=np.uint64), dev)
+    outs = {}
+    runs = {}
+    for slab in R5_SLABS + R5_SLABS[::-1]:
+        for which in ("p2", "p6"):
+            def fn(slab=slab, which=which):
+                outs[slab, which] = tk.axis1_pass(t, z, which, slab=slab)
+            runs.setdefault((slab, which), []).append(stream_ms(fn, reps))
+    out = []
+    for (slab, which), ms in runs.items():
+        out.append(Timed("k5_axis1", f"{which} split slab={slab}",
+                         sum(ms) / len(ms), *split_bound(t, which),
+                         outs[slab, which],
+                         lambda which=which: tk.axis1_plain(t, z, which),
+                         gl.canon64))
+    return t, out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    p = int(argv[0]) if argv else P_DEFAULT
+    r5 = argv[:1] == ["--r5"]
+    if r5:
+        argv = argv[1:]
+    p = int(argv[0]) if argv else (P_R5 if r5 else P_DEFAULT)
     reps = int(argv[1]) if len(argv) > 1 else 10
-    t, entries = measure(p, reps)
+    t, entries = (measure_r5 if r5 else measure)(p, reps)
     check(entries)
     R1, R2, C = t.shape
-    print(json.dumps({"tool": "profile_passes", "card": card(), "p": p,
+    print(json.dumps({"tool": "profile_passes" + (" --r5" if r5 else ""),
+                      "card": card(), "p": p,
                       "n": R1 * R2 * C, "shape": [R1, R2, C], "reps": reps,
                       "passes": [e.row() for e in entries]}))
     return 0

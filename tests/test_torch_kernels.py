@@ -241,10 +241,10 @@ GPU_CASES.update({
                                           carry_max=1 << 17, fc_split=True)),
     "18-k6": (1 << 18, tfs.Pipeline(r2fold_max=2048)),
 })
-# the radix-5 plans: L2 = 5 (5 * 2^16), 80 (the shared-memory axis form at
-# its largest), 160 and 320 (the global-matrix form; K5 at 5 * 2^23)
+# the radix-5 plans, every L2 = 5 * 2^b the port plans: 5 (5 * 2^16), 10,
+# 20, 40, 80, 160 and 320 (K5 at 5 * 2^23), all in the split form
 GPU_CASES.update({f"5x2^{logn}": (5 << logn, tfs.Pipeline())
-                  for logn in (16, 20, 21, 22, 23)})
+                  for logn in (16, 17, 18, 19, 20, 21, 22, 23)})
 
 
 @pytest.mark.gpu
@@ -254,11 +254,12 @@ def test_cuda_kernels_match_plain(case):
     n = 2^logn the engine takes, 2^15 ... 2^26 (R2 = 1 ... 128, C = 1024
     ... 8192, so every rows-per-block branch of the row kernel and every
     carry unit of K3b), at the forced big-shape pipelines (T = 4 and T = 2
-    carry units at small n), and at the radix-5 n = 5 * 2^16, 2^20, 2^21,
-    2^22 and 2^23 (L2 = 5 ... 320). K3 takes the C-transform's lazy output,
-    as on the main path; K6b takes K6 "fwd"'s. K4 runs forward with and
-    without block carries and inverse on that lazy output; K7 takes K4
-    inverse's output with a = 1 and a = 3. Where fourstep.chain_ok holds
+    carry units at small n), and at the radix-5 n = 5 * 2^16 ... 5 * 2^23
+    (L2 = 5, 10, 20, 40, 80, 160, 320, and 320 at C = 2048; K2's r2
+    launches and K5 in the split form). K3 takes the C-transform's lazy
+    output, as on the main path; K6b takes K6 "fwd"'s. K4 runs forward
+    with and without block carries and inverse on that lazy output; K7
+    takes K4 inverse's output with a = 1 and a = 3. Where fourstep.chain_ok holds
     (n = 2^15 ... 2^19), K9 runs a = [3, 1, 3] and then a chain of 2 on its
     carries, bit for bit against its plain version."""
     if not torch.cuda.is_available():
