@@ -135,6 +135,7 @@ true, "device": {...}}.
 """
 
 import json
+import math
 import os
 import random
 import shutil
@@ -1032,16 +1033,22 @@ def main(argv) -> int:
                 bound(0, 20 * n + 8 * t.block_carry_shape[0]))
 
     # radix 5, the r2 DFT in the split form (fourstep.r2_split_products
-    # per pass, ~4 at L2 = 320): K2 at 5 * 2^22, its two r2 passes with
-    # x mf, x mi and x t_r_inv, the C-transform and the square (~284
-    # products per digit); K5 with L2 = 320 at 5 * 2^23, the mean of P2
-    # (x mf) and P6 (x mi, x t_r_inv), the register and mf or mi once
+    # per pass, ~4 at L2 = 320). K2 at 5 * 2^22 priced at the fewest
+    # products its function needs: the two split r2 passes, x mf, x mi and
+    # x t_r_inv, the square, and the C-transform both ways as a factored
+    # weighted length-C DFT (log2(C) / 2 twiddles per digit and the
+    # weight, where the kernel does 2 * (ca + 128) dense slot products):
+    # ~24 per digit, so the bytes bound it. K5 with L2 = 320 at 5 * 2^23,
+    # the mean of P2 (x mf) and P6 (x mi, x t_r_inv), the register and mf
+    # or mi once
     t = r5_in[0]
     L1, L2, ca, n, _ = shape_of(t)
+    C = 128 * ca
     split = (t.dft5_f, t.dft5_i, t.tw_f, t.tw_i, t.sh_exp, t.t_r_inv)
     bounds["k2_fused_c[r5]"] = bound(
-        (2 * tfs.r2_split_products(L2) + 2 * ca + 2 * 128 + 4) * n,
-        16 * n + nbytes(t.mf, t.lane_f, t.lane_i, t.Mf, t.Mi, t.mi, *split))
+        (2 * tfs.r2_split_products(L2) + 2 * (math.log2(C) / 2 + 1) + 4)
+        * n, 16 * n + nbytes(t.mf, t.lane_f, t.lane_i, t.Mf, t.Mi, t.mi,
+                             *split))
     t = r5_big_in[0]
     L1, L2, ca, n, _ = shape_of(t)
     bounds["k5_axis1[r5]"] = bound(
@@ -1251,9 +1258,7 @@ def main(argv) -> int:
     for kern in pr.KERNELS:
         fold(kern, lambda e, kern=kern: e.kernel == kern, "sum")
 
-    # K5 at L2 = 320 is r2_split.cuh's kernel, launched from k5_axis1.cu
-    sources = {**tk.SOURCES, **pr.SOURCES,
-               "k5_axis1[r5]": "prmers_tpu_torch/csrc/r2_split.cuh"}
+    sources = {**tk.SOURCES, **pr.SOURCES}
     replaces = {**tk.REPLACES, **pr.REPLACES}
     kernels = [{"name": entry, "route": "cuda",
                 "source": sources.get(entry, sources[name]),

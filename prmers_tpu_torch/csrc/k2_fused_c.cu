@@ -24,9 +24,8 @@
 //
 // At the radix-5 plans (n = 5 * 2^k, L2 = 5 * 2^b up to 320), where the
 // JAX multiplies by natural-order r2 DFT matrices (mxu_dft.py:60-67), K2a
-// and K2c are r2_split.cuh's 5 x 2^b split with a slab of `slab` columns,
-// which reads neither g2 nor tri (the wrapper passes null for both
-// there); K2b does not change.
+// and K2c are r2_split.cuh's 5 x 2^b split, which reads neither g2 nor
+// tri (the wrapper passes null for both there); K2b does not change.
 //
 // What bounds it on the H100: 2*L2 + 2*(ca + 128) + 3 mod-P products per
 // digit at a power-of-two L2 (419 at L2 = 64, ca = 16), so the integer
@@ -54,7 +53,7 @@ extern "C" int prmers_k2_fused_c(const u64* x, u64* out, const u64* u,
                                  const u64* d5f, const u64* d5i,
                                  const u64* twf, const u64* twi,
                                  const int* ex, const u64* trs,
-                                 int R1, int L2, int C, int slab,
+                                 int R1, int L2, int C,
                                  void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const bool r5 = L2 % 5 == 0;
@@ -68,7 +67,7 @@ extern "C" int prmers_k2_fused_c(const u64* x, u64* out, const u64* u,
     g.S = 1;
     g.C = C;
     R5Args r = {x, out, mf, d5f, twf, ex, trs, R1, L2, C};
-    int err = r5 ? r2_split_launch<AX_K2A>(r, slab, st)
+    int err = r5 ? r2_split_launch<AX_K2A>(r, st)
                  : axis_dft_launch<AX_K2A>(g, st);
     if (err) return err;
 
@@ -80,7 +79,7 @@ extern "C" int prmers_k2_fused_c(const u64* x, u64* out, const u64* u,
 
     if (r5) {
         r = R5Args{out, out, mi, d5i, twi, ex, trs, R1, L2, C};
-        return r2_split_launch<AX_K2C>(r, slab, st);
+        return r2_split_launch<AX_K2C>(r, st);
     }
     g.x = out;
     g.mats = tri;

@@ -16,7 +16,9 @@
 // up: L2 = 320) the JAX multiplies by natural-order Vandermonde matrices;
 // here the pass is r2_split.cuh's 5 x 2^b split (the 5-point DFT, the
 // twiddles, b levels of shift butterflies), which reads neither g2 nor
-// tri, with a slab of `slab` columns.
+// tri. prmers_r2_split_part launches the split's cut-down bodies (no
+// butterflies; the loads and stores alone) for the pass profiler; they
+// compute no transform and no engine path takes them.
 //
 // What bounds it on the H100: at a power-of-two L2, L2 mod-P products per
 // digit (64 at 2^25, 128 at 2^26) on the integer pipe; 16 B of device
@@ -34,13 +36,13 @@
 extern "C" int prmers_k5_axis1(const u64* x, u64* out, const u64* mats,
                                const u64* tab, const u64* d5, const u64* tw,
                                const int* ex, const u64* trs, int inverse,
-                               int R1, int L2, int C, int slab,
+                               int R1, int L2, int C,
                                void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (L2 % 5 == 0) {
         const R5Args r = {x, out, tab, d5, tw, ex, trs, R1, L2, C};
-        return inverse ? r2_split_launch<AX_K2C>(r, slab, st)
-                       : r2_split_launch<AX_K2A>(r, slab, st);
+        return inverse ? r2_split_launch<AX_K2C>(r, st)
+                       : r2_split_launch<AX_K2A>(r, st);
     }
     if (C % AX_TC) return -1;
     AxisArgs g = {};
@@ -54,4 +56,20 @@ extern "C" int prmers_k5_axis1(const u64* x, u64* out, const u64* mats,
     g.C = C;
     return inverse ? axis_dft_launch<AX_K2C>(g, st)
                    : axis_dft_launch<AX_K2A>(g, st);
+}
+
+extern "C" int prmers_r2_split_part(const u64* x, u64* out, const u64* tab,
+                                    const u64* d5, const u64* tw,
+                                    const int* ex, const u64* trs,
+                                    int inverse, int part, int R1, int L2,
+                                    int C, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    const R5Args r = {x, out, tab, d5, tw, ex, trs, R1, L2, C};
+    if (part == R5_NO_LEVELS)
+        return inverse ? r2_split_launch<AX_K2C, R5_NO_LEVELS>(r, st)
+                       : r2_split_launch<AX_K2A, R5_NO_LEVELS>(r, st);
+    if (part == R5_MOVE)
+        return inverse ? r2_split_launch<AX_K2C, R5_MOVE>(r, st)
+                       : r2_split_launch<AX_K2A, R5_MOVE>(r, st);
+    return -1;
 }

@@ -36,29 +36,26 @@
 // gl64.cuh (tests/test_torch_r5split.py holds it to the dense product at
 // every L2). The kernel is CUDA only.
 //
-// The kernel: a block owns one r1 (o) and a slab of TC columns (TC x
-// 256/TC threads). It stages the 5 x 5 matrix, the L2 twiddles and the
+// The kernel: a block owns one r1 (o) and a slab of R5_TC = 16 columns
+// (16 x 16 threads). It stages the 5 x 5 matrix, the L2 twiddles and the
 // shift exponents in shared memory; each thread then reads five inputs of
 // one (j2, column) from device memory (x mi for K2C), runs steps 1 and 2
-// in registers and writes the five values to the L2 x TC slab in shared
-// memory (L2 * TC * 8 bytes: 40 KB at L2 = 320 with the wrappers' TC =
-// 16, ops/kernels.R5_SLAB, five blocks per SM); the b butterfly levels run
-// on the slab, a barrier after each, as csrc/k4u_pass.cu's shift form
-// does; the epilogue reads the slab in position order and writes rows of
-// TC consecutive words. Every input of a block is read before its first
-// store, so the kernel runs in place (out == x), as K2's three launches
-// need.
+// in registers and writes the five values to the L2 x 16 slab in shared
+// memory (40 KB at L2 = 320: five blocks per SM; a half-warp's row is one
+// 128-byte line; 16 measured 4-21% faster than 32 and 64 columns on the
+// H100, PERF.md); the b butterfly levels run on the slab, a barrier after
+// each, as csrc/k4u_pass.cu's shift form does; the epilogue reads the slab
+// in position order and writes rows of 16 consecutive words. Every input
+// of a block is read before its first store, so the kernel runs in place
+// (out == x), as K2's three launches need.
 //
 // What bounds it on the H100: the bytes, 24 per digit (x in, x out, mf or
 // mi); a few products per digit is far below the integer pipe's rate. It
-// reads about a third of that bound (PERF.md). By a count of its
-// instructions (not a measurement), the butterflies' 64-bit adds,
-// subtracts and shifted reductions, each a few 32-bit integer
-// instructions, with two shared-memory loads and stores per butterfly and
-// a barrier per level, take most of the SM's instruction slots, while a
-// block's own loads and stores wait before and after them; register
-// passes of several levels and staging the next slab while one computes
-// are the next steps.
+// reads about a third of that bound. Its time splits into moving the slab
+// and the arithmetic by two cut-down bodies (R5_NO_LEVELS: steps 1, 2 and
+// 4 without the butterflies; R5_MOVE: the same loads and stores with an
+// add in place of every product, no DFT), which only the pass profiler
+// launches (tools/profile_passes.py --r5; PERF.md has the split).
 #pragma once
 
 #include "gl64.cuh"
@@ -148,21 +145,27 @@ struct R5Args {
     int O, L, C;
 };
 
+// The kernel's body: the whole split, or a cut-down one for the pass
+// profiler (see above); only R5_FULL computes the transform.
+enum { R5_FULL = 0, R5_NO_LEVELS = 1, R5_MOVE = 2 };
+#define R5_TC 16                  // columns per block
+#define R5_TY (256 / R5_TC)       // rows of threads
+
 namespace {
 
-template <int MODE, int TC>
+template <int MODE, int PART>
 __global__ void __launch_bounds__(256) r2_split_kernel(R5Args g) {
-    constexpr int TY = 256 / TC;
     constexpr bool INV = MODE == AX_K2C;
+    constexpr bool MOVE = PART == R5_MOVE;
     extern __shared__ u64 r5_smem[];
     const int L = g.L, C = g.C, M = L / 5;
     const int b = 31 - __clz(M);
     const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * TC + tx;
+    const int tid = ty * R5_TC + tx;
     const int o = blockIdx.y;
-    const int c = blockIdx.x * TC + tx;
-    u64* xs = r5_smem;                    // L * TC
-    u64* d5 = xs + L * TC;                // 25
+    const int c = blockIdx.x * R5_TC + tx;
+    u64* xs = r5_smem;                    // L * R5_TC
+    u64* d5 = xs + L * R5_TC;             // 25
     u64* tw = d5 + 25;                    // L
     int* ex = (int*)(tw + L);             // M - 1
     for (int i = tid; i < 25; i += 256) d5[i] = g.d5[i];
@@ -172,67 +175,65 @@ __global__ void __launch_bounds__(256) r2_split_kernel(R5Args g) {
 
     // steps 1 and 2 in registers, one (j2, column) per thread and turn
     const size_t base = (size_t)o * L * C + c;
-    for (int j2 = ty; j2 < M; j2 += TY) {
+    for (int j2 = ty; j2 < M; j2 += R5_TY) {
         u64 v[5];
 #pragma unroll
         for (int j1 = 0; j1 < 5; ++j1) {
             const size_t idx = base + (size_t)(j1 * M + j2) * C;
-            v[j1] = INV ? gl_mul(g.x[idx], g.tab[idx]) : g.x[idx];
+            v[j1] = !INV ? g.x[idx]
+                    : MOVE ? gl_add(g.x[idx], g.tab[idx])
+                           : gl_mul(g.x[idx], g.tab[idx]);
         }
-        r5_dft5(v, 1, d5);
-        if (j2) r5_twiddle(v, 1, tw + j2, M);
+        if (!MOVE) {
+            r5_dft5(v, 1, d5);
+            if (j2) r5_twiddle(v, 1, tw + j2, M);
+        }
 #pragma unroll
-        for (int k1 = 0; k1 < 5; ++k1) xs[(k1 * M + j2) * TC + tx] = v[k1];
+        for (int k1 = 0; k1 < 5; ++k1)
+            xs[(k1 * M + j2) * R5_TC + tx] = v[k1];
     }
     __syncthreads();
 
     // step 3: the b butterfly levels on the slab
-    for (int lm = b - 1; lm >= 0; --lm) {
-        r5_level(xs + tx, TC, b, lm, ex + (M - (2 << lm)), INV, ty, TY);
-        __syncthreads();
+    if (PART == R5_FULL) {
+        for (int lm = b - 1; lm >= 0; --lm) {
+            r5_level(xs + tx, R5_TC, b, lm, ex + (M - (2 << lm)), INV, ty,
+                     R5_TY);
+            __syncthreads();
+        }
     }
 
     // step 4: natural-order rows, x mf or x t_r_inv
-    for (int r = ty; r < L; r += TY) {
+    for (int r = ty; r < L; r += R5_TY) {
         const int k = r5_row(r, b);
         const size_t idx = base + (size_t)k * C;
-        u64 v = xs[r * TC + tx];
-        v = INV ? gl_mul(v, g.trs[o * L + k]) : gl_mul(v, g.tab[idx]);
-        g.out[idx] = v;
+        const u64 v = xs[r * R5_TC + tx];
+        const u64 f = INV ? g.trs[o * L + k] : g.tab[idx];
+        g.out[idx] = MOVE ? gl_add(v, f) : gl_mul(v, f);
     }
-}
-
-template <int MODE, int TC>
-static int r2_split_launch_tc(const R5Args& g, cudaStream_t stream) {
-    if (g.C % TC) return -1;
-    const int M = g.L / 5;
-    const size_t smem = ((size_t)g.L * TC + 25 + g.L) * sizeof(u64) +
-                        (size_t)M * sizeof(int);
-    if (smem > AX_SMEM_MAX) return -1;
-    cudaError_t err = cudaFuncSetAttribute(
-        r2_split_kernel<MODE, TC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(g.C / TC, g.O);
-    dim3 block(TC, 256 / TC);
-    r2_split_kernel<MODE, TC><<<grid, block, smem, stream>>>(g);
-    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One split pass over the whole (R1, L2, C) register with a slab of tc
-// columns (16, 32 or 64); returns cudaGetLastError(), or -1 for a shape
-// the kernel does not take (L2 not 5 * 2^b with 2^b | 64, C not a multiple
-// of tc, another tc).
-template <int MODE>
-static int r2_split_launch(const R5Args& g, int tc, cudaStream_t stream) {
+// One split pass over the whole (R1, L2, C) register; returns
+// cudaGetLastError(), or -1 for a shape the kernel does not take (L2 not
+// 5 * 2^b with 2^b | 64, C not a multiple of R5_TC).
+template <int MODE, int PART = R5_FULL>
+static int r2_split_launch(const R5Args& g, cudaStream_t stream) {
     const int M = g.L / 5;
-    if (g.L % 5 || M < 1 || M > 64 || (M & (M - 1))) return -1;
-    if (tc == 16) return r2_split_launch_tc<MODE, 16>(g, stream);
-    if (tc == 32) return r2_split_launch_tc<MODE, 32>(g, stream);
-    if (tc == 64) return r2_split_launch_tc<MODE, 64>(g, stream);
-    return -1;
+    if (g.L % 5 || M < 1 || M > 64 || (M & (M - 1)) || g.C % R5_TC)
+        return -1;
+    const size_t smem = ((size_t)g.L * R5_TC + 25 + g.L) * sizeof(u64) +
+                        (size_t)M * sizeof(int);
+    if (smem > AX_SMEM_MAX) return -1;
+    cudaError_t err = cudaFuncSetAttribute(
+        r2_split_kernel<MODE, PART>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(g.C / R5_TC, g.O);
+    dim3 block(R5_TC, R5_TY);
+    r2_split_kernel<MODE, PART><<<grid, block, smem, stream>>>(g);
+    return (int)cudaGetLastError();
 }
 
 #endif  // __CUDACC__

@@ -109,6 +109,11 @@ SOURCES = {
     "k8_local": "prmers_tpu_torch/csrc/k7_block_carry.cu",
     "k4u_pass": "prmers_tpu_torch/csrc/k4u_pass.cu",
     "k5u_pass": "prmers_tpu_torch/csrc/k4u_pass.cu",
+    # at a radix-5 L2 the split's header: it runs all of K5's launches and
+    # K2's two r2 launches (K2's row launch stays fused_c_row.cuh's,
+    # through k2_fused_c.cu)
+    "k2_fused_c[r5]": "prmers_tpu_torch/csrc/r2_split.cuh",
+    "k5_axis1[r5]": "prmers_tpu_torch/csrc/r2_split.cuh",
 }
 REPLACES = {
     "k1_p1c": "prmers_tpu/ops/pallas/kernels.py:512",
@@ -143,12 +148,6 @@ _U64_TABLES = ("k1_mats", "g2", "mf", "mi", "lane_f", "lane_i", "Mf", "Mi",
                "tri", "k3_mats", "dft5_f", "dft5_i", "tw_f", "tw_i",
                "t_r_inv")
 _I32_TABLES = ("er", "ec", "wt", "cum", "widths", "bwt", "bcum", "sh_exp")
-# The split form's slab width: columns per block of csrc/r2_split.cuh
-# (16, 32 or 64). 16 measured fastest on the H100 (`tools.profile_passes
-# --r5`, PERF.md): its 40 KB slab at L2 = 320 lets five blocks share an
-# SM (two at 32, one at 64), and a half-warp's row is still a whole
-# 128-byte line.
-R5_SLAB = 16
 
 # The shard views of the mesh (sharded_pallas.py:92-136): each table a view
 # keeps, with the axis cut to the rank's part (None: kept whole). Tables a
@@ -391,11 +390,9 @@ def _split_ptrs(t: DevTables, inverse: bool):
 
 
 def axis1_pass(t: DevTables, x: torch.Tensor, which: str,
-               out: torch.Tensor | None = None,
-               slab: int = R5_SLAB) -> torch.Tensor:
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """K5: P2 or P6 over the whole register (kernels.py:1574-1594); at a
-    radix-5 L2 the split form with `slab` columns per block (the matrices
-    g2 and tri are not passed)."""
+    radix-5 L2 the split form (the matrices g2 and tri are not passed)."""
     if which not in ("p2", "p6"):
         raise ValueError(which)
     _check(t, (x, out))
@@ -411,9 +408,32 @@ def axis1_pass(t: DevTables, x: torch.Tensor, which: str,
         x.data_ptr(), out.data_ptr(),
         None if split[0] else (t.tri if inverse else t.g2).data_ptr(),
         (t.mi if inverse else t.mf).data_ptr(), *split, int(inverse), R1,
-        R2, C, slab, _stream())
+        R2, C, _stream())
     calls["k5_axis1"] += 1
     build.check(err, "k5_axis1")
+    return out
+
+
+R5_PARTS = {"no-levels": 1, "move": 2}
+
+
+def r2_split_part(t: DevTables, x: torch.Tensor, which: str,
+                  part: str) -> torch.Tensor:
+    """A cut-down body of K5's split form at a radix-5 L2, for the pass
+    profiler alone: "no-levels" runs it without the butterfly levels,
+    "move" makes the same loads and stores with an add in place of each
+    product (csrc/r2_split.cuh). Neither computes the transform, so no
+    plain version exists and no counter moves. CUDA tensors only."""
+    if t.dft5_f is None or _on_cpu(x):
+        raise ValueError("r2_split_part: a radix-5 plan on the card only")
+    R1, R2, C = t.shape
+    out = torch.empty_like(x)
+    inverse = which == "p6"
+    err = build.lib().prmers_r2_split_part(
+        x.data_ptr(), out.data_ptr(), (t.mi if inverse else t.mf).data_ptr(),
+        *_split_ptrs(t, inverse), int(inverse), R5_PARTS[part], R1, R2, C,
+        _stream())
+    build.check(err, f"r2_split_part {part}")
     return out
 
 
@@ -545,7 +565,7 @@ def fused_c_pass(t: DevTables, x: torch.Tensor, mode: str,
             t.lane_f.data_ptr(), t.lane_i.data_ptr(), t.Mf.data_ptr(),
             t.Mi.data_ptr(), t.mi.data_ptr(),
             t.tri.data_ptr() if dense else None, fwd[0], inv[0], fwd[1],
-            inv[1], fwd[2], fwd[3], R1, R2, C, R5_SLAB, _stream())
+            inv[1], fwd[2], fwd[3], R1, R2, C, _stream())
     else:
         name = "k6_fused_c"
         err = lib.prmers_k6_fused_c(

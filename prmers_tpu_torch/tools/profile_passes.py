@@ -24,11 +24,15 @@ and power limit first. The unfolded tables are built for the run alone
 
 `python -m prmers_tpu_torch.tools.profile_passes --r5 [p] [reps]`
 (default p = 700000001, n = 5 * 2^23, (64, 320, 2048)) times K5's two r2
-passes (P2, P6) at a radix-5 plan in the split form (csrc/r2_split.cuh)
-with each slab width it takes, 16, 32 and 64 columns per block (in
-turns, back-to-back launches), each beside its bound (24 bytes per digit
-against the split's products) and held against the dense plain version:
-the measurement behind kernels.R5_SLAB.
+passes (P2, P6) at a radix-5 plan in the split form (csrc/r2_split.cuh),
+each beside its bound (24 bytes per digit against the split's products)
+and held against the dense plain version; then, under "parts", the
+split's two cut-down bodies (kernels.r2_split_part: without the
+butterfly levels, and the loads and stores alone), which compute no
+transform and are held to nothing: what is left of the full pass's time
+without them is the levels' and the arithmetic's share. The three bodies
+run in turns (full, no-levels, move, move, no-levels, full), each turn
+`reps` launches back to back.
 
 The reference tool is stale (it calls kn._to_ay, _middle and _to_ax,
 which are gone); this twin times what the reference still has.
@@ -47,7 +51,7 @@ from ..ops import fourstep as tfs
 
 P_DEFAULT = 136279841
 P_R5 = 700000001                # n = 5 * 2^23, (64, 320, 2048)
-R5_SLABS = (16, 32, 64)
+R5_BODIES = ("split", "no-levels", "move")
 CIN = 0x9E3779B97F4A7C15        # the scalar carry K4u forward injects
 
 
@@ -166,11 +170,11 @@ def split_bound(t, which: str):
 
 
 def measure_r5(p: int = P_R5, reps: int = 10):
-    """K5's P2 and P6 at a radix-5 plan, in the split form with each slab
-    width; returns (the tables, the list of Timed). The widths run in
-    turns (16, 32, 64, 64, 32, 16), each turn `reps` launches back to
-    back, as the engine's squarings queue them (a ~1 ms launch dwarfs the
-    host's enqueue), and each row is the mean of its two turns."""
+    """K5's P2 and P6 at a radix-5 plan in the split form, and its
+    cut-down bodies; returns (the tables, the list of Timed, the parts'
+    rows). Each row is the mean of its two turns; a turn is `reps`
+    launches back to back, as the engine's squarings queue them (a ~1 ms
+    launch dwarfs the host's enqueue)."""
     import numpy as np
 
     from ..core.plan import cached_plan
@@ -185,19 +189,24 @@ def measure_r5(p: int = P_R5, reps: int = 10):
         0, gl.P, size=t.shape, dtype=np.uint64), dev)
     outs = {}
     runs = {}
-    for slab in R5_SLABS + R5_SLABS[::-1]:
+    for body in R5_BODIES + R5_BODIES[::-1]:
         for which in ("p2", "p6"):
-            def fn(slab=slab, which=which):
-                outs[slab, which] = tk.axis1_pass(t, z, which, slab=slab)
-            runs.setdefault((slab, which), []).append(stream_ms(fn, reps))
-    out = []
-    for (slab, which), ms in runs.items():
-        out.append(Timed("k5_axis1", f"{which} split slab={slab}",
-                         sum(ms) / len(ms), *split_bound(t, which),
-                         outs[slab, which],
-                         lambda which=which: tk.axis1_plain(t, z, which),
-                         gl.canon64))
-    return t, out
+            def fn(body=body, which=which):
+                outs[body, which] = (
+                    tk.axis1_pass(t, z, which) if body == "split"
+                    else tk.r2_split_part(t, z, which, body))
+            runs.setdefault((body, which), []).append(stream_ms(fn, reps))
+    entries, parts = [], []
+    for (body, which), ms in runs.items():
+        ms = sum(ms) / len(ms)
+        if body == "split":
+            entries.append(Timed(
+                "k5_axis1", f"{which} split", ms, *split_bound(t, which),
+                outs[body, which],
+                lambda which=which: tk.axis1_plain(t, z, which), gl.canon64))
+        else:
+            parts.append({"what": f"{which} {body}", "ms": ms})
+    return t, entries, parts
 
 
 def main(argv=None) -> int:
@@ -207,13 +216,14 @@ def main(argv=None) -> int:
         argv = argv[1:]
     p = int(argv[0]) if argv else (P_R5 if r5 else P_DEFAULT)
     reps = int(argv[1]) if len(argv) > 1 else 10
-    t, entries = (measure_r5 if r5 else measure)(p, reps)
+    t, entries, *parts = (measure_r5 if r5 else measure)(p, reps)
     check(entries)
     R1, R2, C = t.shape
     print(json.dumps({"tool": "profile_passes" + (" --r5" if r5 else ""),
                       "card": card(), "p": p,
                       "n": R1 * R2 * C, "shape": [R1, R2, C], "reps": reps,
-                      "passes": [e.row() for e in entries]}))
+                      "passes": [e.row() for e in entries],
+                      **({"parts": parts[0]} if parts else {})}))
     return 0
 
 

@@ -107,6 +107,17 @@ def test_split_model_matches_dense(L2, inverse):
     assert torch.equal(tgl.canon64(got), tgl.canon64(want))
 
 
+@pytest.mark.parametrize("part", sorted(tk.R5_PARTS))
+def test_split_parts_refuse_the_cpu(part):
+    """The split's cut-down bodies (the pass profiler's) compute no
+    transform, so they have no plain version: on a CPU tensor the wrapper
+    raises before it reaches the kernel library."""
+    t = _tables(20, np.random.default_rng(20))
+    x = _t(np.zeros((len(ROWS), 20, C), dtype=np.uint64))
+    with pytest.raises(ValueError, match="on the card only"):
+        tk.r2_split_part(t, x, "p2", part)
+
+
 @pytest.mark.parametrize("which", ["p2", "p6"])
 def test_split_model_matches_pallas_at_320(which, monkeypatch):
     """The JAX's P2 and P6 passes at L2 = 320 in interpret mode on the
