@@ -135,7 +135,6 @@ true, "device": {...}}.
 """
 
 import json
-import math
 import os
 import random
 import shutil
@@ -1010,16 +1009,12 @@ def main(argv) -> int:
         bounds["k3_p7c" + pre] = bound(L1 * n, 16 * n + nbytes(
             co, t.widths, t.k3_mats, t.er, t.ec))
         if pre == "":
-            bounds["k2_fused_c"] = bound(
-                (2 * L2 + 2 * ca + 2 * 128 + 3) * n, 16 * n + nbytes(
-                    t.g2, t.mf, t.lane_f, t.lane_i, t.Mf, t.Mi, t.mi, t.tri))
+            bounds["k2_fused_c"] = profile_passes.span_bound(t)
         else:
             bounds["k5_axis1"] = bound((L2 + 1) * n,
                                        16 * n + nbytes(t.g2, t.mf))
-            bounds["k6_fused_c"] = bound((ca + 128) * n,
-                                         16 * n + nbytes(t.lane_f, t.Mf))
-            bounds["k6b_fused_c_invh"] = bound(
-                (1 + 128 + ca) * n, 16 * n + nbytes(t.lane_i, t.Mi))
+            bounds["k6_fused_c"] = profile_passes.row_bound(t, "fwd")
+            bounds["k6b_fused_c_invh"] = profile_passes.row_bound(t, "inv")
     t, x, co = chain_in[19]
     bounds["k9_chain"] = k9_bound(t, co)
 
@@ -1032,23 +1027,15 @@ def main(argv) -> int:
         return (bound(L1 * n, 16 * n + tabs + nbytes(t.er, t.ec)),
                 bound(0, 20 * n + 8 * t.block_carry_shape[0]))
 
-    # radix 5, the r2 DFT in the split form (fourstep.r2_split_products
-    # per pass, ~4 at L2 = 320). K2 at 5 * 2^22 priced at the fewest
-    # products its function needs: the two split r2 passes, x mf, x mi and
-    # x t_r_inv, the square, and the C-transform both ways as a factored
-    # weighted length-C DFT (log2(C) / 2 twiddles per digit and the
-    # weight, where the kernel does 2 * (ca + 128) dense slot products):
-    # ~24 per digit, so the bytes bound it. K5 with L2 = 320 at 5 * 2^23,
-    # the mean of P2 (x mf) and P6 (x mi, x t_r_inv), the register and mf
-    # or mi once
-    t = r5_in[0]
-    L1, L2, ca, n, _ = shape_of(t)
-    C = 128 * ca
-    split = (t.dft5_f, t.dft5_i, t.tw_f, t.tw_i, t.sh_exp, t.t_r_inv)
-    bounds["k2_fused_c[r5]"] = bound(
-        (2 * tfs.r2_split_products(L2) + 2 * (math.log2(C) / 2 + 1) + 4)
-        * n, 16 * n + nbytes(t.mf, t.lane_f, t.lane_i, t.Mf, t.Mi, t.mi,
-                             *split))
+    # K2, K6 and K6b at the fewest products their function needs
+    # (tools/profile_passes.span_bound, row_bound): the r2 passes as shift
+    # butterflies or the radix-5 split (fourstep.r2_split_products), the
+    # C-transform factored (fourstep.c_fft_products per half), the weights
+    # and the square, against the bytes of the register and the tables
+    # the kernels read: ~24 products per digit at most, so the bytes bound
+    # them. K5 with L2 = 320 at 5 * 2^23, the mean of P2 (x mf) and P6 (x
+    # mi, x t_r_inv), the register and mf or mi once
+    bounds["k2_fused_c[r5]"] = profile_passes.span_bound(r5_in[0])
     t = r5_big_in[0]
     L1, L2, ca, n, _ = shape_of(t)
     bounds["k5_axis1[r5]"] = bound(

@@ -7,12 +7,12 @@ name and power limit go to stderr. The timed region ends in
 torch.cuda.synchronize(). A failure fails the run: there is no ladder of
 slower pipelines to fall back on.
 
-`python -m prmers_tpu_torch.bench --ab <root>` compares this tree with
-another checkout of the repository at <root> (e.g. the parent commit
-unpacked with `git archive` into build/parent): each tree's measure() in
-its own process, in turns root, this, this, root, on the same card; one
-JSON line with both runs of each and the change's mean against the
-root's, in percent.
+`python -m prmers_tpu_torch.bench --ab <root> [p ...]` compares this
+tree with another checkout of the repository at <root> (e.g. the parent
+commit unpacked with `git archive` into build/parent): each tree's
+measure() in its own process, in turns root, this, this, root, on the
+same card; one JSON line per exponent p (default 136279841) with both
+runs of each and the change's mean against the root's, in percent.
 
 On the mesh, one process per card:
 `python -m torch.distributed.run --nproc_per_node=<s> -m
@@ -89,7 +89,9 @@ def main(argv=None) -> None:
     from .parallel import dist
     argv = sys.argv[1:] if argv is None else argv
     if "--ab" in argv:
-        print(json.dumps(ab(argv[argv.index("--ab") + 1])))
+        i = argv.index("--ab")
+        for p in [int(a) for a in argv[i + 2:]] or [P_BENCH]:
+            print(json.dumps(ab(argv[i + 1], p)), flush=True)
         return
     backend = argv[argv.index("-backend") + 1] if "-backend" in argv \
         else None

@@ -88,6 +88,77 @@ GL_FN u64 gl_shiftmul(u64 a, int e) {
     return gl_reduce128(a << e, a >> (64 - e));
 }
 
+// a * 2^s for s in [0, 192) (ord(2) = 192): past 96 the negated shift,
+// since 2^96 = -1.
+GL_FN u64 gl_mul_pow2(u64 a, int s) {
+    if (s < 96) return gl_shiftmul(a, s);
+    return gl_sub(0ULL, gl_shiftmul(a, s - 96));
+}
+
+// a * w^e with w = root_554(128), e any int (taken mod 128). w is no power
+// of two (128 does not divide 192), but w^2 = 2^3 and w = 2^73 - 2^25 =
+// 2^25 (2^48 - 1): an even power 2f is the shift 2^(3f), an odd one 2f + 1
+// the shift 2^(3f + 25) times 2^48 - 1, one more shift and a subtraction.
+GL_FN u64 gl_mul_w128pow(u64 a, int e) {
+    e &= 127;
+    if (!(e & 1)) return gl_mul_pow2(a, 3 * (e >> 1));
+    const u64 v = gl_mul_pow2(a, (3 * (e >> 1) + 25) % 192);
+    return gl_sub(gl_shiftmul(v, 48), v);
+}
+
+// bits-bit reversal of v (constant-folded where v and bits are).
+GL_FN int gl_brev(int v, int bits) {
+    int f = 0;
+    for (int i = 0; i < bits; ++i) f |= ((v >> i) & 1) << (bits - 1 - i);
+    return f;
+}
+
+// The R = 2^LR point DFT (R <= 64) of v[0], v[s], ..., v[(R - 1) s] in
+// place by root_554(R) = 2^(192 / R): radix-2 DIF butterflies a + b and
+// (a - b) 2^e, e = 192 / (2m) * jj at half-size m (fourstep.
+// shift_exponents); natural in, bit-reversed out.
+template <int LR>
+GL_FN void gl_dif_shift(u64* v, int s) {
+#pragma unroll
+    for (int lm = LR - 1; lm >= 0; --lm) {
+        const int m = 1 << lm;
+#pragma unroll
+        for (int q = 0; q < (1 << LR) / 2; ++q) {
+            const int jj = q & (m - 1);
+            const int ia = ((q >> lm) << (lm + 1)) + jj;
+            const u64 a = v[ia * s], b = v[(ia + m) * s];
+            v[ia * s] = gl_add(a, b);
+            v[(ia + m) * s] = gl_shiftmul(gl_sub(a, b), (192 >> (lm + 1)) * jj);
+        }
+    }
+}
+
+// Its inverse mirror (no 1/R): radix-2 DIT butterflies by the inverse
+// root, bit-reversed in, natural out. b 2^-e = -b 2^(96 - e), so with t =
+// b 2^(96 - e) the butterfly is a - t and a + t (e = 0: a + b, a - b).
+template <int LR>
+GL_FN void gl_dit_shift_inv(u64* v, int s) {
+#pragma unroll
+    for (int lm = 0; lm < LR; ++lm) {
+        const int m = 1 << lm;
+#pragma unroll
+        for (int q = 0; q < (1 << LR) / 2; ++q) {
+            const int jj = q & (m - 1);
+            const int ia = ((q >> lm) << (lm + 1)) + jj;
+            const int e = (192 >> (lm + 1)) * jj;
+            const u64 a = v[ia * s], b = v[(ia + m) * s];
+            if (e == 0) {
+                v[ia * s] = gl_add(a, b);
+                v[(ia + m) * s] = gl_sub(a, b);
+            } else {
+                const u64 t = gl_shiftmul(b, 96 - e);
+                v[ia * s] = gl_sub(a, t);
+                v[(ia + m) * s] = gl_add(a, t);
+            }
+        }
+    }
+}
+
 // a / 2: (a >> 1) + lsb * (P + 1) / 2, which cannot wrap.
 GL_FN u64 gl_halve(u64 a) {
     return (a >> 1) + ((a & 1ULL) ? 0x7FFFFFFF80000001ULL : 0ULL);

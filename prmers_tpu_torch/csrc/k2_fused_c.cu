@@ -16,7 +16,9 @@
 //   K2a  steps 1     axis kernel over r2 (axis_dft.cuh), x mf after;
 //   K2b  steps 2-5a  the row kernel (fused_c_row.cuh) over the R rows:
 //                    lane DFT, slot products, the mode, the mirrored slot
-//                    products and inverse lane DFT;
+//                    products and inverse lane DFT, factored: shift
+//                    butterflies and one product per digit by cs_f, cs_i
+//                    each way in place of the dense lane_f / Mf matrices;
 //   K2c  step 5b     x mi, then the axis kernel over r2 with tr_inv[r1].
 // "fwd" stops after K2b's forward half, in the JAX spectral layout (same
 // matrices, same DIF order), so a multiplicand agrees mod P with the JAX
@@ -27,15 +29,13 @@
 // and K2c are r2_split.cuh's 5 x 2^b split, which reads neither g2 nor
 // tri (the wrapper passes null for both there); K2b does not change.
 //
-// What bounds it on the H100: 2*L2 + 2*(ca + 128) + 3 mod-P products per
-// digit at a power-of-two L2 (419 at L2 = 64, ca = 16), so the integer
-// pipe; at L2 = 320 the split r2 passes take ~6 products per digit each,
-// so the row kernel's 2*(ca + 128) (272 at ca = 8) is most of it. The slot
-// matrices (2 x 2 MB at ca = 16) stream from L2 once per block of rows.
-// The design keeps each row's two working copies in shared
-// memory, reuses every matrix word for all the block's rows, and reduces
-// each dot product once (192-bit accumulator); the direct products are the
-// simple form that a tensor-core or butterfly formulation would replace.
+// What bounds it on the H100: the bytes, 16 per digit through each of
+// the three launches and mf, mi once (K2a and K2c read mf or mi beside
+// the register). The products per digit: at a power-of-two L2 the r2
+// launches' dense L2-point matrices (64 each at L2 = 64: the axis form
+// of axis_dft.cuh, not yet shift butterflies), at L2 = 5 * 2^b ~4-6 each
+// by the split; the row kernel ~1 + log2(C)/2 each way
+// (fourstep.c_fft_products) and the op.
 
 #include <cuda_runtime.h>
 
@@ -47,8 +47,7 @@ enum { K2_SQR = 0, K2_MUL = 1, K2_FWD = 2 };
 
 extern "C" int prmers_k2_fused_c(const u64* x, u64* out, const u64* u,
                                  int mode, const u64* g2, const u64* mf,
-                                 const u64* lane_f, const u64* lane_i,
-                                 const u64* Mf, const u64* Mi,
+                                 const u64* cs_f, const u64* cs_i,
                                  const u64* mi, const u64* tri,
                                  const u64* d5f, const u64* d5i,
                                  const u64* twf, const u64* twi,
@@ -73,8 +72,8 @@ extern "C" int prmers_k2_fused_c(const u64* x, u64* out, const u64* u,
 
     const int op = mode == K2_SQR ? ROW_SQR : mode == K2_MUL ? ROW_MUL
                                                             : ROW_NONE;
-    err = fused_c_rows(out, out, u, 1, op, mode != K2_FWD, lane_f, lane_i,
-                       Mf, Mi, R1 * L2, C, st);
+    err = fused_c_rows(out, out, u, 1, op, mode != K2_FWD, cs_f, cs_i,
+                       R1 * L2, C, st);
     if (err || mode == K2_FWD) return err;
 
     if (r5) {

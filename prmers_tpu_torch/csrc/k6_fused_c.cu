@@ -12,11 +12,21 @@
 // here each half is the row kernel (fused_c_row.cuh) with the other half
 // switched off, so K6 "fwd" + K6b equals K6 in one launch, value for value.
 //
-// What bounds it on the H100: per digit 2 * 64 lane-DFT and 2 * 128 slot
-// products at ca = 64 (the integer pipe), and the 8 MiB slot matrices per
-// direction, read from L2 once per row. At C = 8192 a block holds one row
-// twice plus the 64 x 64 lane matrix: 160 KiB of shared memory, one block
-// of 1024 threads per SM.
+// Both halves run the factored row kernel (fused_c_row.cuh): shift
+// butterflies for the lane DFT and the 128-point slot DFTs, one product
+// per digit by cs_f (forward) or cs_i (inverse), in place of the dense
+// ca x ca lane matrix and the 128 x 128 slot matrices Mf / Mi.
+//
+// What bounds it on the H100: the bytes, 16 per digit (the register in
+// and out) and the (ca, 128) scale table; ~1 + log2(C)/2 products' worth
+// per digit each way (fourstep.c_fft_products) is far below the integer
+// pipe's rate. At C = 8192 a block holds one row once, 64 KiB of shared
+// memory, three blocks of 256 threads per SM.
+//
+// prmers_fused_c_part launches the row kernel's cut-down bodies (no
+// 128-point butterflies; the loads and stores alone) for the pass
+// profiler at C = 2048 and 8192; they compute no transform and no engine
+// path takes them.
 
 #include <cuda_runtime.h>
 
@@ -24,19 +34,40 @@
 
 // mode: 0 sqr, 1 mul, 2 fwd (as K2)
 extern "C" int prmers_k6_fused_c(const u64* x, u64* out, const u64* u,
-                                 int mode, const u64* lane_f,
-                                 const u64* lane_i, const u64* Mf,
-                                 const u64* Mi, int R, int C, void* stream) {
+                                 int mode, const u64* cs_f,
+                                 const u64* cs_i, int R, int C,
+                                 void* stream) {
     const int op = mode == 0 ? ROW_SQR : mode == 1 ? ROW_MUL : ROW_NONE;
-    return fused_c_rows(x, out, u, 1, op, mode != 2, lane_f, lane_i, Mf, Mi,
-                        R, C, (cudaStream_t)stream);
+    return fused_c_rows(x, out, u, 1, op, mode != 2, cs_f, cs_i, R, C,
+                        (cudaStream_t)stream);
 }
 
 // op: 0 none, 1 sqr, 2 mul
 extern "C" int prmers_k6b_fused_c_invh(const u64* x, u64* out, const u64* u,
-                                       int op, const u64* lane_i,
-                                       const u64* Mi, int R, int C,
+                                       int op, const u64* cs_i, int R, int C,
                                        void* stream) {
-    return fused_c_rows(x, out, u, 0, op, 1, nullptr, lane_i, nullptr, Mi,
-                        R, C, (cudaStream_t)stream);
+    return fused_c_rows(x, out, u, 0, op, 1, nullptr, cs_i, R, C,
+                        (cudaStream_t)stream);
+}
+
+// A cut-down body (part: CF_NO_SLOT_LEVELS or CF_MOVE) of K6 in mode
+// "sqr" (the whole row transform and the square) at C = 2048 or 8192.
+extern "C" int prmers_fused_c_part(const u64* x, u64* out, int part,
+                                   const u64* cs_f, const u64* cs_i, int R,
+                                   int C, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (C != 2048 && C != 8192) return -1;
+    if (part == CF_NO_SLOT_LEVELS)
+        return C == 2048 ? cf_rows<4, CF_NO_SLOT_LEVELS>(
+                               x, out, nullptr, 1, ROW_SQR, 1, cs_f, cs_i, R,
+                               st)
+                         : cf_rows<6, CF_NO_SLOT_LEVELS>(
+                               x, out, nullptr, 1, ROW_SQR, 1, cs_f, cs_i, R,
+                               st);
+    if (part == CF_MOVE)
+        return C == 2048 ? cf_rows<4, CF_MOVE>(x, out, nullptr, 1, ROW_SQR, 1,
+                                               cs_f, cs_i, R, st)
+                         : cf_rows<6, CF_MOVE>(x, out, nullptr, 1, ROW_SQR, 1,
+                                               cs_f, cs_i, R, st);
+    return -1;
 }

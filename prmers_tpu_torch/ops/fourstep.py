@@ -24,7 +24,12 @@ Tables built here, all canonical u64 numpy arrays unless noted:
                         root-of-2 wrap folded in
   lane_f, lane_i (ca, ca)  the lane-tile DFT over ca = c >> 7
   Mf, Mi  (ca, 128, 128)   per-slot right-side matrices: omega_C twiddles
-                        and the weights' lane part
+                        and the weights' lane part (the plain versions
+                        and K9 multiply by them)
+  cs_f, cs_i (ca, 128)  the same slot matrices factored, Mf[j] =
+                        diag(cs_f[j]) @ DFT_128 and Mi[j] = DFT_128^-1 @
+                        diag(cs_i[j]): what the CUDA row kernel of K2, K6
+                        and K6b reads (fused_c_scales)
   tri     (R1, L2, L2)  tr_inv: inverse r2 DFT with row scale t_r_inv
   dft5_f, dft5_i, tw_f, tw_i, sh_exp, t_r_inv
                         the 5 x 2^b split of a radix-5 r2 DFT, which the
@@ -53,6 +58,7 @@ environment overrides.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
@@ -446,6 +452,72 @@ def r2_split_products(L2: int) -> float:
     return (16 * M + 4 * (M - 1)) / L2
 
 
+# The C-transform's factored form (csrc/fused_c_row.cuh): per row of C =
+# ca * 128 digits the lane DFT over the ca slots as shift butterflies, one
+# scale per digit, and a 128-point DFT per slot. omega_128 = root_554(128)
+# is not a power of two (128 does not divide 192), but omega_128^2 =
+# root_554(64) = 2^3 and omega_128 = 2^73 - 2^25 = 2^25 (2^48 - 1), so
+# each power of it is a shift, or a shift times 2^48 - 1 (two shifts and a
+# subtraction).
+
+SLOT = 128
+SLOT_HI, SLOT_LO = 16, 8       # the 128-point DFT as 16 x 8 (four-step)
+
+
+def w128_shift(e: int) -> tuple[int, bool]:
+    """(s, odd) with omega_128^e = 2^s * (2^48 - 1)^odd mod P, s < 192:
+    even e = 2f gives 8^f = 2^(3f); odd e = 2f + 1 gives 2^(3f + 25)
+    (2^48 - 1)."""
+    e %= SLOT
+    if e % 2 == 0:
+        return (3 * e // 2) % 192, False
+    return (3 * (e // 2) + 25) % 192, True
+
+
+def _bitrev(v: int, bits: int) -> int:
+    return int(dif_freq_of_pos(1 << bits)[v]) if bits else 0
+
+
+def lane_split(ca: int) -> tuple[int, int]:
+    """(N1, N2) of the lane DFT's two register passes, ca = N1 * N2: one
+    pass (N2 = 1) up to ca = 16, else 8 on the top bits of the slot index
+    first."""
+    assert ca & (ca - 1) == 0 and 2 <= ca <= 64, ca
+    n1 = ca if ca <= 16 else 8
+    return n1, ca // n1
+
+
+def c_slot_schedule() -> dict:
+    """The 128-point DFT within a slot as the row kernel runs it, 128 = 16
+    x 8 with index i = 8 m + t (m < 16, t < 8):
+
+      dif16, dif8   shift_exponents(16), shift_exponents(8): the DIF
+                    levels of the two sub-DFTs (roots 2^12 and 2^24)
+      tw            (8, 16) exponents of omega_128 between the passes:
+                    t * bitrev4(m), the twiddle of pass A's position m in
+                    group t (the inverse takes -m * bitrev4(h) on pass B's
+                    output m in group h: tw transposed, negated)
+      shift, odd    (8, 16) w128_shift of tw: 2^shift (2^48 - 1)^odd
+
+    Pass A is the 16-point DIF down stride 8 and the twiddle; pass B the
+    8-point DIF on 8 consecutive words, after which position 8 h + q holds
+    frequency bitrev7(8 h + q) = 16 bitrev3(q) + bitrev4(h)."""
+    tw = np.array([[t * _bitrev(m, 4) for m in range(SLOT_HI)]
+                   for t in range(SLOT_LO)], dtype=np.int64)
+    sh = np.vectorize(lambda e: w128_shift(int(e))[0])(tw)
+    odd = np.vectorize(lambda e: w128_shift(int(e))[1])(tw)
+    return dict(dif16=shift_exponents(SLOT_HI), dif8=shift_exponents(SLOT_LO),
+                tw=tw, shift=sh.astype(np.int64), odd=odd.astype(bool))
+
+
+def c_fft_products(C: int) -> float:
+    """General mod-P products per digit of one half of the factored
+    C-transform, as the bounds count them: the scale, and half a product
+    per digit per radix-2 level (log2 C levels of shift twiddles, the
+    rate tools/profile_passes gives the shift forms)."""
+    return 1 + math.log2(C) / 2
+
+
 # ---------------------------------------------------------------------------
 # Tables
 # ---------------------------------------------------------------------------
@@ -494,6 +566,8 @@ class KernelTables:
     lane_i: np.ndarray
     Mf: np.ndarray
     Mi: np.ndarray
+    cs_f: np.ndarray
+    cs_i: np.ndarray
     tri: np.ndarray
     k3_mats: np.ndarray
     er: np.ndarray
@@ -526,10 +600,10 @@ def _fold_rows(M: np.ndarray, row_scale: np.ndarray,
     return Mk
 
 
-def fused_c_mats(fp: FourStepPlan):
-    """Per-slot right-side matrices Mf/Mi (ca, 128, 128), out[b, k] =
-    sum_l x[b, l] * M[l, k], and the per-column folds of the mids
-    (fourstep.py:602-722 before the int8 split)."""
+def _c_weights(fp: FourStepPlan):
+    """(wpow, wipow, wcl, iwcl, ecl, eca): powers of omega_C and its
+    inverse, the weights' lane parts and their exponents, and the
+    exponents of the ca parts, as fused_c_mats folds them."""
     n, C = fp.n, fp.C
     ca = fp.ca_count
     assert C % LANES == 0 and 2 <= ca <= 64 and ca & (ca - 1) == 0, \
@@ -537,14 +611,25 @@ def fused_c_mats(fp: FourStepPlan):
     pn = fp.p % n
     wC = root_554(C)
     nr2 = field.root_two_nth(n)
-    nr2i = field.inv(nr2)
     wpow = pow_table(wC, C)
     wipow = pow_table(field.inv(wC), C)
     ecl = np.array([(-pn * ll) % n for ll in range(LANES)], dtype=np.int64)
     eca = np.array([(-pn * LANES * j) % n for j in range(ca)],
                    dtype=np.int64)
     wcl = powv(nr2, ecl)
-    iwcl = powv(nr2i, ecl)
+    iwcl = powv(field.inv(nr2), ecl)
+    return wpow, wipow, wcl, iwcl, ecl, eca
+
+
+def fused_c_mats(fp: FourStepPlan):
+    """Per-slot right-side matrices Mf/Mi (ca, 128, 128), out[b, k] =
+    sum_l x[b, l] * M[l, k], and the per-column folds of the mids
+    (fourstep.py:602-722 before the int8 split)."""
+    n, C = fp.n, fp.C
+    ca = fp.ca_count
+    wpow, wipow, wcl, iwcl, ecl, eca = _c_weights(fp)
+    nr2 = field.root_two_nth(n)
+    nr2i = field.inv(nr2)
     freqs = dif_freq_of_pos(ca)
     ll = np.arange(LANES, dtype=np.int64)
     Mf = np.empty((ca, LANES, LANES), dtype=np.uint64)
@@ -563,6 +648,23 @@ def fused_c_mats(fp: FourStepPlan):
     wca_c = mulmod(np.repeat(powv(nr2, eca), LANES), wfac)
     iwca_c = mulmod(np.repeat(powv(nr2i, eca), LANES), ifac)
     return Mf, Mi, wca_c, iwca_c
+
+
+def fused_c_scales(fp: FourStepPlan):
+    """(cs_f, cs_i), (ca, 128) u64: the slot matrices of fused_c_mats
+    factored. With kl_j = dif_freq_of_pos(ca)[j] (slot j's frequency after
+    the lane DIF) and omega_128 = omega_C^ca,
+      Mf[j][l][k] = wcl[l] omega_C^(l kl_j) * omega_128^(l k),
+      Mi[j][l][k] = omega_128^(-k l) * omega_C^(-k kl_j) iwcl[k],
+    so cs_f[j][l] = wcl[l] omega_C^(l kl_j) scales a slot before its
+    natural-order 128-point DFT and cs_i[j][k] = iwcl[k] omega_C^(-k kl_j)
+    after the inverse one: one product per digit each way."""
+    C, ca = fp.C, fp.ca_count
+    wpow, wipow, wcl, iwcl, _ecl, _eca = _c_weights(fp)
+    kl = np.asarray(dif_freq_of_pos(ca), dtype=np.int64)
+    ll = np.arange(LANES, dtype=np.int64)
+    e = (kl[:, None] * ll[None, :]) % C
+    return (mulmod(wpow[e], wcl[None, :]), mulmod(wipow[e], iwcl[None, :]))
 
 
 def build_tables(fp: FourStepPlan) -> KernelTables:
@@ -590,6 +692,7 @@ def build_tables(fp: FourStepPlan) -> KernelTables:
     tri = _fold_rows(dft_matrix(R2, True), base.t_r_inv)
 
     Mf, Mi, wca_c, iwca_c = fused_c_mats(fp)
+    cs_f, cs_i = fused_c_scales(fp)
     mf = mulmod(base.mid, wca_c.reshape(1, 1, C))
     mi = mulmod(base.mid_inv, iwca_c.reshape(1, 1, C))
 
@@ -599,7 +702,7 @@ def build_tables(fp: FourStepPlan) -> KernelTables:
         fp=fp, k1_mats=k1_mats, g2=g2, mf=mf, mi=mi,
         lane_f=dft_matrix(fp.ca_count, False),
         lane_i=dft_matrix(fp.ca_count, True),
-        Mf=Mf, Mi=Mi, tri=tri, k3_mats=k3_mats,
+        Mf=Mf, Mi=Mi, cs_f=cs_f, cs_i=cs_i, tri=tri, k3_mats=k3_mats,
         er=er.reshape(R1, R2).astype(np.uint32),
         ec=ec.astype(np.uint32),
         wt=wt, cum=cum,

@@ -98,21 +98,23 @@ KERNELS = ("k1_p1c", "k2_fused_c", "k3_p7c", "k5_axis1", "k6_fused_c",
            "k8_local", "k4u_pass", "k5u_pass")
 SOURCES = {
     "k1_p1c": "prmers_tpu_torch/csrc/k1_p1c.cu",
-    "k2_fused_c": "prmers_tpu_torch/csrc/k2_fused_c.cu",
+    # K2, K6 and K6b: the row kernel's header, which runs K6, K6b and K2's
+    # row launch (the larger part of K2; k2_fused_c.cu adds its two r2
+    # launches, axis_dft.cuh's at a power-of-two L2 and r2_split.cuh's at
+    # a radix-5 one, and k6_fused_c.cu the K6 entry points)
+    "k2_fused_c": "prmers_tpu_torch/csrc/fused_c_row.cuh",
     "k3_p7c": "prmers_tpu_torch/csrc/k3_p7c.cu",
     "k5_axis1": "prmers_tpu_torch/csrc/k5_axis1.cu",
-    "k6_fused_c": "prmers_tpu_torch/csrc/k6_fused_c.cu",
-    "k6b_fused_c_invh": "prmers_tpu_torch/csrc/k6_fused_c.cu",
+    "k6_fused_c": "prmers_tpu_torch/csrc/fused_c_row.cuh",
+    "k6b_fused_c_invh": "prmers_tpu_torch/csrc/fused_c_row.cuh",
     "k9_chain": "prmers_tpu_torch/csrc/k9_chain.cu",
     "k4_axis0": "prmers_tpu_torch/csrc/k4_axis0.cu",
     "k7_block_carry": "prmers_tpu_torch/csrc/k7_block_carry.cu",
     "k8_local": "prmers_tpu_torch/csrc/k7_block_carry.cu",
     "k4u_pass": "prmers_tpu_torch/csrc/k4u_pass.cu",
     "k5u_pass": "prmers_tpu_torch/csrc/k4u_pass.cu",
-    # at a radix-5 L2 the split's header: it runs all of K5's launches and
-    # K2's two r2 launches (K2's row launch stays fused_c_row.cuh's,
-    # through k2_fused_c.cu)
-    "k2_fused_c[r5]": "prmers_tpu_torch/csrc/r2_split.cuh",
+    "k2_fused_c[r5]": "prmers_tpu_torch/csrc/fused_c_row.cuh",
+    # at a radix-5 L2 the split's header runs all of K5's launches
     "k5_axis1[r5]": "prmers_tpu_torch/csrc/r2_split.cuh",
 }
 REPLACES = {
@@ -145,8 +147,8 @@ def reset_calls() -> None:
 
 
 _U64_TABLES = ("k1_mats", "g2", "mf", "mi", "lane_f", "lane_i", "Mf", "Mi",
-               "tri", "k3_mats", "dft5_f", "dft5_i", "tw_f", "tw_i",
-               "t_r_inv")
+               "cs_f", "cs_i", "tri", "k3_mats", "dft5_f", "dft5_i", "tw_f",
+               "tw_i", "t_r_inv")
 _I32_TABLES = ("er", "ec", "wt", "cum", "widths", "bwt", "bcum", "sh_exp")
 
 # The shard views of the mesh (sharded_pallas.py:92-136): each table a view
@@ -157,8 +159,8 @@ _I32_TABLES = ("er", "ec", "wt", "cum", "widths", "bwt", "bcum", "sh_exp")
 R2_VIEW = {"k1_mats": 0, "k3_mats": 0, "er": 1, "ec": None, "wt": 1,
            "cum": 1, "widths": 1}
 R1_VIEW = {"g2": None, "mf": 0, "mi": 0, "lane_f": None, "lane_i": None,
-           "Mf": None, "Mi": None, "tri": 0, "ec": None, "widths": 0,
-           "bwt": 0, "bcum": 0}
+           "Mf": None, "Mi": None, "cs_f": None, "cs_i": None, "tri": 0,
+           "ec": None, "widths": 0, "bwt": 0, "bcum": 0}
 
 
 @dataclasses.dataclass(eq=False)
@@ -175,6 +177,8 @@ class DevTables:
     lane_i: torch.Tensor | None
     Mf: torch.Tensor | None
     Mi: torch.Tensor | None
+    cs_f: torch.Tensor | None
+    cs_i: torch.Tensor | None
     tri: torch.Tensor | None
     k3_mats: torch.Tensor | None
     er: torch.Tensor | None
@@ -562,16 +566,14 @@ def fused_c_pass(t: DevTables, x: torch.Tensor, mode: str,
         err = lib.prmers_k2_fused_c(
             x.data_ptr(), out.data_ptr(), _ptr(u), MODES[mode],
             t.g2.data_ptr() if dense else None, t.mf.data_ptr(),
-            t.lane_f.data_ptr(), t.lane_i.data_ptr(), t.Mf.data_ptr(),
-            t.Mi.data_ptr(), t.mi.data_ptr(),
+            t.cs_f.data_ptr(), t.cs_i.data_ptr(), t.mi.data_ptr(),
             t.tri.data_ptr() if dense else None, fwd[0], inv[0], fwd[1],
             inv[1], fwd[2], fwd[3], R1, R2, C, _stream())
     else:
         name = "k6_fused_c"
         err = lib.prmers_k6_fused_c(
             x.data_ptr(), out.data_ptr(), _ptr(u), MODES[mode],
-            t.lane_f.data_ptr(), t.lane_i.data_ptr(), t.Mf.data_ptr(),
-            t.Mi.data_ptr(), R1 * R2, C, _stream())
+            t.cs_f.data_ptr(), t.cs_i.data_ptr(), R1 * R2, C, _stream())
     calls[name] += 1
     build.check(err, name)
     return out
@@ -603,9 +605,133 @@ def fused_c_invh_pass(t: DevTables, x: torch.Tensor, op: str,
         out = torch.empty_like(x)
     err = build.lib().prmers_k6b_fused_c_invh(
         x.data_ptr(), out.data_ptr(), _ptr(u), HEAD_OPS[op],
-        t.lane_i.data_ptr(), t.Mi.data_ptr(), R1 * R2, C, _stream())
+        t.cs_i.data_ptr(), R1 * R2, C, _stream())
     calls["k6b_fused_c_invh"] += 1
     build.check(err, "k6b_fused_c_invh")
+    return out
+
+
+def _add(a, b):
+    return gl.join(*gl.add(*gl.split(a), *gl.split(b)))
+
+
+def _sub(a, b):
+    return gl.join(*gl.sub(*gl.split(a), *gl.split(b)))
+
+
+def _consts(vals, like: torch.Tensor) -> torch.Tensor:
+    """A (nested) list of Python ints mod P as a packed tensor on like's
+    device (built from ints: numpy would take a list mixing small and
+    large ones as float64)."""
+    shape = np.shape(np.asarray(vals, dtype=object))
+    flat = np.asarray(vals, dtype=object).reshape(-1)
+    a = np.array([int(v) % gl.P for v in flat], dtype=np.uint64)
+    return gl.from_numpy_u64(a.reshape(shape), like.device)
+
+
+def _dif(x: torch.Tensor, dim: int, inverse: bool) -> torch.Tensor:
+    """The length-L DFT along dim by root_554(L) (L = x.shape[dim]): DIF
+    butterflies, natural in, bit-reversed out; with inverse the mirror,
+    DIT butterflies by the inverse root, bit-reversed in, natural out."""
+    v = x.movedim(dim, -1)
+    L = v.shape[-1]
+    lead = v.shape[:-1]
+    m = 1 if inverse else L // 2
+    while 1 <= m < L:
+        w = tfs.root_554(2 * m)
+        w = pow(w, -1, gl.P) if inverse else w
+        tw = _consts([pow(w, jj, gl.P) for jj in range(m)], v)
+        u = v.reshape(lead + (L // (2 * m), 2, m))
+        a, b = u[..., 0, :], u[..., 1, :]
+        if inverse:
+            b = gl.mulmod(b, tw)
+            a, b = _add(a, b), _sub(a, b)
+        else:
+            a, b = _add(a, b), gl.mulmod(_sub(a, b), tw)
+        v = torch.stack([a, b], dim=-2).reshape(lead + (L,))
+        m = m * 2 if inverse else m // 2
+    return v.movedim(-1, dim)
+
+
+def c_fft_plain(t: DevTables, x: torch.Tensor, fwd: bool, op: str,
+                inv: bool, u: torch.Tensor | None = None) -> torch.Tensor:
+    """A torch model of csrc/fused_c_row.cuh's schedule, for the tests (the
+    wrappers' plain versions stay fused_c_plain / fused_c_invh_plain, the
+    dense products, which this equals mod P). Per row of C = ca * 128:
+
+      fwd  the lane DIF over the ca slots as two register passes (ca = N1
+           * N2, fourstep.lane_split): the N1-point DIF down the top
+           bits of the slot index, the twiddle omega_ca^(lo bitrev(i)),
+           the N2-point DIF; x cs_f; per slot the 128-point DFT as 16 x 8
+           (fourstep.c_slot_schedule): the 16-point DIF down stride 8, x
+           omega_128^(t bitrev4(m)), the 8-point DIF, then the store in
+           natural order;
+      op   "sqr", "mul" (x u, natural order) or "";
+      inv  the mirror: the 8-point inverse DIT, x omega_128^(-q
+           bitrev4(h)), the 16-point inverse DIT, x cs_i, the N2-point
+           inverse DIT, x omega_ca^(-lo bitrev(hi)), the N1-point inverse
+           DIT.
+
+    K6 is (True, op, mode != "fwd"), K6b (False, op, True)."""
+    R1, R2, C = t.shape
+    ca = C // 128
+    n1, n2 = tfs.lane_split(ca)
+    R = R1 * R2
+    rev1 = tfs.dif_freq_of_pos(n1)
+    br = torch.from_numpy(tfs.dif_freq_of_pos(128))
+    w128 = tfs.root_554(128)
+    tw128 = tfs.c_slot_schedule()["tw"].T             # [m, t] / [h, q]
+
+    def lane_tw(sign):
+        """omega_ca^(sign lo bitrev(i)) at [i, lo]."""
+        return _consts([[pow(tfs.root_554(ca), sign * lo * int(rev1[i]),
+                             gl.P) for lo in range(n2)] for i in range(n1)],
+                       x).reshape(n1, n2, 1)
+
+    def slot_tw(sign):
+        return _consts([[pow(w128, sign * int(e), gl.P) for e in row]
+                        for row in tw128], x)
+
+    v = x.reshape(R, ca, 128)
+    if fwd:
+        v = _dif(v.reshape(R, n1, n2, 128), 1, False)
+        if n2 > 1:
+            v = _dif(gl.mulmod(v, lane_tw(1)), 2, False)
+        v = gl.mulmod(v.reshape(R, ca, 128), t.cs_f)
+        v = _dif(v.reshape(R, ca, 16, 8), 2, False)
+        v = _dif(gl.mulmod(v, slot_tw(1)), 3, False).reshape(R, ca, 128)
+        v = v[..., br]                  # bit-reversed -> natural
+    v = _head_op(v, op, u)
+    if not inv:
+        return v.reshape(t.shape).contiguous()
+    v = _dif(v[..., br].reshape(R, ca, 16, 8), 3, True)
+    v = _dif(gl.mulmod(v, slot_tw(-1)), 2, True).reshape(R, ca, 128)
+    v = gl.mulmod(v, t.cs_i).reshape(R, n1, n2, 128)
+    if n2 > 1:
+        v = gl.mulmod(_dif(v, 2, True), lane_tw(-1))
+    v = _dif(v, 1, True)
+    return v.reshape(t.shape).contiguous()
+
+
+C_PARTS = {"no-slot-levels": 1, "move": 2}
+
+
+def fused_c_part(t: DevTables, x: torch.Tensor, part: str) -> torch.Tensor:
+    """A cut-down body of the row kernel (K6 in mode "sqr") at C = 2048 or
+    8192, for the pass profiler alone: "no-slot-levels" runs it without
+    the 128-point butterflies, "move" makes the same loads and stores with
+    an add in place of each product (csrc/fused_c_row.cuh). Neither
+    computes the transform, so no plain version exists and no counter
+    moves. CUDA tensors only."""
+    R1, R2, C = t.shape
+    if C not in (2048, 8192) or _on_cpu(x):
+        raise ValueError("fused_c_part: C = 2048 or 8192 on the card only")
+    _check(t, (x,))
+    out = torch.empty_like(x)
+    err = build.lib().prmers_fused_c_part(
+        x.data_ptr(), out.data_ptr(), C_PARTS[part], t.cs_f.data_ptr(),
+        t.cs_i.data_ptr(), R1 * R2, C, _stream())
+    build.check(err, f"fused_c_part {part}")
     return out
 
 

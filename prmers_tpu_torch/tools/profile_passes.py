@@ -34,6 +34,16 @@ without them is the levels' and the arithmetic's share. The three bodies
 run in turns (full, no-levels, move, move, no-levels, full), each turn
 `reps` launches back to back.
 
+`python -m prmers_tpu_torch.tools.profile_passes --cfft [reps]` times
+the C-transform's row kernel (csrc/fused_c_row.cuh) as K6 in mode "sqr"
+(the forward transform, the square and the inverse in one launch) at C
+= 2048 (p = 136279841, (64, 64, 2048)) and C = 8192 (p = 600000001,
+(64, 64, 8192)), each beside its bound and held against the dense plain
+version; then, under "parts", the kernel's two cut-down bodies
+(kernels.fused_c_part: without the 128-point butterflies, and the loads
+and stores alone with an add for each product), held to nothing, in
+turns as --r5's.
+
 The reference tool is stale (it calls kn._to_ay, _middle and _to_ax,
 which are gone); this twin times what the reference still has.
 """
@@ -52,6 +62,8 @@ from ..ops import fourstep as tfs
 P_DEFAULT = 136279841
 P_R5 = 700000001                # n = 5 * 2^23, (64, 320, 2048)
 R5_BODIES = ("split", "no-levels", "move")
+P_CFFT = (136279841, 600000001)  # C = 2048 and C = 8192
+CFFT_BODIES = ("row", "no-slot-levels", "move")
 CIN = 0x9E3779B97F4A7C15        # the scalar carry K4u forward injects
 
 
@@ -100,7 +112,7 @@ def measure(p: int = P_DEFAULT, reps: int = 10):
         return got
 
     # the folded passes of a block-carry step
-    L1, L2, ca = R1, R2, C // 128
+    L1, L2 = R1, R2
     tabs = nbytes(t.k1_mats, t.er, t.ec)
     s = timed("k4_axis0", "P1 forward (folded)",
               lambda: tk.axis0_pass(t, x, False),
@@ -118,10 +130,7 @@ def measure(p: int = P_DEFAULT, reps: int = 10):
     timed("k2_fused_c" if k2 else "k6_fused_c",
           "C-transform sqr (folded)",
           (lambda: tk.fused_c_pass(t, s, "sqr")) if k2 else span,
-          lambda: tk.fused_c_plain(t, s, "sqr"),
-          bound((2 * L2 + 2 * ca + 2 * 128 + 3) * n * OPS_PER_PRODUCT,
-                16 * n + nbytes(t.g2, t.mf, t.lane_f, t.lane_i, t.Mf,
-                                 t.Mi, t.mi, t.tri)))
+          lambda: tk.fused_c_plain(t, s, "sqr"), span_bound(t))
     timed("k4_axis0", "P7 inverse (folded)",
           lambda: tk.axis0_pass(t, z, True),
           lambda: tk.axis0_plain(t, z, True),
@@ -153,6 +162,40 @@ def measure(p: int = P_DEFAULT, reps: int = 10):
             if dst is not None:
                 v[dst] = got
     return t, out
+
+
+def span_bound(t):
+    """The C-transform span in mode "sqr" (K2, or K5 + K6 + K5) at the
+    fewest products its function needs: the r2 DFT both ways as shift
+    butterflies (log2(L2) / 2 per digit each) or as the radix-5 split
+    (fourstep.r2_split_products each, and x t_r_inv), x mf and x mi, the
+    factored C-transform both ways (fourstep.c_fft_products) and the
+    square; against the register in and out, mf and mi once and the small
+    tables the kernels read."""
+    R1, R2, C = t.shape
+    n = R1 * R2 * C
+    r5 = t.dft5_f is not None
+    r2 = 2 * tfs.r2_split_products(R2) + 1 if r5 else math.log2(R2)
+    per = r2 + 2 + 2 * tfs.c_fft_products(C) + 1
+    moved = 16 * n + nbytes(t.mf, t.mi, t.cs_f, t.cs_i)
+    if r5:
+        moved += nbytes(t.dft5_f, t.dft5_i, t.tw_f, t.tw_i, t.sh_exp,
+                        t.t_r_inv)
+    return bound(per * n * OPS_PER_PRODUCT, moved)
+
+
+def row_bound(t, half: str = "both"):
+    """The row kernel alone: one half ("fwd": K6 "fwd"; "inv": K6b with
+    the square) or both with the square (K6 "sqr"): the factored
+    C-transform's products (fourstep.c_fft_products per half) and the
+    square, against the register in and out and the scales it reads."""
+    R1, R2, C = t.shape
+    n = R1 * R2 * C
+    halves = 2 if half == "both" else 1
+    per = halves * tfs.c_fft_products(C) + (half != "fwd")
+    moved = 16 * n + (nbytes(t.cs_f) if half != "inv" else 0) + \
+        (nbytes(t.cs_i) if half != "fwd" else 0)
+    return bound(per * n * OPS_PER_PRODUCT, moved)
 
 
 def split_bound(t, which: str):
@@ -209,17 +252,58 @@ def measure_r5(p: int = P_R5, reps: int = 10):
     return t, entries, parts
 
 
+def measure_cfft(reps: int = 10):
+    """K6 "sqr" at C = 2048 and 8192 and its cut-down bodies; returns
+    (the tables of the last plan, the list of Timed, the parts' rows). Each
+    row is the mean of its two turns of `reps` launches back to back."""
+    import numpy as np
+
+    from ..core.plan import cached_plan
+    from ..engine.fourstep_engine import get_tables
+    from ..ops import gl64 as gl
+    from ..ops import kernels as tk
+    dev = require_card()
+    entries, parts = [], []
+    for p in P_CFFT:
+        t = get_tables(cached_plan(p), dev)
+        C = t.shape[2]
+        z = gl.from_numpy_u64(np.random.default_rng(p).integers(
+            0, gl.P, size=t.shape, dtype=np.uint64), dev)
+        outs, runs = {}, {}
+        for body in CFFT_BODIES + CFFT_BODIES[::-1]:
+            def fn(body=body):
+                outs[body] = (
+                    tk.fused_c_pass(t, z, "sqr", r2fold=False)
+                    if body == "row" else tk.fused_c_part(t, z, body))
+            runs.setdefault(body, []).append(stream_ms(fn, reps))
+        for body, ms in runs.items():
+            ms = sum(ms) / len(ms)
+            if body == "row":
+                entries.append(Timed(
+                    "k6_fused_c", f"sqr C={C}", ms, *row_bound(t),
+                    outs[body], lambda t=t, z=z: tk.fused_c_plain(
+                        t, z, "sqr", r2fold=False), gl.canon64))
+            else:
+                parts.append({"what": f"{body} C={C}", "ms": ms})
+    return t, entries, parts
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    r5 = argv[:1] == ["--r5"]
-    if r5:
+    flag = argv[0] if argv[:1] in (["--r5"], ["--cfft"]) else ""
+    if flag:
         argv = argv[1:]
-    p = int(argv[0]) if argv else (P_R5 if r5 else P_DEFAULT)
-    reps = int(argv[1]) if len(argv) > 1 else 10
-    t, entries, *parts = (measure_r5 if r5 else measure)(p, reps)
+    if flag == "--cfft":
+        p = P_CFFT[-1]
+        reps = int(argv[0]) if argv else 10
+        t, entries, *parts = measure_cfft(reps)
+    else:
+        p = int(argv[0]) if argv else (P_R5 if flag else P_DEFAULT)
+        reps = int(argv[1]) if len(argv) > 1 else 10
+        t, entries, *parts = (measure_r5 if flag else measure)(p, reps)
     check(entries)
     R1, R2, C = t.shape
-    print(json.dumps({"tool": "profile_passes" + (" --r5" if r5 else ""),
+    print(json.dumps({"tool": " ".join(("profile_passes", flag)).strip(),
                       "card": card(), "p": p,
                       "n": R1 * R2 * C, "shape": [R1, R2, C], "reps": reps,
                       "passes": [e.row() for e in entries],

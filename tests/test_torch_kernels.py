@@ -318,6 +318,56 @@ def test_cuda_kernels_match_plain(case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ca", [2, 4, 8, 16, 32, 64])
+def test_cuda_row_kernel_matches_plain(ca):
+    """On the card: the factored row kernel (csrc/fused_c_row.cuh) as K6
+    in modes sqr / mul / fwd and as K6b with head ops sqr / mul / none,
+    against the dense plain versions, on lazy words at C = 128 * ca, with
+    R = 64 rows (one per block) and R = 2048 (up to four per block: every
+    rows-per-block branch), in place and out of place."""
+    import types
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    C = 128 * ca
+    dev = torch.device("cuda", 0)
+    for R in (64, 2048):
+        n = R * C
+        fp = tfs.FourStepPlan(p=int(n * 16.5) | 1, n=n, R=R, C=C, rs=None,
+                              cs=None, widths=None, max_word=0)
+        Mf, Mi, _wf, _wi = tfs.fused_c_mats(fp)
+        cs_f, cs_i = tfs.fused_c_scales(fp)
+        t = types.SimpleNamespace(
+            fp=fp, shape=(1, R, C), device=dev, row_carry_shape=(1, R, 1),
+            **{k: tgl.from_numpy_u64(v, dev) for k, v in (
+                ("Mf", Mf), ("Mi", Mi), ("cs_f", cs_f), ("cs_i", cs_i),
+                ("lane_f", tfs.dft_matrix(ca, False)),
+                ("lane_i", tfs.dft_matrix(ca, True)))})
+        rng = np.random.default_rng(ca * R)
+        x, u = (tgl.from_numpy_u64(rng.integers(
+            0, 1 << 64, size=t.shape, dtype=np.uint64), dev)
+            for _ in range(2))
+
+        def same(got, want):
+            return torch.equal(tgl.canon64(got), tgl.canon64(want))
+
+        for mode in ("sqr", "mul", "fwd"):
+            um = u if mode == "mul" else None
+            want = tk.fused_c_plain(t, x, mode, um, r2fold=False)
+            assert same(tk.fused_c_pass(t, x, mode, u=um, r2fold=False),
+                        want), (R, mode)
+            y = x.clone()
+            tk.fused_c_pass(t, y, mode, u=um, out=y, r2fold=False)
+            assert same(y, want), (R, mode, "in place")
+        for op in ("sqr", "mul", ""):
+            um = u if op == "mul" else None
+            want = tk.fused_c_invh_plain(t, x, op, um)
+            assert same(tk.fused_c_invh_pass(t, x, op, u=um), want), (R, op)
+            y = x.clone()
+            tk.fused_c_invh_pass(t, y, op, u=um, out=y)
+            assert same(y, want), (R, op, "in place")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("logn,s", [(18, 2), (18, 4), (23, 2), (23, 4)])
 def test_cuda_shard_kernels_match_plain(logn, s):
     """On the card: the mesh's shard-local launches of the first and the
