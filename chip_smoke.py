@@ -30,9 +30,11 @@ Phases; any failure raises and the script exits non-zero with no result:
   1. the card (nvidia-smi name and power limit) and the kernel build
      (one nvcc per prmers_tpu_torch/csrc/*.cu, all at once, timed);
   2. every kernel wrapper (K1; K2 and K6 in modes sqr/fwd/mul; K5 P2 and
-     P6; K6b with head op sqr/mul/none on K6 "fwd"'s output; K3 with a = 1,
-     a = 3 and sub2) against its plain torch version on the same inputs on
-     the card, at n = 2^15, 2^18, 2^23, 2^25 (p = 600000001) and 2^26
+     P6; K6b with head op sqr/mul/none on K6 "fwd"'s output; K3 with a =
+     1, a = 3 and sub2; at a power-of-two length K1, K5 and K2's r2
+     launches run csrc/axis_fft.cuh's shift butterflies, their plain
+     versions the dense matrices) against its plain torch version on the
+     same inputs on the card, at n = 2^15, 2^18, 2^23, 2^25 (p = 600000001) and 2^26
      (p = 1000000007), at two forced pipelines (T = 4 carry units at
      n = 2^16; the split C-transform with T = 2 at 2^18), and at the
      radix-5 n = 5 * 2^16 (L2 = 5), 5 * 2^17, 2^18, 2^19, 2^20, 2^21 (L2 =
@@ -75,8 +77,10 @@ Phases; any failure raises and the script exits non-zero with no result:
      carry and the hybrid in turns; K9 against the three-kernel step and
      the plain chain, ms per squaring, at each n from 2^15 to 2^19; each
      kernel's time against its plain version at n = 2^23 (K1-K3, K4, K7),
-     2^25 (the big-shape kernels, K4 and K7 again), 2^19 (K9), 5 * 2^22
-     (K2 at L2 = 320) and 5 * 2^23 (K5 at L2 = 320), by CUDA events
+     2^25 (the big-shape kernels, K4 and K7 again), 2^26 (K5 at L2 =
+     128, its launches counted over the timed chain at p = 1000000007),
+     2^19 (K9), 5 * 2^22 (K2 at L2 = 320) and 5 * 2^23 (K5 at L2 = 320),
+     by CUDA events
      around each launch, queued behind a device sleep so that they time
      the device and not the host's enqueue,
      beside its bound: the larger of its bytes (each input read once, each
@@ -114,7 +118,10 @@ Phases; any failure raises and the script exits non-zero with no result:
   7. the tools at full width: the pass profiler (tools/profile_passes) at
      p = 136279841, n = 2^23: K4 forward, K2, K4 inverse, and the unfolded
      passes K4u forward (with a scalar carry), K5u forward, K5u inverse,
-     K4u inverse in the matrix and the shift form; the microbenchmarks
+     K4u inverse in the matrix and the shift form; the axis DFTs of
+     csrc/axis_fft.cuh (profile_passes --axis: K1 at 2^23 and 2^25, K5's
+     P2 and P6 at 2^23, 2^25 and 2^26, each beside its move-only body);
+     the microbenchmarks
      (tools/microbench: the library's serial int8/bf16 products, probe_vpu
      and probe_mulmod with their rates; tools/microbench_fields:
      probe_fields for gl64, GF(M31^2) and GF(M61^2) mul/sqr and the fft3161
@@ -163,8 +170,9 @@ OPS_PER_PRODUCT = 128   # 64 int8 MACs per mod-P product (limb planes)
 # (name in the JSON line, wrapper counter, the path whose counts it
 # reports); the main path's kernels are timed at n = 2^23, the big path's
 # at 2^25, K9 at 2^19 (per squaring), the block path's K4 and K7 at 2^23
-# (the block path's p = 136279841), K2 at L2 = 320 at n = 5 * 2^22 and K5
-# at L2 = 320 at 5 * 2^23
+# (the block path's p = 136279841), K2 at L2 = 320 at n = 5 * 2^22, K5
+# at L2 = 320 at 5 * 2^23, and K5 at L2 = 128 at 2^26 (its launches from
+# phase 4's timed PRP chain at p = 1000000007, the "huge" path)
 ENTRIES = [
     ("k1_p1c", "k1_p1c", "main"),
     ("k2_fused_c", "k2_fused_c", "main"),
@@ -172,6 +180,7 @@ ENTRIES = [
     ("k1_p1c[T>1]", "k1_p1c", "big"),
     ("k3_p7c[T>1]", "k3_p7c", "big"),
     ("k5_axis1", "k5_axis1", "big"),
+    ("k5_axis1[L2=128]", "k5_axis1", "huge"),
     ("k6_fused_c", "k6_fused_c", "big"),
     ("k6b_fused_c_invh", "k6b_fused_c_invh", "big"),
     ("k9_chain", "k9_chain", "chain"),
@@ -409,6 +418,7 @@ def tools_drive(dev, card):
     tk.reset_calls()
     pr.reset_calls()
     _t, passes = profile_passes.measure(P_MAIN, reps=10)
+    _t, axis, moves = profile_passes.measure_axis(reps=10)
     mm = microbench.matmul_rates(dev)
     mb, rates = microbench.measure()
     mf, per_el = microbench_fields.measure()
@@ -418,11 +428,15 @@ def tools_drive(dev, card):
     calls = {**tk.calls, **pr.calls}
     log(f"[7] tools' run in {time.perf_counter() - t1:.3f} s; wrapper calls "
         f"{calls}")
-    missing = [k for k in ("k4u_pass", "k5u_pass", "k4_axis0", "k2_fused_c")
-               + pr.KERNELS if calls[k] <= 0]
+    missing = [k for k in ("k4u_pass", "k5u_pass", "k4_axis0", "k2_fused_c",
+                           "k1_p1c", "k5_axis1") + pr.KERNELS
+               if calls[k] <= 0]
     if missing:
         raise AssertionError(f"not launched in phase 7: {missing}")
-    timed7 = tools.check(passes + mb + mf + ps + [pb])
+    timed7 = tools.check(passes + axis + mb + mf + ps + [pb])
+    for r in moves:
+        log(f"[7]   move-only body {r['what']}: {r['ms']:.6f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}) ({card})")
     for e in timed7:
         log(f"[7]   {e.kernel} {e.what}: kernel {e.ms:.6f} ms, plain "
             f"{e.plain_ms:.6f} ms, bound {e.bound_ms:.6f} ms "
@@ -598,8 +612,9 @@ def main(argv) -> int:
                                            dtype=np.int64)).to(dev)
         sp = tk.p1_carry_plain(t, x, co)
         record(k1, label, tk.p1_carry_pass(t, x, co), sp)
+        k5 = "k5_axis1" + r5 + ("[L2=128]" if t.shape[1] == 128 else "")
         for which in ("p2", "p6"):
-            record("k5_axis1" + r5, f"{label} {which}",
+            record(k5, f"{label} {which}",
                    tk.axis1_pass(t, sp, which), tk.axis1_plain(t, sp, which))
         u = gl.canon64(tk.fused_c_plain(t, sp, "fwd"))
         for r2fold, entry in ((True, "k2_fused_c" + r5),
@@ -672,7 +687,7 @@ def main(argv) -> int:
          tfs.Pipeline(r2fold_max=2048, carry_max=1 << 17, fc_split=True))
     main_in = case("n=2^23", P_MAIN, 1 << 23)
     big_in = case("n=2^25", P_BIG, cached_plan(P_BIG).n)
-    case("n=2^26", P_HUGE, cached_plan(P_HUGE).n)
+    huge_in = case("n=2^26", P_HUGE, cached_plan(P_HUGE).n)
     torch.cuda.empty_cache()
     case("n=5*2^16", P_R5_SMALL, 5 << 16)
     for logn in (17, 18, 19, 20, 21):
@@ -813,7 +828,14 @@ def main(argv) -> int:
     # ---- 4: timings -------------------------------------------------------
     for p, warm, iters in ((P_MAIN, 16, 192), (P_BIG, 4, 48),
                            (P_HUGE, 4, 24), (P_R5, 4, 48), (P_R5_BIG, 4, 24)):
+        tk.reset_calls()
         ips = bench.measure(p, warm=warm, iters=iters)
+        if p == P_HUGE:
+            # the 2^26 path (K5 at L2 = 128): this chain's wrapper counts
+            counts["huge"] = dict(tk.calls)
+            log(f"[4] p={p} chain wrapper calls {counts['huge']}")
+            if counts["huge"]["k5_axis1"] <= 0:
+                raise AssertionError("k5_axis1 was not launched at 2^26")
         log(f"[4] PRP {ips:.6f} iter/s @ p={p} ({card})")
         torch.cuda.empty_cache()
     ips = bench.measure(P_R5, warm=4, iters=48, pipe=block)
@@ -931,6 +953,8 @@ def main(argv) -> int:
         return (p2[0] + p6[0]) / 2, (p2[1] + p6[1]) / 2
 
     ms["k5_axis1"] = k5_mean("k5_axis1", "n=2^25", t, sp, 10)
+    ms["k5_axis1[L2=128]"] = k5_mean("k5_axis1[L2=128]", "n=2^26",
+                                     huge_in[0], huge_in[3], 10)
     ms["k6_fused_c"] = compare(
         "k6_fused_c", "n=2^25", "fwd",
         lambda: tk.fused_c_pass(t, sp, "fwd", r2fold=False),
@@ -1001,20 +1025,30 @@ def main(argv) -> int:
         if logn == 19:
             ms["k9_chain"] = (kms, pms)
 
+    def k5_bound(t):
+        """K5 in the shift form (profile_passes.axis_bound), the mean of
+        P2 and P6, as its time is."""
+        b = [profile_passes.axis_bound(t, w) for w in ("p2", "p6")]
+        return ((b[0][0] + b[1][0]) / 2,
+                max(b, key=lambda v: v[0])[1])
+
+    # K1 and K5 at the fewest products their function needs
+    # (profile_passes.axis_bound: the shift butterflies' log2(L) / 2 per
+    # digit and the scales) against the register and the tables they read
+    # (the scales, not k1_mats or g2): by bytes
     bounds = {}
     for (t, co), pre in ((main_in[:3:2], ""), (big_in[:3:2], "[T>1]")):
         L1, L2, ca, n, _ = shape_of(t)
-        bounds["k1_p1c" + pre] = bound(L1 * n, 16 * n + nbytes(
-            co, t.k1_mats, t.wt, t.cum, t.er, t.ec))
+        bounds["k1_p1c" + pre] = profile_passes.axis_bound(t, "k1", co)
         bounds["k3_p7c" + pre] = bound(L1 * n, 16 * n + nbytes(
             co, t.widths, t.k3_mats, t.er, t.ec))
         if pre == "":
             bounds["k2_fused_c"] = profile_passes.span_bound(t)
         else:
-            bounds["k5_axis1"] = bound((L2 + 1) * n,
-                                       16 * n + nbytes(t.g2, t.mf))
+            bounds["k5_axis1"] = k5_bound(t)
             bounds["k6_fused_c"] = profile_passes.row_bound(t, "fwd")
             bounds["k6b_fused_c_invh"] = profile_passes.row_bound(t, "inv")
+    bounds["k5_axis1[L2=128]"] = k5_bound(huge_in[0])
     t, x, co = chain_in[19]
     bounds["k9_chain"] = k9_bound(t, co)
 
@@ -1050,7 +1084,8 @@ def main(argv) -> int:
     for entry, (b, by) in bounds.items():
         log(f"[4] {entry} bound {b:.6f} ms ({by}); kernel "
             f"{ms[entry][0]:.6f} ms")
-    del main_in, big_in, chain_in, r5_in, r5_big_in, t, x, co, sp, spec, z
+    del main_in, big_in, huge_in, chain_in, r5_in, r5_big_in, t, x, co, sp
+    del spec, z
     torch.cuda.empty_cache()
 
     # ---- 5: M756839 through the CLI: whole on K9, resumed on the block carry

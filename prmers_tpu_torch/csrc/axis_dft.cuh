@@ -1,10 +1,14 @@
 // Length-L DFT down one axis of the (R1, R2, C) register, as a direct
-// mod-P matrix product on a shared-memory tile. Shared by K1 (the r1 axis,
-// one matrix per r2), the two r2 launches of K2 and the two K5 passes at a
-// power-of-two L2 (the r2 axis, one matrix, or one per r1; also K9's r2
-// phases), the first launch of K3 (the r1
-// axis again) and both forms of K4 (K1 and K3's first launch with the
-// carry of the block-carry pipeline).
+// mod-P matrix product on a shared-memory tile: the first launch of K3 (the
+// r1 axis, one matrix per r2), both forms of K4 (K1's and K3's first
+// launch with the carry of the block-carry pipeline), and the four axis
+// phases of K9 (its K1, K2a, K2c and K3a stages).
+//
+// K1, K2's two r2 launches and the two K5 passes at a power-of-two L2 no
+// longer come here: they run axis_fft.cuh's register-pass shift
+// butterflies on the factored tables (one or two products per digit),
+// which share this header's view, modes and K1 prologue
+// (ax_k1_inject_halve). The AX_K1, AX_K2A and AX_K2C tiles stay for K9.
 //
 // The array is viewed as (O, L, S, C): element (o, j, s, c) at
 // ((o*L + j)*S + s)*C + c, the transform runs over j. A block owns one
@@ -16,6 +20,10 @@
 // once. The block reads and writes the same element set, so the kernel
 // may run in place (out == x). At L = 128 the tile is 160 KiB of shared
 // memory, so one block (8 warps) per SM.
+//
+// What bounds it on the H100: L mod-P products per digit (64 at L = 64)
+// on the integer pipe, against 16 bytes of device traffic per digit; K3a
+// and K4 are the next to move onto axis_fft.cuh's form.
 //
 // The radix-5 r2 factors L = 5 * 2^b (n = 5 * 2^k) do not come here: K2
 // and K5 take them to r2_split.cuh's 5 x 2^b split, and the r1 axis
@@ -60,10 +68,37 @@ struct AxisArgs {
     u64 a;
     int with_a;
     int O, L, S, C;
+    // axis_fft.cuh only: the column scales applied before the transform
+    // (K1: k1_cs (L, S)) and the row scales after it (K1: k1_rs (L, S);
+    // K2C: t_r_inv (O, L))
+    const u64* cs;
+    const u64* rs;
 };
 
 // Internal linkage: several .cu files instantiate the same modes.
 namespace {
+
+// K1's prologue of element (j, s, c) of the (1, L, S, C) view: the carry
+// parts of its unit, then the halve where the weight wraps. Flat row f =
+// r1*R2 + r2, carry unit u = f*T + c/ct; the roll by one unit (unit u
+// takes unit u-1's carry, unit 0 the last one's) is folded in here.
+__device__ __forceinline__ u64 ax_k1_inject_halve(const AxisArgs& g, int j,
+                                                  int s, int c, u64 v) {
+    const int T = g.C / g.ct;
+    const int U = g.L * g.S * T;
+    const int f = j * g.S + s;
+    const int cl = c % g.ct;
+    if (cl < g.kk) {
+        const int u = f * T + c / g.ct;
+        const u64 cin = g.co[(u + U - 1) % U];
+        const u32 cm = g.cum[u * g.kk + cl];
+        u32 part = cm < 64 ? (u32)(cin >> cm) : 0u;
+        if (cl < g.kk - 1) part &= (1u << g.wt[u * g.kk + cl]) - 1u;
+        v += part;
+    }
+    if (g.er[f] + g.ec[c] >= g.n) v = gl_halve(v);
+    return v;
+}
 
 // One tile of the transform: the (o, s) pair, the slab of AX_TC columns
 // starting at cb * AX_TC and the outputs k0 <= k < k1, on AX_TC * AX_TY
@@ -91,24 +126,7 @@ __device__ __forceinline__ void axis_dft_tile(const AxisArgs& g, int o, int s,
     for (int j = ty; j < L; j += AX_TY) {
         const size_t idx = ((size_t)(o * L + j) * S + s) * C + c;
         u64 v = g.x[idx];
-        if (MODE == AX_K1) {
-            // flat row f = r1*R2 + r2, carry unit u = f*T + c/ct; the roll
-            // by one unit (unit u takes unit u-1's carry, unit 0 the last
-            // one's) is folded in here
-            const int T = C / g.ct;
-            const int U = L * S * T;
-            const int f = j * S + s;
-            const int cl = c % g.ct;
-            if (cl < g.kk) {
-                const int u = f * T + c / g.ct;
-                const u64 cin = g.co[(u + U - 1) % U];
-                const u32 cm = g.cum[u * g.kk + cl];
-                u32 part = cm < 64 ? (u32)(cin >> cm) : 0u;
-                if (cl < g.kk - 1) part &= (1u << g.wt[u * g.kk + cl]) - 1u;
-                v += part;
-            }
-            if (g.er[f] + g.ec[c] >= g.n) v = gl_halve(v);
-        }
+        if (MODE == AX_K1) v = ax_k1_inject_halve(g, j, s, c, v);
         if (MODE == AX_K4F) {
             // r1 block j starts at (j, s = 0, c = 0) and takes block
             // j-1's carry (block 0 the last one's), the roll folded in as

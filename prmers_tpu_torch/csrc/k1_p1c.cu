@@ -11,36 +11,39 @@
 //      IBDWT weight);
 //   3. applies the length-L1 DFT down axis 0 with the r2's folded matrix
 //      tr_fwd_w (DIF order; the weights' r-part and the T_R twiddle are
-//      folded in).
+//      folded in; here unfolded again, below).
 // The Pallas kernel takes carries that an XLA op rolled beforehand; here
 // the roll is folded into the indexing (unit u reads carry u-1, unit 0 the
 // last unit's: the mod-M_p wrap), so this kernel's carry input is the
 // previous K3's carry output as it stands.
 //
-// What bounds it on the H100: 64 mod-P products per digit (a 64x64->128
-// multiply is several IMADs on the integer pipe), against 16 bytes of
-// device traffic per digit. The integer pipe is the limit, not memory.
-// The design keeps the 32 KB matrix and a 64 x 32 slab in shared memory
-// so each global word is read and written once, coalesced, and sums each
-// output's 64 full 128-bit products in a 192-bit accumulator with one
-// reduction at the end. The products themselves are the direct matrix
-// form, which the tensor-core limb-plane form (int8 wgmma) or butterflies
-// would cut in a later change.
+// The DFT runs as axis_fft.cuh's register-pass shift butterflies on the
+// factored matrix: k1_mats[r2] = diag(t_r[:, r2]) DFT_L1 diag(wr[:, r2]),
+// so the halved digit is scaled by wr (k1_cs, one word per (r1, r2)),
+// transformed by log2(L1) levels of shift butterflies and scaled by t_r
+// (k1_rs). It reads neither k1_mats nor any dense matrix.
+//
+// What bounds it on the H100: the bytes, 16 per digit (the register in
+// and out); 2 mod-P products per digit and log2(L1) / 2 shifted
+// reductions, in place of the 64 full products of the dense form
+// (axis_dft.cuh, which K9's K1 phase keeps). The block layout, the one
+// barrier and the in-place rule are axis_fft.cuh's.
 
 #include <cuda_runtime.h>
 
-#include "axis_dft.cuh"
+#include "axis_fft.cuh"
 
 extern "C" int prmers_k1_p1c(const u64* x, u64* out, const u64* co,
                              const u32* wt, const u32* cum, int kk, int ct,
                              const u32* er, const u32* ec, u32 n,
-                             const u64* mats, int L1, int R2, int C,
-                             void* stream) {
+                             const u64* cs, const u64* rs, int L1, int R2,
+                             int C, void* stream) {
     if (ct <= 0 || C % ct != 0 || kk > ct) return -1;
     AxisArgs g = {};
     g.x = x;
     g.out = out;
-    g.mats = mats;
+    g.cs = cs;
+    g.rs = rs;
     g.co = co;
     g.wt = wt;
     g.cum = cum;
@@ -53,5 +56,5 @@ extern "C" int prmers_k1_p1c(const u64* x, u64* out, const u64* co,
     g.L = L1;
     g.S = R2;
     g.C = C;
-    return axis_dft_launch<AX_K1>(g, (cudaStream_t)stream);
+    return axis_fft_launch<AX_K1>(g, (cudaStream_t)stream);
 }

@@ -151,6 +151,8 @@ __device__ __forceinline__ AxisArgs axis_args(const ChainArgs& g,
     a.L = L;
     a.S = S;
     a.C = g.C;
+    a.cs = nullptr;
+    a.rs = nullptr;
     return a;
 }
 

@@ -38,12 +38,13 @@ _LL = ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: a bare Python int would be passed as a 32-bit int)
 SIGNATURES = {
-    "prmers_k1_p1c": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _U32, _P, _I, _I,
-                      _I, _P],
-    "prmers_k2_fused_c": [_P, _P, _P, _I] + [_P] * 12 + [_I] * 3 + [_P],
+    "prmers_k1_p1c": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _U32, _P, _P, _I,
+                      _I, _I, _P],
+    "prmers_k2_fused_c": [_P, _P, _P, _I] + [_P] * 10 + [_I] * 3 + [_P],
     "prmers_k3_p7c": [_P, _P, _P, _P, _P, _P, _U32, _P, _I, _U64, _I, _I,
                       _U64, _I, _I, _I, _I, _P],
-    "prmers_k5_axis1": [_P] * 8 + [_I] * 4 + [_P],
+    "prmers_k5_axis1": [_P] * 7 + [_I] * 4 + [_P],
+    "prmers_axis_fft_move": [_P] * 5 + [_I] * 5 + [_P],
     "prmers_r2_split_part": [_P] * 7 + [_I] * 5 + [_P],
     "prmers_k6_fused_c": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
     "prmers_k6b_fused_c_invh": [_P, _P, _P, _I, _P, _I, _I, _P],

@@ -17,7 +17,11 @@ pipeline mod P.
 Tables built here, all canonical u64 numpy arrays unless noted:
 
   k1_mats (R2, L1, L1)  tr_fwd_w: DFT_L1 with row scale t_r and column
-                        scale wr (the weights' r-part), one per r2
+                        scale wr (the weights' r-part), one per r2 (the
+                        plain K1, K4 forward and K9 multiply by them)
+  k1_cs, k1_rs (R1, R2)  the same matrices factored, k1_mats[r2] =
+                        diag(k1_rs[:, r2]) @ DFT_L1 @ diag(k1_cs[:, r2])
+                        (k1_cs = wr, k1_rs = t_r): what the CUDA K1 reads
   g2      (L2, L2)      the generic forward r2 DFT (natural order at
                         L2 = 5 * 2^b)
   mf, mi  (R1, R2, C)   mid / mid_inv with the weights' ca-part and the
@@ -31,10 +35,15 @@ Tables built here, all canonical u64 numpy arrays unless noted:
                         diag(cs_i[j]): what the CUDA row kernel of K2, K6
                         and K6b reads (fused_c_scales)
   tri     (R1, L2, L2)  tr_inv: inverse r2 DFT with row scale t_r_inv
-  dft5_f, dft5_i, tw_f, tw_i, sh_exp, t_r_inv
+                        (the plain versions and K9 multiply by g2, tri)
+  t_r_inv (R1, L2)      tri factored, tri[r1] = diag(t_r_inv[r1]) @
+                        DFT_L2^-1: the CUDA r2 passes' row scales, at
+                        every L2
+  dft5_f, dft5_i, tw_f, tw_i, sh_exp
                         the 5 x 2^b split of a radix-5 r2 DFT, which the
-                        CUDA r2 passes run there in place of g2 and tri
-                        (r2_split_tables; None at a power-of-two L2)
+                        CUDA r2 passes run there (r2_split_tables; None at
+                        a power-of-two L2, where they run csrc/
+                        axis_fft.cuh's shift butterflies)
   k3_mats (R2, L1, L1)  iw_inv: inverse DFT_L1 with row scale iwr / n
   er (R1, R2), ec (C,)  u32 wrap residues: halve/double where er+ec >= n
   wt, cum (R1, R2, T, k)  u32 per-carry-unit spread widths / bit offsets
@@ -559,6 +568,8 @@ class KernelTables:
     """Everything the port's kernels read (see the module docstring)."""
     fp: FourStepPlan
     k1_mats: np.ndarray
+    k1_cs: np.ndarray
+    k1_rs: np.ndarray
     g2: np.ndarray
     mf: np.ndarray
     mi: np.ndarray
@@ -698,8 +709,11 @@ def build_tables(fp: FourStepPlan) -> KernelTables:
 
     k, wt, cum = row_cin_plan(fp)
     bk, bwt, bcum = block_cin_plan(fp)
+    split = r2_split_tables(R2, base.t_r_inv) or dict(
+        t_r_inv=np.ascontiguousarray(base.t_r_inv))
     return KernelTables(
-        fp=fp, k1_mats=k1_mats, g2=g2, mf=mf, mi=mi,
+        fp=fp, k1_mats=k1_mats, k1_cs=wr.reshape(R1, R2),
+        k1_rs=np.ascontiguousarray(base.t_r), g2=g2, mf=mf, mi=mi,
         lane_f=dft_matrix(fp.ca_count, False),
         lane_i=dft_matrix(fp.ca_count, True),
         Mf=Mf, Mi=Mi, cs_f=cs_f, cs_i=cs_i, tri=tri, k3_mats=k3_mats,
@@ -708,8 +722,7 @@ def build_tables(fp: FourStepPlan) -> KernelTables:
         wt=wt, cum=cum,
         widths=fp.widths.reshape(R1, R2, C).astype(np.uint32),
         k=k, ct=carry_ct(fp), rounds=carry_rounds(fp), bwt=bwt, bcum=bcum,
-        bk=bk, k8_rounds=k8_rounds(fp),
-        **(r2_split_tables(R2, base.t_r_inv) or {}))
+        bk=bk, k8_rounds=k8_rounds(fp), **split)
 
 
 # ---------------------------------------------------------------------------

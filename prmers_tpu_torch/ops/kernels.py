@@ -21,14 +21,14 @@ per call, however many grid launches the kernel takes (K2 three, two in
 mode "fwd"; K3 two; the others one).
 
   K1  p1_carry_pass         csrc/k1_p1c.cu      carry inject, wrap halve,
-                                                r1 DFT
+                            (axis_fft.cuh)      r1 DFT
   K2  fused_c_pass          csrc/k2_fused_c.cu  r2 DFT x mf, C-transform
       (r2fold)                                  with the mode, mirror
   K3  p7_carry_pass         csrc/k3_p7c.cu      r1 inverse DFT, double,
                                                 canon, x a or + (M_p - 2),
                                                 carry per unit
   K5  axis1_pass            csrc/k5_axis1.cu    P2 (r2 DFT x mf) or P6
-                                                (x mi, r2 inverse) alone
+                            (axis_fft.cuh)      (x mi, r2 inverse) alone
   K6  fused_c_pass          csrc/k6_fused_c.cu  the C-transform with the
       (r2fold off)                              mode, no r2 passes
   K6b fused_c_invh_pass     csrc/k6_fused_c.cu  head op, inverse half of
@@ -64,6 +64,14 @@ inverse_r below, on DevTables' optional `unfolded` view), which only the
 pass profiler (tools/profile_passes.py) and the tests reach, as in the
 reference.
 
+The plain versions of K1, K5 and K2's r2 stages multiply by the dense
+folded matrices (k1_mats, g2, tri). Their CUDA launches run csrc/
+axis_fft.cuh's register-pass shift butterflies on the factored tables
+instead (k1_cs, k1_rs; mf, mi; t_r_inv): one or two products per digit,
+equal mod P; axis_fft_model, p1_carry_model and axis1_model below are
+its torch model, for the tests. K3, K4 and K9 keep the dense tile of
+csrc/axis_dft.cuh.
+
 The radix-5 plans (n = 5 * 2^k, R2 = L2 = 5 * 2^b up to 320) go through
 the same wrappers: no wrapper, plain version or kernel other than the r2
 DFT needs a power-of-two R2. K1, K3's first launch and K4 take R2 as the
@@ -97,14 +105,16 @@ KERNELS = ("k1_p1c", "k2_fused_c", "k3_p7c", "k5_axis1", "k6_fused_c",
            "k6b_fused_c_invh", "k9_chain", "k4_axis0", "k7_block_carry",
            "k8_local", "k4u_pass", "k5u_pass")
 SOURCES = {
-    "k1_p1c": "prmers_tpu_torch/csrc/k1_p1c.cu",
+    # K1 and K5 at a power-of-two length: the shift butterflies' header
+    # (k1_p1c.cu and k5_axis1.cu are their entry points)
+    "k1_p1c": "prmers_tpu_torch/csrc/axis_fft.cuh",
     # K2, K6 and K6b: the row kernel's header, which runs K6, K6b and K2's
     # row launch (the larger part of K2; k2_fused_c.cu adds its two r2
-    # launches, axis_dft.cuh's at a power-of-two L2 and r2_split.cuh's at
+    # launches, axis_fft.cuh's at a power-of-two L2 and r2_split.cuh's at
     # a radix-5 one, and k6_fused_c.cu the K6 entry points)
     "k2_fused_c": "prmers_tpu_torch/csrc/fused_c_row.cuh",
     "k3_p7c": "prmers_tpu_torch/csrc/k3_p7c.cu",
-    "k5_axis1": "prmers_tpu_torch/csrc/k5_axis1.cu",
+    "k5_axis1": "prmers_tpu_torch/csrc/axis_fft.cuh",
     "k6_fused_c": "prmers_tpu_torch/csrc/fused_c_row.cuh",
     "k6b_fused_c_invh": "prmers_tpu_torch/csrc/fused_c_row.cuh",
     "k9_chain": "prmers_tpu_torch/csrc/k9_chain.cu",
@@ -146,9 +156,9 @@ def reset_calls() -> None:
         calls[name] = 0
 
 
-_U64_TABLES = ("k1_mats", "g2", "mf", "mi", "lane_f", "lane_i", "Mf", "Mi",
-               "cs_f", "cs_i", "tri", "k3_mats", "dft5_f", "dft5_i", "tw_f",
-               "tw_i", "t_r_inv")
+_U64_TABLES = ("k1_mats", "k1_cs", "k1_rs", "g2", "mf", "mi", "lane_f",
+               "lane_i", "Mf", "Mi", "cs_f", "cs_i", "tri", "k3_mats",
+               "dft5_f", "dft5_i", "tw_f", "tw_i", "t_r_inv")
 _I32_TABLES = ("er", "ec", "wt", "cum", "widths", "bwt", "bcum", "sh_exp")
 
 # The shard views of the mesh (sharded_pallas.py:92-136): each table a view
@@ -156,11 +166,11 @@ _I32_TABLES = ("er", "ec", "wt", "cum", "widths", "bwt", "bcum", "sh_exp")
 # view leaves out are None in it, so a kernel given the wrong view fails.
 # The r2-sharded view serves K1, K3 and K4 on (R1, R2/s, C); the
 # r1-sharded one K5, K6, K6b and K8 on (R1/s, R2, C).
-R2_VIEW = {"k1_mats": 0, "k3_mats": 0, "er": 1, "ec": None, "wt": 1,
-           "cum": 1, "widths": 1}
+R2_VIEW = {"k1_mats": 0, "k1_cs": 1, "k1_rs": 1, "k3_mats": 0, "er": 1,
+           "ec": None, "wt": 1, "cum": 1, "widths": 1}
 R1_VIEW = {"g2": None, "mf": 0, "mi": 0, "lane_f": None, "lane_i": None,
            "Mf": None, "Mi": None, "cs_f": None, "cs_i": None, "tri": 0,
-           "ec": None, "widths": 0, "bwt": 0, "bcum": 0}
+           "t_r_inv": 0, "ec": None, "widths": 0, "bwt": 0, "bcum": 0}
 
 
 @dataclasses.dataclass(eq=False)
@@ -199,6 +209,8 @@ class DevTables:
     tw_i: torch.Tensor | None = None
     sh_exp: torch.Tensor | None = None
     t_r_inv: torch.Tensor | None = None
+    k1_cs: torch.Tensor | None = None
+    k1_rs: torch.Tensor | None = None
     unfolded: "UnfoldedView | None" = None
 
     @classmethod
@@ -328,16 +340,22 @@ def inject_parts(cin: torch.Tensor, wt: torch.Tensor,
     return torch.where(last, part, masked)
 
 
-def p1_carry_plain(t: DevTables, x: torch.Tensor,
-                   co: torch.Tensor) -> torch.Tensor:
-    """Plain K1: inject the rolled unit carries, halve where wrapped, then
-    the per-r2 folded r1 DFT."""
+def _p1_inject(t: DevTables, x: torch.Tensor,
+               co: torch.Tensor) -> torch.Tensor:
+    """K1's injection: the rolled unit carries' parts added to each unit's
+    first k digits."""
     k = t.k
     parts = inject_parts(roll_row_carries(co), t.wt, t.cum)
     xu = _units(t, x)
     head = xu[..., :k] + parts           # digits < 2^32: no u64 wrap
-    y = torch.cat([head, xu[..., k:]], dim=-1).reshape(t.shape)
-    return _p1_dft(t, y)
+    return torch.cat([head, xu[..., k:]], dim=-1).reshape(t.shape)
+
+
+def p1_carry_plain(t: DevTables, x: torch.Tensor,
+                   co: torch.Tensor) -> torch.Tensor:
+    """Plain K1: inject the rolled unit carries, halve where wrapped, then
+    the per-r2 folded r1 DFT."""
+    return _p1_dft(t, _p1_inject(t, x, co))
 
 
 def _p1_dft(t: DevTables, y: torch.Tensor) -> torch.Tensor:
@@ -362,7 +380,8 @@ def p1_carry_pass(t: DevTables, x: torch.Tensor, co: torch.Tensor,
     err = build.lib().prmers_k1_p1c(
         x.data_ptr(), out.data_ptr(), co.data_ptr(), t.wt.data_ptr(),
         t.cum.data_ptr(), t.k, t.ct, t.er.data_ptr(), t.ec.data_ptr(),
-        t.fp.n, t.k1_mats.data_ptr(), R1, R2, C, _stream())
+        t.fp.n, t.k1_cs.data_ptr(), t.k1_rs.data_ptr(), R1, R2, C,
+        _stream())
     calls["k1_p1c"] += 1
     build.check(err, "k1_p1c")
     return out
@@ -383,11 +402,11 @@ def axis1_plain(t: DevTables, x: torch.Tensor, which: str) -> torch.Tensor:
 
 
 def _split_ptrs(t: DevTables, inverse: bool):
-    """The split tables of one direction for csrc/r2_split.cuh: (dft5,
-    twiddles, shift exponents, t_r_inv), or four nulls at a power-of-two
-    L2."""
+    """The r2 pass's tables of one direction: (dft5, twiddles, shift
+    exponents) of csrc/r2_split.cuh at a radix-5 L2, three nulls at a
+    power-of-two one (csrc/axis_fft.cuh), then the row scales t_r_inv."""
     if t.dft5_f is None:
-        return (None,) * 4
+        return (None,) * 3 + (t.t_r_inv.data_ptr(),)
     return ((t.dft5_i if inverse else t.dft5_f).data_ptr(),
             (t.tw_i if inverse else t.tw_f).data_ptr(), _ptr(t.sh_exp),
             t.t_r_inv.data_ptr())
@@ -395,8 +414,10 @@ def _split_ptrs(t: DevTables, inverse: bool):
 
 def axis1_pass(t: DevTables, x: torch.Tensor, which: str,
                out: torch.Tensor | None = None) -> torch.Tensor:
-    """K5: P2 or P6 over the whole register (kernels.py:1574-1594); at a
-    radix-5 L2 the split form (the matrices g2 and tri are not passed)."""
+    """K5: P2 or P6 over the whole register (kernels.py:1574-1594), as
+    shift butterflies at a power-of-two L2 and the split form at a
+    radix-5 one, on mf or mi and t_r_inv (the matrices g2 and tri are the
+    plain version's)."""
     if which not in ("p2", "p6"):
         raise ValueError(which)
     _check(t, (x, out))
@@ -409,10 +430,8 @@ def axis1_pass(t: DevTables, x: torch.Tensor, which: str,
     inverse = which == "p6"
     split = _split_ptrs(t, inverse)
     err = build.lib().prmers_k5_axis1(
-        x.data_ptr(), out.data_ptr(),
-        None if split[0] else (t.tri if inverse else t.g2).data_ptr(),
-        (t.mi if inverse else t.mf).data_ptr(), *split, int(inverse), R1,
-        R2, C, _stream())
+        x.data_ptr(), out.data_ptr(), (t.mi if inverse else t.mf).data_ptr(),
+        *split, int(inverse), R1, R2, C, _stream())
     calls["k5_axis1"] += 1
     build.check(err, "k5_axis1")
     return out
@@ -498,6 +517,112 @@ def r2_split_plain(t: DevTables, x: torch.Tensor,
     return gl.mulmod(out, t.mf)
 
 
+def axis_fft_model(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """A torch model of csrc/axis_fft.cuh's schedule along dim 0 of x (L,
+    ...), L = 2^b <= 128, for the tests (the wrappers' plain versions stay
+    the dense products, which this equals mod P). L <= 8: one radix-2 DIF
+    (inverse: the mirrored DIT). Else, with x viewed as (L/8, 8): pass 1
+    the levels m = L/2 ... 8 down dim 0 (stride 8: value [t, ty] is
+    position 8t + ty, twiddle w_2m^(ty + 8 (t mod m/8))), pass 2 the
+    8-point DIF (levels 4, 2, 1) along dim 1 ([g, i] is position 8g + i,
+    the same view); the inverse runs pass 2's mirror first, then pass
+    1's. DIF order out, and in for the inverse, as fourstep.dft_matrix."""
+    L = x.shape[0]
+    if L <= 8:
+        return _dif(x, 0, inverse)
+    rest = tuple(x.shape[1:])
+    v = x.reshape((L // 8, 8) + rest)
+    if inverse:
+        v = _stride_levels(_dif(v, 1, True), True)
+    else:
+        v = _dif(_stride_levels(v, False), 1, False)
+    return v.reshape((L,) + rest)
+
+
+def _stride_levels(v: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """axis_fft.cuh's pass 1 on v (T, 8, ...): the DIF levels m = 4T ...
+    8 down dim 0, or with inverse the DIT levels 8 ... 4T by the inverse
+    roots."""
+    T = v.shape[0]
+    rest = tuple(v.shape[2:])
+    levels = [8 << i for i in range(T.bit_length() - 1)]
+    for m in (levels if inverse else levels[::-1]):
+        mt = m // 8
+        w = tfs.root_554(2 * m)
+        w = pow(w, -1, gl.P) if inverse else w
+        tw = _consts([[pow(w, ty + 8 * tt, gl.P) for ty in range(8)]
+                      for tt in range(mt)], v).reshape(
+                          (1, mt, 8) + (1,) * len(rest))
+        u = v.reshape((T // (2 * mt), 2, mt, 8) + rest)
+        a, b = u[:, 0], u[:, 1]
+        if inverse:
+            b = gl.mulmod(b, tw)
+            a, b = _add(a, b), _sub(a, b)
+        else:
+            a, b = _add(a, b), gl.mulmod(_sub(a, b), tw)
+        v = torch.stack([a, b], dim=1).reshape((T, 8) + rest)
+    return v
+
+
+def p1_carry_model(t: DevTables, x: torch.Tensor,
+                   co: torch.Tensor) -> torch.Tensor:
+    """K1 as csrc/k1_p1c.cu computes it, for the tests: the plain
+    injection and halve, x k1_cs, the r1 DFT by axis_fft_model, x k1_rs
+    (equal mod P to p1_carry_plain)."""
+    y = _p1_inject(t, x, co)
+    y = gl.join(*gl.halve_where(*gl.split(y), _wrap_mask(t)))
+    y = axis_fft_model(gl.mulmod(y, t.k1_cs.unsqueeze(-1)), False)
+    return gl.mulmod(y, t.k1_rs.unsqueeze(-1))
+
+
+def axis1_model(t: DevTables, x: torch.Tensor, which: str) -> torch.Tensor:
+    """K5 (and K2's r2 launches) at a power-of-two L2 as csrc/axis_fft.cuh
+    computes them, for the tests: "p2" the r2 DFT by axis_fft_model, x mf;
+    "p6" x mi, the inverse, x t_r_inv (equal mod P to axis1_plain)."""
+    if which not in ("p2", "p6"):
+        raise ValueError(which)
+    R1, L2, C = x.shape
+    inverse = which == "p6"
+    if inverse:
+        x = gl.mulmod(x, t.mi)
+    y = axis_fft_model(x.transpose(0, 1).contiguous(), inverse)
+    y = y.transpose(0, 1).contiguous()
+    if inverse:
+        return gl.mulmod(y, t.t_r_inv.reshape(R1, L2, 1))
+    return gl.mulmod(y, t.mf)
+
+
+AXIS_MOVES = {"k1": 0, "p2": 1, "p6": 2}     # csrc/axis_dft.cuh's modes
+
+
+def axis_fft_move(t: DevTables, x: torch.Tensor, which: str,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """The move-only body of csrc/axis_fft.cuh at L = 64 or 128, for the
+    pass profiler alone: K1 ("k1", on the r1 axis) or K5's "p2" / "p6"
+    (on the r2 axis) with its loads, shared-memory exchange and stores,
+    an add in place of every product and no butterflies. It computes no
+    transform, so no plain version exists and no counter moves. CUDA
+    tensors only."""
+    if which not in AXIS_MOVES:
+        raise ValueError(which)
+    if _on_cpu(x):
+        raise ValueError("axis_fft_move: on the card only")
+    _check(t, (x, out))
+    R1, R2, C = t.shape
+    if out is None:
+        out = torch.empty_like(x)
+    if which == "k1":
+        dims, tab, cs, rs = (1, R1, R2), None, t.k1_cs, t.k1_rs
+    else:
+        dims, cs, rs = (R1, R2, 1), None, t.t_r_inv
+        tab = t.mf if which == "p2" else t.mi
+    err = build.lib().prmers_axis_fft_move(
+        x.data_ptr(), out.data_ptr(), _ptr(tab), _ptr(cs), _ptr(rs),
+        AXIS_MOVES[which], *dims, C, _stream())
+    build.check(err, f"axis_fft_move {which}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # K2, K6, K6b: the C-transform
 # ---------------------------------------------------------------------------
@@ -562,13 +687,11 @@ def fused_c_pass(t: DevTables, x: torch.Tensor, mode: str,
     if r2fold:
         name = "k2_fused_c"
         fwd, inv = _split_ptrs(t, False), _split_ptrs(t, True)
-        dense = fwd[0] is None
         err = lib.prmers_k2_fused_c(
             x.data_ptr(), out.data_ptr(), _ptr(u), MODES[mode],
-            t.g2.data_ptr() if dense else None, t.mf.data_ptr(),
-            t.cs_f.data_ptr(), t.cs_i.data_ptr(), t.mi.data_ptr(),
-            t.tri.data_ptr() if dense else None, fwd[0], inv[0], fwd[1],
-            inv[1], fwd[2], fwd[3], R1, R2, C, _stream())
+            t.mf.data_ptr(), t.cs_f.data_ptr(), t.cs_i.data_ptr(),
+            t.mi.data_ptr(), fwd[0], inv[0], fwd[1], inv[1], fwd[2], fwd[3],
+            R1, R2, C, _stream())
     else:
         name = "k6_fused_c"
         err = lib.prmers_k6_fused_c(

@@ -44,6 +44,21 @@ version; then, under "parts", the kernel's two cut-down bodies
 and stores alone with an add for each product), held to nothing, in
 turns as --r5's.
 
+`python -m prmers_tpu_torch.tools.profile_passes --axis [reps]` times
+the axis DFTs of csrc/axis_fft.cuh (register-pass shift butterflies):
+K1 (the r1 pass) at n = 2^23 and 2^25 and K5's P2 and P6 (the r2 passes)
+at n = 2^23, 2^25 and 2^26 (L2 = 128), each beside its bound
+(axis_bound) and held against the dense plain version; then, under
+"parts", each pass's move-only body (kernels.axis_fft_move: the same
+loads, shared-memory exchange and stores with an add for each product,
+no butterflies, into a second buffer) beside its bytes bound, held to
+nothing: the full pass's time less the move's is the butterflies' and
+the products' share. A pass runs in place, as the engine runs it (K1's
+buffer drifts from digits to residues over the turns, which changes no
+instruction of it); its checked output is one more launch on the
+inputs. The two bodies run in turns (pass, move, move, pass), each turn
+`reps` launches back to back, with no allocation inside a turn.
+
 The reference tool is stale (it calls kn._to_ay, _middle and _to_ax,
 which are gone); this twin times what the reference still has.
 """
@@ -65,6 +80,10 @@ R5_BODIES = ("split", "no-levels", "move")
 P_CFFT = (136279841, 600000001)  # C = 2048 and C = 8192
 CFFT_BODIES = ("row", "no-slot-levels", "move")
 CIN = 0x9E3779B97F4A7C15        # the scalar carry K4u forward injects
+# n = 2^23, 2^25 (L1 = L2 = 64) and 2^26 (L2 = 128): K1 at the first two,
+# P2 and P6 at all three
+P_AXIS = (136279841, 600000001, 1000000007)
+AXIS_BODIES = ("pass", "move")
 
 
 def _pass_bound(t, axis: int, kw: dict):
@@ -212,6 +231,114 @@ def split_bound(t, which: str):
     return bound(per * n * OPS_PER_PRODUCT, moved)
 
 
+def axis_bound(t, which: str, co=None):
+    """K1 ("k1") or K5's "p2" / "p6" at a power-of-two length as
+    csrc/axis_fft.cuh runs them, at the fewest products their function
+    needs: log2(L) / 2 per digit for the shift butterflies and the scales
+    (K1: x k1_cs, x k1_rs; P2: x mf; P6: x mi, x t_r_inv), against the
+    register in and out and the tables read once (K1 also its carries co
+    and spread tables)."""
+    R1, R2, C = t.shape
+    n = R1 * R2 * C
+    if which == "k1":
+        per = 2 + math.log2(R1) / 2
+        moved = 16 * n + nbytes(co, t.k1_cs, t.k1_rs, t.wt, t.cum, t.er,
+                                t.ec)
+    elif which == "p2":
+        per = 1 + math.log2(R2) / 2
+        moved = 16 * n + nbytes(t.mf)
+    elif which == "p6":
+        per = 2 + math.log2(R2) / 2
+        moved = 16 * n + nbytes(t.mi, t.t_r_inv)
+    else:
+        raise ValueError(which)
+    return bound(per * n * OPS_PER_PRODUCT, moved)
+
+
+def move_bound(t, which: str):
+    """The move-only body's bytes: the register in and out and the table
+    words it adds (k1_cs and k1_rs; mf; mi and t_r_inv)."""
+    R1, R2, C = t.shape
+    tabs = {"k1": (t.k1_cs, t.k1_rs), "p2": (t.mf,),
+            "p6": (t.mi, t.t_r_inv)}[which]
+    return bound(0, 16 * R1 * R2 * C + nbytes(*tabs))
+
+
+def measure_axis(reps: int = 10):
+    """K1 and K5's P2 / P6 in the shift form at n = 2^23, 2^25 (K1 and K5)
+    and 2^26 (K5 at L2 = 128), and their move-only bodies; returns (the
+    tables of the last plan, the list of Timed, the parts' rows). Each row
+    is the mean of its two turns of `reps` launches back to back."""
+    import numpy as np
+    import torch
+
+    from ..core.plan import cached_plan
+    from ..engine.fourstep_engine import get_tables
+    from ..ops import gl64 as gl
+    from ..ops import kernels as tk
+    dev = require_card()
+    entries, parts = [], []
+    for p in P_AXIS:
+        plan = cached_plan(p)
+        t = get_tables(plan, dev)
+        R1, R2, C = t.shape
+        n = R1 * R2 * C
+        at = f"n=2^{n.bit_length() - 1}"
+        rng = np.random.default_rng(p)
+        wid = plan.widths.astype(np.uint64)
+        x = gl.from_numpy_u64(
+            rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+            & ((np.uint64(1) << wid) - np.uint64(1)), dev).reshape(t.shape)
+        co = torch.from_numpy(rng.integers(0, 1 << 40, size=t.carry_shape,
+                                           dtype=np.int64)).to(dev)
+        z = gl.from_numpy_u64(rng.integers(0, gl.P, size=t.shape,
+                                           dtype=np.uint64), dev)
+        passes = ("p2", "p6") if R2 > 64 else ("k1", "p2", "p6")
+        src = {which: x if which == "k1" else z for which in passes}
+        bufs = {which: src[which].clone() for which in passes}
+        moved = {which: torch.empty_like(x) for which in passes}
+
+        def run(body, which):
+            # no allocation here: a cudaMalloc inside the timed run would
+            # stall the host while the events count the idle card
+            buf = bufs[which]
+            if body == "move":
+                tk.axis_fft_move(t, src[which], which, out=moved[which])
+            elif which == "k1":
+                tk.p1_carry_pass(t, buf, co, out=buf)
+            else:
+                tk.axis1_pass(t, buf, which, out=buf)
+
+        runs = {}
+        for body in AXIS_BODIES + AXIS_BODIES[::-1]:
+            for which in passes:
+                runs.setdefault((body, which), []).append(
+                    stream_ms(lambda: run(body, which), reps))
+        for (body, which), ms in runs.items():
+            ms = sum(ms) / len(ms)
+            if body == "move":
+                b = move_bound(t, which)
+                parts.append({"what": f"{which} {at} move", "ms": ms,
+                              "bound_ms": b[0], "bound_by": b[1]})
+                continue
+            # the checked output: one more pass in place on the inputs
+            bufs[which].copy_(src[which])
+            run(body, which)
+            if which == "k1":
+                entries.append(Timed(
+                    "k1_p1c", f"k1 {at}", ms, *axis_bound(t, "k1", co),
+                    bufs[which],
+                    lambda t=t, x=x, co=co: tk.p1_carry_plain(t, x, co),
+                    gl.canon64))
+            else:
+                entries.append(Timed(
+                    "k5_axis1", f"{which} {at}", ms, *axis_bound(t, which),
+                    bufs[which],
+                    lambda t=t, z=z, which=which: tk.axis1_plain(t, z, which),
+                    gl.canon64))
+    return t, entries, parts
+
+
 def measure_r5(p: int = P_R5, reps: int = 10):
     """K5's P2 and P6 at a radix-5 plan in the split form, and its
     cut-down bodies; returns (the tables, the list of Timed, the parts'
@@ -290,13 +417,15 @@ def measure_cfft(reps: int = 10):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    flag = argv[0] if argv[:1] in (["--r5"], ["--cfft"]) else ""
+    flag = argv[0] if argv[:1] in (["--r5"], ["--cfft"], ["--axis"]) \
+        else ""
     if flag:
         argv = argv[1:]
-    if flag == "--cfft":
-        p = P_CFFT[-1]
+    if flag in ("--cfft", "--axis"):
+        p = P_CFFT[-1] if flag == "--cfft" else P_AXIS[-1]
         reps = int(argv[0]) if argv else 10
-        t, entries, *parts = measure_cfft(reps)
+        t, entries, *parts = (measure_cfft if flag == "--cfft"
+                              else measure_axis)(reps)
     else:
         p = int(argv[0]) if argv else (P_R5 if flag else P_DEFAULT)
         reps = int(argv[1]) if len(argv) > 1 else 10

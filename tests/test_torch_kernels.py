@@ -368,13 +368,71 @@ def test_cuda_row_kernel_matches_plain(ca):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("logn,s", [(18, 2), (18, 4), (23, 2), (23, 4)])
+@pytest.mark.parametrize("L", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_cuda_axis_fft_matches_plain(L):
+    """On the card: csrc/axis_fft.cuh's shift butterflies at every length
+    L against the dense plain versions, on lazy words: K5's P2 and P6 on a
+    (3, L, 512) register with seeded mf, mi and row scales t_r_inv (tri =
+    diag(t_r_inv[r1]) DFT^-1), out of place and in place; at L = 32 and 64
+    K1 on the plans that have that L1 (n = 2^15, 2^18), in place; at L =
+    64 and 128 the move-only body launches (it computes no transform)."""
+    import types
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    R1, C = 3, 512
+    rng = np.random.default_rng(1000 + L)
+    trs = rng.integers(0, GP, size=(R1, L), dtype=np.uint64)
+
+    def put(a):
+        return tgl.from_numpy_u64(a, dev)
+
+    t = types.SimpleNamespace(
+        shape=(R1, L, C), device=dev, row_carry_shape=(R1, L, 1),
+        g2=put(tfs.dft_matrix(L, False)),
+        tri=put(tfs._fold_rows(tfs.dft_matrix(L, True), trs)),
+        t_r_inv=put(trs), dft5_f=None,
+        **{k: put(rng.integers(0, GP, size=(R1, L, C), dtype=np.uint64))
+           for k in ("mf", "mi")})
+    x = put(rng.integers(0, 1 << 64, size=t.shape, dtype=np.uint64))
+
+    def same(got, want):
+        return torch.equal(tgl.canon64(got), tgl.canon64(want))
+
+    for which in ("p2", "p6"):
+        want = tk.axis1_plain(t, x, which)
+        assert same(tk.axis1_pass(t, x, which), want), which
+        y = x.clone()
+        tk.axis1_pass(t, y, which, out=y)
+        assert same(y, want), (which, "in place")
+        if L >= 64:
+            tk.axis_fft_move(t, x, which)
+    if L in (32, 64):
+        n = 1 << (15 if L == 32 else 18)
+        plan = build_plan(int(n * 16.5) | 1, n=n)
+        tt = tk.DevTables.from_host(
+            tfs.build_tables(tfs.FourStepPlan.from_plan(plan)), dev)
+        assert tt.shape[0] == L
+        xd = _t(_digits(plan, rng).reshape(tt.shape)).to(dev)
+        co = torch.from_numpy(rng.integers(0, 1 << 40, size=tt.carry_shape,
+                                           dtype=np.int64)).to(dev)
+        want = tk.p1_carry_plain(tt, xd, co)
+        tk.p1_carry_pass(tt, xd, co, out=xd)
+        assert same(xd, want)
+        if L == 64:
+            tk.axis_fft_move(tt, xd, "k1")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logn,s", [(18, 2), (18, 4), (23, 2), (23, 4),
+                                    (26, 2)])
 def test_cuda_shard_kernels_match_plain(logn, s):
     """On the card: the mesh's shard-local launches of the first and the
     last of s ranks, each against its plain version on the same inputs:
     K1, K3 (a = 1, 3 and sub2 with the rank's amount) and K4 both ways on
     the r2-sharded view (R1, R2/s, C); K5, K6, K6b and K8 (a = 1, 3) on
-    the r1-sharded view (R1/s, R2, C)."""
+    the r1-sharded view (R1/s, R2, C) (at n = 2^26 K5 at L2 = 128)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     n = 1 << logn
