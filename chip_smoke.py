@@ -31,9 +31,10 @@ Phases; any failure raises and the script exits non-zero with no result:
      (one nvcc per prmers_tpu_torch/csrc/*.cu, all at once, timed);
   2. every kernel wrapper (K1; K2 and K6 in modes sqr/fwd/mul; K5 P2 and
      P6; K6b with head op sqr/mul/none on K6 "fwd"'s output; K3 with a =
-     1, a = 3 and sub2; at a power-of-two length K1, K5 and K2's r2
-     launches run csrc/axis_fft.cuh's shift butterflies, their plain
-     versions the dense matrices) against its plain torch version on the
+     1, a = 3 and sub2; at a power-of-two length K1, K5, K2's r2
+     launches, K3's first launch and both K4 launches run
+     csrc/axis_fft.cuh's shift butterflies, their plain versions the
+     dense matrices) against its plain torch version on the
      same inputs on the card, at n = 2^15, 2^18, 2^23, 2^25 (p = 600000001) and 2^26
      (p = 1000000007), at two forced pipelines (T = 4 carry units at
      n = 2^16; the split C-transform with T = 2 at 2^18), and at the
@@ -119,8 +120,9 @@ Phases; any failure raises and the script exits non-zero with no result:
      p = 136279841, n = 2^23: K4 forward, K2, K4 inverse, and the unfolded
      passes K4u forward (with a scalar carry), K5u forward, K5u inverse,
      K4u inverse in the matrix and the shift form; the axis DFTs of
-     csrc/axis_fft.cuh (profile_passes --axis: K1 at 2^23 and 2^25, K5's
-     P2 and P6 at 2^23, 2^25 and 2^26, each beside its move-only body);
+     csrc/axis_fft.cuh (profile_passes --axis: K1, K3a (launched as K4
+     inverse) and K4 forward with block carries at 2^23 and 2^25, K5's P2
+     and P6 at 2^23, 2^25 and 2^26, each beside its move-only body);
      the microbenchmarks
      (tools/microbench: the library's serial int8/bf16 products, probe_vpu
      and probe_mulmod with their rates; tools/microbench_fields:
@@ -142,6 +144,7 @@ true, "device": {...}}.
 """
 
 import json
+import math
 import os
 import random
 import shutil
@@ -1032,16 +1035,18 @@ def main(argv) -> int:
         return ((b[0][0] + b[1][0]) / 2,
                 max(b, key=lambda v: v[0])[1])
 
-    # K1 and K5 at the fewest products their function needs
+    # K1, K3 and K5 at the fewest products their function needs
     # (profile_passes.axis_bound: the shift butterflies' log2(L) / 2 per
     # digit and the scales) against the register and the tables they read
-    # (the scales, not k1_mats or g2): by bytes
+    # (the scales, not k1_mats, k3_mats or g2; K3 also K3b's widths and
+    # carries): by bytes
     bounds = {}
     for (t, co), pre in ((main_in[:3:2], ""), (big_in[:3:2], "[T>1]")):
         L1, L2, ca, n, _ = shape_of(t)
         bounds["k1_p1c" + pre] = profile_passes.axis_bound(t, "k1", co)
-        bounds["k3_p7c" + pre] = bound(L1 * n, 16 * n + nbytes(
-            co, t.widths, t.k3_mats, t.er, t.ec))
+        bounds["k3_p7c" + pre] = bound((1 + math.log2(L1) / 2) * n,
+                                       16 * n + nbytes(co, t.widths, t.k3_rs,
+                                                       t.er, t.ec))
         if pre == "":
             bounds["k2_fused_c"] = profile_passes.span_bound(t)
         else:
@@ -1053,12 +1058,14 @@ def main(argv) -> int:
     bounds["k9_chain"] = k9_bound(t, co)
 
     def block_bounds(t, bco):
-        """K4: the mean of forward (digits, carries, spread tables in) and
-        inverse (digits, tables in), L1 products per digit each; K7 with
-        a = 1: y and widths in, digits and carries out, no products."""
-        L1, _L2, _ca, n, _ = shape_of(t)
-        tabs = (nbytes(bco, t.k1_mats, t.bwt, t.bcum) + nbytes(t.k3_mats)) / 2
-        return (bound(L1 * n, 16 * n + tabs + nbytes(t.er, t.ec)),
+        """K4: the mean of forward with carries and inverse as shift
+        butterflies (profile_passes.axis_bound "k4f" and "k3": the scales,
+        the carries and spread tables, not k1_mats or k3_mats); K7 with a =
+        1: y and widths in, digits and carries out, no products."""
+        n = shape_of(t)[3]
+        b = [profile_passes.axis_bound(t, "k4f", bco),
+             profile_passes.axis_bound(t, "k3")]
+        return (((b[0][0] + b[1][0]) / 2, max(b, key=lambda v: v[0])[1]),
                 bound(0, 20 * n + 8 * t.block_carry_shape[0]))
 
     # K2, K6 and K6b at the fewest products their function needs

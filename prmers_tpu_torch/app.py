@@ -3,10 +3,15 @@
 Counterpart of prmers_tpu/core/app.py:92-124. It parses with the port's
 copy of the CLI (io/cli.parse_args), runs its copy of the PRP/LL driver
 (modes/prp_ll.run_prp_or_ll) on the port's engine, and prints the
-PrimeNet result JSON (io/json_out). Other modes, PRP proofs, the second
-arithmetic (`-arith fft3161`, its `-pfa*` aliases, PRMERS_ARITH=fft3161)
-and `-profile` are not ported yet and stop with a message saying so,
-rather than run Goldilocks unprofiled under a flag that asked otherwise.
+PrimeNet result JSON (io/json_out). As prmers_tpu/core/app.py:270-274 and
+:293 do, rank 0 appends that line to the results file (`-results`,
+default results.txt), writes it to `<save_dir>/<p>_<mode>_result.json`
+(io/worktodo, a copy of the JAX package's) and tees its log to
+`<save_dir>/prmers.log` (LogTee). Other modes, PRP proofs, the second
+arithmetic (`-arith fft3161`, its `-pfa*` aliases, PRMERS_ARITH=fft3161),
+`-profile`, `-filemers` (the .mers to GMP-ECM conversion) and `-gui` (the
+web GUI) are not ported yet and stop with a message saying so, before any
+engine is made, rather than run a PRP under a flag that asked otherwise.
 
 Under torchrun (or the JAX package's PRMERS_COORDINATOR variables) each
 process joins the group first (parallel/dist.init_from_env, as
@@ -21,16 +26,49 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 
 from .engine.factory import create_engine
 from .io import json_out
 from .io.cli import parse_args
+from .io.worktodo import append_results_txt, write_individual_json
 from .modes.prp_ll import run_prp_or_ll
 from .parallel import dist
 
 
+class LogTee:
+    """The log callable: prints each line and appends it, time-stamped, to
+    a file (prmers_tpu/core/app.py:196-224; the reference's stdout tee)."""
+
+    def __init__(self, path: str, inner=print):
+        self.inner = inner
+        self._f = None
+        try:
+            self._f = open(path, "a", buffering=1)
+        except OSError:
+            pass
+
+    def __call__(self, *args, **kwargs):
+        self.inner(*args, **kwargs)
+        if self._f is not None:
+            try:
+                stamp = time.strftime("%Y-%m-%d %H:%M:%S")
+                self._f.write(f"[{stamp}] " +
+                              " ".join(str(a) for a in args) + "\n")
+            except OSError:
+                pass
+
+    def close(self):
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+
+
 def run(opts, device=None, log=print):
     """One PRP/LL run; returns (result, json_line)."""
+    if opts.filemers or opts.gui:
+        raise SystemExit(f"{'-filemers' if opts.filemers else '-gui'} is "
+                         "not yet ported to prmers_tpu_torch")
     if opts.mode not in ("prp", "ll"):
         raise SystemExit(f"mode {opts.mode!r} is not yet ported to "
                          "prmers_tpu_torch (PRP and LL only)")
@@ -76,8 +114,16 @@ def main(argv=None) -> int:
     dist.init_from_env()
     try:
         if dist.is_primary():
-            r, j = run(opts)
-            print(j)
+            os.makedirs(opts.save_dir, exist_ok=True)
+            log = LogTee(os.path.join(opts.save_dir, "prmers.log"))
+            try:
+                r, j = run(opts, log=log)
+                append_results_txt(opts.results_path, j)
+                write_individual_json(opts.save_dir, opts.exponent,
+                                      opts.mode, j)
+                log(j)
+            finally:
+                log.close()
         else:
             with open(os.devnull, "w") as null, \
                     contextlib.redirect_stdout(null):

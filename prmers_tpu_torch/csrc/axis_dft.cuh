@@ -1,29 +1,27 @@
 // Length-L DFT down one axis of the (R1, R2, C) register, as a direct
-// mod-P matrix product on a shared-memory tile: the first launch of K3 (the
-// r1 axis, one matrix per r2), both forms of K4 (K1's and K3's first
-// launch with the carry of the block-carry pipeline), and the four axis
-// phases of K9 (its K1, K2a, K2c and K3a stages).
+// mod-P matrix product on a shared-memory tile: the four axis phases of
+// the persistent K9 kernel (its K1, K2a, K2c and K3a stages, k9_chain.cu),
+// which calls axis_dft_tile directly.
 //
-// K1, K2's two r2 launches and the two K5 passes at a power-of-two L2 no
-// longer come here: they run axis_fft.cuh's register-pass shift
-// butterflies on the factored tables (one or two products per digit),
-// which share this header's view, modes and K1 prologue
-// (ax_k1_inject_halve). The AX_K1, AX_K2A and AX_K2C tiles stay for K9.
+// No other launch comes here any more: K1, K2's two r2 launches, the two
+// K5 passes at a power-of-two L2, K3's first launch (K3a) and both K4
+// launches run axis_fft.cuh's register-pass shift butterflies on the
+// factored tables (one or two products per digit), which share this
+// header's view, modes, arguments and K1 prologue (ax_k1_inject_halve).
 //
 // The array is viewed as (O, L, S, C): element (o, j, s, c) at
-// ((o*L + j)*S + s)*C + c, the transform runs over j. A block owns one
+// ((o*L + j)*S + s)*C + c, the transform runs over j. A tile owns one
 // (o, s) pair and a slab of AX_TC consecutive columns, so every global
 // access is a run of AX_TC u64 words. It stages the L x L matrix and the
 // L x AX_TC input slab (after the mode's prologue) in shared memory, then
 // each thread forms L/AX_TY outputs of one column: out[k] = sum_j M[k][j]
 // x[j], the L full products summed in a 192-bit accumulator and reduced
-// once. The block reads and writes the same element set, so the kernel
-// may run in place (out == x). At L = 128 the tile is 160 KiB of shared
-// memory, so one block (8 warps) per SM.
+// once. A tile that takes all L outputs reads and writes the same element
+// set, so it may run in place (out == x).
 //
 // What bounds it on the H100: L mod-P products per digit (64 at L = 64)
-// on the integer pipe, against 16 bytes of device traffic per digit; K3a
-// and K4 are the next to move onto axis_fft.cuh's form.
+// on the integer pipe, against 16 bytes of device traffic per digit; K9's
+// tiles are the next to move onto axis_fft.cuh's form.
 //
 // The radix-5 r2 factors L = 5 * 2^b (n = 5 * 2^k) do not come here: K2
 // and K5 take them to r2_split.cuh's 5 x 2^b split, and the r1 axis
@@ -43,7 +41,7 @@ enum AxisMode {
     AX_K2C = 2,  // x mi first, matrix per o (= r1) (P6: K2's last, K5)
     AX_K3A = 3,  // matrix per s, then wrap double, canon, optional x a
     AX_K4F = 4   // block-carry inject (when co is given) + wrap halve,
-                 // matrix per s
+                 // then K1's transform (axis_fft.cuh only)
 };
 
 struct AxisArgs {
@@ -69,8 +67,8 @@ struct AxisArgs {
     int with_a;
     int O, L, S, C;
     // axis_fft.cuh only: the column scales applied before the transform
-    // (K1: k1_cs (L, S)) and the row scales after it (K1: k1_rs (L, S);
-    // K2C: t_r_inv (O, L))
+    // (K1, K4F: k1_cs (L, S)) and the row scales after it (K1, K4F: k1_rs
+    // (L, S); K2C: t_r_inv (O, L); K3A: k3_rs (L, S))
     const u64* cs;
     const u64* rs;
 };
@@ -116,7 +114,7 @@ __device__ __forceinline__ void axis_dft_tile(const AxisArgs& g, int o, int s,
     const int c = cb * AX_TC + tx;
 
     int var = 0;
-    if (MODE == AX_K1 || MODE == AX_K3A || MODE == AX_K4F) var = s;
+    if (MODE == AX_K1 || MODE == AX_K3A) var = s;
     if (MODE == AX_K2C) var = o;
     const u64* M = g.mats + (size_t)var * L * L;
     u64* xs = smem + L * L;     // L * AX_TC
@@ -127,20 +125,6 @@ __device__ __forceinline__ void axis_dft_tile(const AxisArgs& g, int o, int s,
         const size_t idx = ((size_t)(o * L + j) * S + s) * C + c;
         u64 v = g.x[idx];
         if (MODE == AX_K1) v = ax_k1_inject_halve(g, j, s, c, v);
-        if (MODE == AX_K4F) {
-            // r1 block j starts at (j, s = 0, c = 0) and takes block
-            // j-1's carry (block 0 the last one's), the roll folded in as
-            // in K1; inject before the halve, as the JAX block pipeline's
-            // XLA strip runs before its P1
-            if (g.co != nullptr && s == 0 && c < g.kk) {
-                const u64 cin = g.co[(j + L - 1) % L];
-                const u32 cm = g.cum[j * g.kk + c];
-                u32 part = cm < 64 ? (u32)(cin >> cm) : 0u;
-                if (c < g.kk - 1) part &= (1u << g.wt[j * g.kk + c]) - 1u;
-                v += part;
-            }
-            if (g.er[j * S + s] + g.ec[c] >= g.n) v = gl_halve(v);
-        }
         if (MODE == AX_K2C) v = gl_mul(v, g.tab[idx]);
         xs[j * AX_TC + tx] = v;
     }
@@ -163,30 +147,4 @@ __device__ __forceinline__ void axis_dft_tile(const AxisArgs& g, int o, int s,
     }
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(AX_TC * AX_TY)
-axis_dft_kernel(AxisArgs g) {
-    extern __shared__ u64 ax_smem[];
-    axis_dft_tile<MODE>(g, blockIdx.z, blockIdx.y, blockIdx.x, 0, g.L,
-                        ax_smem, threadIdx.y * AX_TC + threadIdx.x);
-}
-
 }  // namespace
-
-// Launch over the whole (O, L, S, C) array, the matrix and the slab in
-// shared memory; returns cudaGetLastError(), or -1 for a length whose
-// tile exceeds a block's shared memory.
-template <int MODE>
-static int axis_dft_launch(const AxisArgs& g, cudaStream_t stream) {
-    const size_t smem = ((size_t)g.L * AX_TC + (size_t)g.L * g.L) *
-                        sizeof(u64);
-    if (smem > AX_SMEM_MAX) return -1;
-    cudaError_t err = cudaFuncSetAttribute(
-        axis_dft_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(g.C / AX_TC, g.S, g.O);
-    dim3 block(AX_TC, AX_TY);
-    axis_dft_kernel<MODE><<<grid, block, smem, stream>>>(g);
-    return (int)cudaGetLastError();
-}

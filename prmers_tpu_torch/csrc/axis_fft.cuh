@@ -1,19 +1,27 @@
 // The length-L axis DFT (L = 2^LL, 1 <= L <= 128) of K1, of K2's two r2
-// launches and of the two K5 passes at a power-of-two L2, as register-pass
-// shift butterflies with at most two products per digit.
+// launches, of the two K5 passes at a power-of-two L2, of K3's first
+// launch (K3a) and of both K4 launches, as register-pass shift butterflies
+// with at most two products per digit.
 //
 // Replaces, on those launches, axis_dft.cuh's dense tile (L full mod-P
-// products per digit by the folded matrices k1_mats, g2 and tri), which
-// stands for the Pallas kernels _p1c_kernel (prmers_tpu/ops/pallas/
-// kernels.py:512) and _pass_kernel in its axis-1 form (:130, through
-// _axis1_pass :452 and the r2fold stages of _fused_c_kernel :991). The
-// same functions, exact mod P, over the (O, L, S, C) view of axis_dft.cuh
-// (element (o, j, s, c) at ((o*L + j)*S + s)*C + c, the transform over j):
+// products per digit by the folded matrices k1_mats, k3_mats, g2 and tri),
+// which stands for the Pallas kernels _p1c_kernel (prmers_tpu/ops/pallas/
+// kernels.py:512), the first half of _p7c_kernel (:612), and _pass_kernel
+// (:130) in its axis-0 form (through _axis0_pass :268) and its axis-1
+// form (through _axis1_pass :452 and the r2fold stages of _fused_c_kernel
+// :991). The same functions, exact mod P, over the (O, L, S, C) view of
+// axis_dft.cuh (element (o, j, s, c) at ((o*L + j)*S + s)*C + c, the
+// transform over j):
 //   AX_K1   y = halve(x + carry parts) * k1_cs[j, s]; the DIF; * k1_rs[k, s]
 //           (k1_mats[s] = diag(t_r[:, s]) DFT_L1 diag(wr[:, s]))
+//   AX_K4F  the same with the block-carry inject (the first kk digits of
+//           r1 block j take block j-1's carry, at s = 0) in place of K1's
 //   AX_K2A  the DIF; * mf                            (g2 = DFT_L2)
 //   AX_K2C  * mi; the inverse DIT; * t_r_inv[o, k]   (tri[o] = diag(t_r_inv[o])
 //                                                     DFT_L2^-1)
+//   AX_K3A  the inverse DIT; * k3_rs[k, s]; double where er + ec >= n;
+//           canon; optionally * a, canon           (k3_mats[s] = diag(
+//           (K3a; K4 inverse with no * a)           k3_rs[:, s]) DFT_L1^-1)
 // The DIF is radix 2 in place: a + b and (a - b) w_2m^jj at half-size m,
 // jj = j mod m; it leaves frequency bitrev(k) at position k, the DIF order
 // of fourstep.dft_matrix, so no permutation is needed. The inverse is the
@@ -22,6 +30,10 @@
 // shift; w_128 = 2^25 (2^48 - 1) with w_128^2 = 2^3, so the first level of
 // a 128-point DIF (the last of its inverse) takes gl_mul_w128pow: two
 // shifts and a subtraction.
+//
+// K3a's output is K3b's input (k3b_carry.cuh), canonical: its double and
+// canon follow the row scale, so it equals the dense tile's bit for bit.
+// The double's mask is that of the natural-order output row k.
 //
 // The schedule, for L >= 16 (L <= 8 is one register pass):
 //   pass 1  the thread of column c and row ty (0 ... 7) holds the T = L/8
@@ -52,11 +64,12 @@
 // L x 32 words (16 KiB at L = 64, 32 KiB at 128).
 //
 // What bounds it on the H100: the bytes, 16 per digit (24 with mf or mi)
-// against 1 (K2A) or 2 (K1, K2C) products per digit and log2(L) / 2
-// shifted reductions. AXF_MOVE is a cut-down body for the pass profiler
-// (tools/profile_passes.py --axis): the same loads, exchange and stores
-// with an add in place of every product and no butterfly levels; it
-// computes no transform.
+// against 1 (K2A, K3A with a = 1) or 2 (K1, K4F, K2C, K3A with a) products
+// per digit and log2(L) / 2 shifted reductions. AXF_MOVE is a cut-down
+// body for the pass profiler (tools/profile_passes.py --axis): the same
+// loads, exchange and stores with an add in place of every product (the
+// scales' words read, not the carries or the wrap residues) and no
+// butterfly levels; it computes no transform.
 #pragma once
 
 #include "gl64.cuh"
@@ -129,34 +142,63 @@ enum { AXF_FULL = 0, AXF_MOVE = 1 };
 
 namespace {
 
-// The prologue of element (j, s, c) at idx: K1's carry parts, halve and x
-// k1_cs[j, s]; K2C's x mi; K2A none. AXF_MOVE reads the same table words
-// and adds them.
+// K4 forward's prologue of element (j, s, c) of the (1, L, S, C) view
+// before its scale: r1 block j starts at (j, s = 0, c = 0) and takes block
+// j-1's carry (block 0 the last one's), the roll folded in as in K1,
+// spread over its first kk digits; inject before the halve, as the JAX
+// block pipeline's XLA strip runs before its P1. No carries (co null: the
+// hybrid's K4), no inject.
+__device__ __forceinline__ u64 axf_k4_inject_halve(const AxisArgs& g, int j,
+                                                   int s, int c, u64 v) {
+    if (g.co != nullptr && s == 0 && c < g.kk) {
+        const u64 cin = g.co[(j + g.L - 1) % g.L];
+        const u32 cm = g.cum[j * g.kk + c];
+        u32 part = cm < 64 ? (u32)(cin >> cm) : 0u;
+        if (c < g.kk - 1) part &= (1u << g.wt[j * g.kk + c]) - 1u;
+        v += part;
+    }
+    if (g.er[j * g.S + s] + g.ec[c] >= g.n) v = gl_halve(v);
+    return v;
+}
+
+// The prologue of element (j, s, c) at idx: K1's and K4F's carry parts,
+// halve and x k1_cs[j, s]; K2C's x mi; K2A and K3A none. AXF_MOVE reads the
+// same table words and adds them.
 template <int MODE, int PART>
 __device__ __forceinline__ u64 axf_pre(const AxisArgs& g, u64 v, int j,
                                        int s, int c, size_t idx) {
-    if (MODE == AX_K2A) return v;
-    const u64 f = MODE == AX_K1 ? g.cs[j * g.S + s] : g.tab[idx];
+    if (MODE == AX_K2A || MODE == AX_K3A) return v;
+    const u64 f = MODE == AX_K2C ? g.tab[idx] : g.cs[j * g.S + s];
     if (PART == AXF_MOVE) return gl_add(v, f);
     if (MODE == AX_K1) v = ax_k1_inject_halve(g, j, s, c, v);
+    if (MODE == AX_K4F) v = axf_k4_inject_halve(g, j, s, c, v);
     return gl_mul(v, f);
 }
 
-// The epilogue of output (o, k, s) at idx: x k1_rs[k, s] (K1), x mf (K2A)
-// or x t_r_inv[o, k] (K2C).
+// The epilogue of output (o, k, s, c) at idx: x k1_rs[k, s] (K1, K4F), x mf
+// (K2A), x t_r_inv[o, k] (K2C), or K3A's x k3_rs[k, s], double where the
+// output row's weight wraps, canon and, with with_a (uniform over the
+// grid), x a and canon: canonical out, as K3b takes it.
 template <int MODE, int PART>
 __device__ __forceinline__ u64 axf_post(const AxisArgs& g, u64 v, int o,
-                                        int k, int s, size_t idx) {
-    const u64 f = MODE == AX_K1    ? g.rs[k * g.S + s]
-                  : MODE == AX_K2A ? g.tab[idx]
-                                   : g.rs[o * g.L + k];
-    return PART == AXF_MOVE ? gl_add(v, f) : gl_mul(v, f);
+                                        int k, int s, int c, size_t idx) {
+    const u64 f = MODE == AX_K2A   ? g.tab[idx]
+                  : MODE == AX_K2C ? g.rs[o * g.L + k]
+                                   : g.rs[k * g.S + s];
+    if (PART == AXF_MOVE) return gl_add(v, f);
+    v = gl_mul(v, f);
+    if (MODE == AX_K3A) {
+        if (g.er[k * g.S + s] + g.ec[c] >= g.n) v = gl_double(v);
+        v = gl_canon(v);
+        if (g.with_a) v = gl_canon(gl_mul(v, g.a));
+    }
+    return v;
 }
 
 template <int MODE, int LL, int PART>
 __global__ void __launch_bounds__(AX_TC * AX_TY) axis_fft_kernel(AxisArgs g) {
     constexpr int L = 1 << LL;
-    constexpr bool INV = MODE == AX_K2C;
+    constexpr bool INV = MODE == AX_K2C || MODE == AX_K3A;
     constexpr bool LEVELS = PART == AXF_FULL;
     const int tx = threadIdx.x, ty = threadIdx.y;
     const int o = blockIdx.z, s = blockIdx.y;
@@ -178,7 +220,7 @@ __global__ void __launch_bounds__(AX_TC * AX_TY) axis_fft_kernel(AxisArgs g) {
         if constexpr (LEVELS && !INV) gl_dif_shift<LL>(v, 1);
 #pragma unroll
         for (int k = 0; k < L; ++k)
-            g.out[idx[k]] = axf_post<MODE, PART>(g, v[k], o, k, s, idx[k]);
+            g.out[idx[k]] = axf_post<MODE, PART>(g, v[k], o, k, s, c, idx[k]);
     } else {
         constexpr int T = L / 8;            // pass-1 values per thread
         constexpr int G = T >= 8 ? T / 8 : 1;  // pass-2 groups per thread
@@ -214,7 +256,7 @@ __global__ void __launch_bounds__(AX_TC * AX_TY) axis_fft_kernel(AxisArgs g) {
                     for (int i = 0; i < 8; ++i) {
                         const size_t idx = base + (k0 + i) * rs;
                         g.out[idx] = axf_post<MODE, PART>(g, w[i], o, k0 + i,
-                                                          s, idx);
+                                                          s, c, idx);
                     }
                 }
             }
@@ -248,7 +290,7 @@ __global__ void __launch_bounds__(AX_TC * AX_TY) axis_fft_kernel(AxisArgs g) {
             for (int t = 0; t < T; ++t) {
                 const int k = ty + 8 * t;
                 const size_t idx = base + k * rs;
-                g.out[idx] = axf_post<MODE, PART>(g, v[t], o, k, s, idx);
+                g.out[idx] = axf_post<MODE, PART>(g, v[t], o, k, s, c, idx);
             }
         }
     }
@@ -268,12 +310,12 @@ static int axf_launch(const AxisArgs& g, cudaStream_t stream) {
 
 // One pass over the whole (O, L, S, C) array; returns cudaGetLastError(),
 // or -1 for a shape the kernel does not take (L not a power of two up to
-// 128, or above 64 for K1, whose r1 axis never exceeds 64; C not a
-// multiple of the block's columns). The move-only body is built for L =
-// 64 and 128 alone, the lengths the profiler times.
+// 128, or above 64 for the r1 axis of K1, K3A and K4F, which never exceeds
+// 64; C not a multiple of the block's columns). The move-only body is
+// built for L = 64 and 128 alone, the lengths the profiler times.
 template <int MODE, int PART = AXF_FULL>
 static int axis_fft_launch(const AxisArgs& g, cudaStream_t stream) {
-    constexpr bool L128 = MODE != AX_K1;
+    constexpr bool L128 = MODE == AX_K2A || MODE == AX_K2C;
     if constexpr (PART == AXF_MOVE) {
         if (g.L == 64) return axf_launch<MODE, 6, AXF_MOVE>(g, stream);
         if constexpr (L128)

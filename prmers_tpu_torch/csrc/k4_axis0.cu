@@ -21,24 +21,31 @@
 // (C = 8192); a block here already holds a slab of AX_TC columns, so the
 // one grid serves every C.
 //
-// What bounds it on the H100: 64 mod-P products per digit on the integer
-// pipe, against 16 bytes of device traffic per digit, as K1 and K3a
-// (axis_dft.cuh, whose tile it is).
+// Both run as axis_fft.cuh's register-pass shift butterflies on the
+// factored matrices: forward mode AX_K4F, K1's body (x k1_cs, the DIF, x
+// k1_rs; k1_mats[r2] = diag(k1_rs[:, r2]) DFT_L1 diag(k1_cs[:, r2])) with
+// the block-carry inject as its prologue; inverse mode AX_K3A with no x a
+// (x k3_rs after the inverse DIT). Neither reads k1_mats or k3_mats.
+//
+// What bounds it on the H100: the bytes, 16 per digit (the register in
+// and out), against 2 (forward) or 1 (inverse) mod-P products and
+// log2(L1) / 2 shifted reductions per digit, as K1 and K3a.
 
 #include <cuda_runtime.h>
 
-#include "axis_dft.cuh"
+#include "axis_fft.cuh"
 
 extern "C" int prmers_k4_axis0(const u64* x, u64* out, int inverse,
                                const u64* co, const u32* wt, const u32* cum,
                                int kk, const u32* er, const u32* ec, u32 n,
-                               const u64* mats, int L1, int R2, int C,
-                               void* stream) {
+                               const u64* cs, const u64* rs, int L1, int R2,
+                               int C, void* stream) {
     if (kk <= 0 || kk > C) return -1;
     AxisArgs g = {};
     g.x = x;
     g.out = out;
-    g.mats = mats;
+    g.cs = cs;
+    g.rs = rs;
     g.co = co;
     g.wt = wt;
     g.cum = cum;
@@ -51,6 +58,6 @@ extern "C" int prmers_k4_axis0(const u64* x, u64* out, int inverse,
     g.S = R2;
     g.C = C;
     cudaStream_t st = (cudaStream_t)stream;
-    return inverse ? axis_dft_launch<AX_K3A>(g, st)
-                   : axis_dft_launch<AX_K4F>(g, st);
+    return inverse ? axis_fft_launch<AX_K3A>(g, st)
+                   : axis_fft_launch<AX_K4F>(g, st);
 }

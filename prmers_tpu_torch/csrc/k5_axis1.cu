@@ -57,9 +57,11 @@ extern "C" int prmers_k5_axis1(const u64* x, u64* out, const u64* tab,
 }
 
 // The move-only body of axis_fft.cuh (AXF_MOVE) in one mode (AX_K1,
-// AX_K2A or AX_K2C) over the (O, L, S, C) view at L = 64 or 128: the
-// loads of x and of the mode's tables (cs before, tab or rs after), the
-// shared-memory exchange and the stores, an add for each product.
+// AX_K2A, AX_K2C or AX_K3A) over the (O, L, S, C) view at L = 64 or 128
+// (64 for the r1 modes): the loads of x and of the mode's tables (cs
+// before, tab or rs after), the shared-memory exchange and the stores, an
+// add for each product. K4 forward's (AX_K4F) would be AX_K1's: both read
+// k1_cs and k1_rs, and neither reads the carries.
 extern "C" int prmers_axis_fft_move(const u64* x, u64* out, const u64* tab,
                                     const u64* cs, const u64* rs, int mode,
                                     int O, int L, int S, int C,
@@ -78,6 +80,7 @@ extern "C" int prmers_axis_fft_move(const u64* x, u64* out, const u64* tab,
     if (mode == AX_K1) return axis_fft_launch<AX_K1, AXF_MOVE>(g, st);
     if (mode == AX_K2A) return axis_fft_launch<AX_K2A, AXF_MOVE>(g, st);
     if (mode == AX_K2C) return axis_fft_launch<AX_K2C, AXF_MOVE>(g, st);
+    if (mode == AX_K3A) return axis_fft_launch<AX_K3A, AXF_MOVE>(g, st);
     return -1;
 }
 

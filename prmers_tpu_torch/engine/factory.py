@@ -39,6 +39,13 @@ kernels.py:1619-1628, and the third ends in the assert at :1675), so the
 port has no such pipeline. The unfolded passes themselves are ported
 (ops/kernels.forward_r, inverse_r) and run through
 tools/profile_passes, as in the reference.
+
+Two more switches name engines the port does not have yet, and make
+create_engine raise NotImplementedError in the same way: PRMERS_NO_PALLAS
+(the JAX package's XLA engines in place of its kernel engines,
+factory.py:40 and :73) and PRMERS_SHARDED_IMPL=xla (the XLA mesh engine,
+:74 and :180). Neither is ported (ROADMAP queue 1), so a run under them
+stops rather than take the kernel engine they turned away from.
 """
 
 from __future__ import annotations
@@ -88,6 +95,14 @@ def create_engine(p: int, reg_count: int, device=None,
                 "PRMERS_NO_WFOLD and PRMERS_NO_FUSE give wrong results "
                 "(ROADMAP queue 3); unset it. The unfolded passes run "
                 "through python -m prmers_tpu_torch.tools.profile_passes")
+    if os.environ.get("PRMERS_NO_PALLAS"):
+        raise NotImplementedError(
+            "PRMERS_NO_PALLAS selects the JAX package's XLA engines, which "
+            "are not ported to prmers_tpu_torch; unset it")
+    if os.environ.get("PRMERS_SHARDED_IMPL") == "xla":
+        raise NotImplementedError(
+            "PRMERS_SHARDED_IMPL=xla selects the JAX package's XLA mesh "
+            "engine, which is not ported to prmers_tpu_torch; unset it")
     pipe = pipeline_from_env() if pipe is None else pipe
     if b == "sharded" or (b == "auto" and dist.process_count() > 1):
         return MeshEngine(p, reg_count, device=device, pipe=pipe)

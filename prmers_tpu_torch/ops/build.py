@@ -52,8 +52,8 @@ SIGNATURES = {
     "prmers_k9_chain": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _U32, _P,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _P],
-    "prmers_k4_axis0": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _U32, _P, _I, _I,
-                        _I, _P],
+    "prmers_k4_axis0": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _U32, _P, _P, _I,
+                        _I, _I, _P],
     "prmers_k7_block_carry": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "prmers_k4u_pass": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _U64, _P,
                         _I, _P, _P, _U32, _I, _I, _I, _I, _I, _P],

@@ -45,6 +45,11 @@ Tables built here, all canonical u64 numpy arrays unless noted:
                         a power-of-two L2, where they run csrc/
                         axis_fft.cuh's shift butterflies)
   k3_mats (R2, L1, L1)  iw_inv: inverse DFT_L1 with row scale iwr / n
+                        (the plain K3, K4 inverse and K9 multiply by them)
+  k3_rs   (R1, R2)      the same matrices factored, k3_mats[r2] =
+                        diag(k3_rs[:, r2]) @ DFT_L1^-1 (k3_rs = iwr / n):
+                        what the CUDA K3 and K4 inverse read (K4 forward
+                        reads k1_cs and k1_rs, as K1)
   er (R1, R2), ec (C,)  u32 wrap residues: halve/double where er+ec >= n
   wt, cum (R1, R2, T, k)  u32 per-carry-unit spread widths / bit offsets
                         (T = carry_tiles units of carry_ct digits per row)
@@ -599,6 +604,7 @@ class KernelTables:
     tw_i: np.ndarray | None = None
     sh_exp: np.ndarray | None = None
     t_r_inv: np.ndarray | None = None
+    k3_rs: np.ndarray | None = None
 
 
 def _fold_rows(M: np.ndarray, row_scale: np.ndarray,
@@ -722,7 +728,7 @@ def build_tables(fp: FourStepPlan) -> KernelTables:
         wt=wt, cum=cum,
         widths=fp.widths.reshape(R1, R2, C).astype(np.uint32),
         k=k, ct=carry_ct(fp), rounds=carry_rounds(fp), bwt=bwt, bcum=bcum,
-        bk=bk, k8_rounds=k8_rounds(fp), **split)
+        bk=bk, k8_rounds=k8_rounds(fp), k3_rs=iwr.reshape(R1, R2), **split)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ mode "fwd"; K3 two; the others one).
   K2  fused_c_pass          csrc/k2_fused_c.cu  r2 DFT x mf, C-transform
       (r2fold)                                  with the mode, mirror
   K3  p7_carry_pass         csrc/k3_p7c.cu      r1 inverse DFT, double,
-                                                canon, x a or + (M_p - 2),
+                            (axis_fft.cuh)      canon, x a or + (M_p - 2),
                                                 carry per unit
   K5  axis1_pass            csrc/k5_axis1.cu    P2 (r2 DFT x mf) or P6
                             (axis_fft.cuh)      (x mi, r2 inverse) alone
@@ -37,7 +37,7 @@ mode "fwd"; K3 two; the others one).
                                                 x^2 * a_k in one persistent
                                                 launch (n = 2^15 ... 2^19)
   K4  axis0_pass            csrc/k4_axis0.cu    forward: block-carry inject,
-                                                wrap halve, r1 DFT; inverse:
+                            (axis_fft.cuh)      wrap halve, r1 DFT; inverse:
                                                 r1 inverse, double, canon
   K7  block_carry_pass      csrc/k7_block_carry.cu  x a, the carry ripple
                                                 over each r1 block, block
@@ -64,12 +64,14 @@ inverse_r below, on DevTables' optional `unfolded` view), which only the
 pass profiler (tools/profile_passes.py) and the tests reach, as in the
 reference.
 
-The plain versions of K1, K5 and K2's r2 stages multiply by the dense
-folded matrices (k1_mats, g2, tri). Their CUDA launches run csrc/
-axis_fft.cuh's register-pass shift butterflies on the factored tables
-instead (k1_cs, k1_rs; mf, mi; t_r_inv): one or two products per digit,
-equal mod P; axis_fft_model, p1_carry_model and axis1_model below are
-its torch model, for the tests. K3, K4 and K9 keep the dense tile of
+The plain versions of K1, K3's first half, K4 and K2's and K5's r2
+stages multiply by the dense folded matrices (k1_mats, k3_mats, g2,
+tri). Their CUDA launches run csrc/axis_fft.cuh's register-pass shift
+butterflies on the factored tables instead (k1_cs, k1_rs; k3_rs; mf, mi;
+t_r_inv): one or two products per digit, equal mod P (K3's and K4
+inverse's canonical outputs bit for bit); axis_fft_model,
+p1_carry_model, axis1_model, p7_dft_model and axis0_model below are its
+torch model, for the tests. Only K9 keeps the dense tiles of
 csrc/axis_dft.cuh.
 
 The radix-5 plans (n = 5 * 2^k, R2 = L2 = 5 * 2^b up to 320) go through
@@ -113,12 +115,14 @@ SOURCES = {
     # launches, axis_fft.cuh's at a power-of-two L2 and r2_split.cuh's at
     # a radix-5 one, and k6_fused_c.cu the K6 entry points)
     "k2_fused_c": "prmers_tpu_torch/csrc/fused_c_row.cuh",
+    # K3: K3a on axis_fft.cuh, K3b (k3b_carry.cuh) launched beside it
     "k3_p7c": "prmers_tpu_torch/csrc/k3_p7c.cu",
     "k5_axis1": "prmers_tpu_torch/csrc/axis_fft.cuh",
     "k6_fused_c": "prmers_tpu_torch/csrc/fused_c_row.cuh",
     "k6b_fused_c_invh": "prmers_tpu_torch/csrc/fused_c_row.cuh",
     "k9_chain": "prmers_tpu_torch/csrc/k9_chain.cu",
-    "k4_axis0": "prmers_tpu_torch/csrc/k4_axis0.cu",
+    # K4: both launches are the shift butterflies' (k4_axis0.cu the entry)
+    "k4_axis0": "prmers_tpu_torch/csrc/axis_fft.cuh",
     "k7_block_carry": "prmers_tpu_torch/csrc/k7_block_carry.cu",
     "k8_local": "prmers_tpu_torch/csrc/k7_block_carry.cu",
     "k4u_pass": "prmers_tpu_torch/csrc/k4u_pass.cu",
@@ -158,7 +162,7 @@ def reset_calls() -> None:
 
 _U64_TABLES = ("k1_mats", "k1_cs", "k1_rs", "g2", "mf", "mi", "lane_f",
                "lane_i", "Mf", "Mi", "cs_f", "cs_i", "tri", "k3_mats",
-               "dft5_f", "dft5_i", "tw_f", "tw_i", "t_r_inv")
+               "k3_rs", "dft5_f", "dft5_i", "tw_f", "tw_i", "t_r_inv")
 _I32_TABLES = ("er", "ec", "wt", "cum", "widths", "bwt", "bcum", "sh_exp")
 
 # The shard views of the mesh (sharded_pallas.py:92-136): each table a view
@@ -166,8 +170,8 @@ _I32_TABLES = ("er", "ec", "wt", "cum", "widths", "bwt", "bcum", "sh_exp")
 # view leaves out are None in it, so a kernel given the wrong view fails.
 # The r2-sharded view serves K1, K3 and K4 on (R1, R2/s, C); the
 # r1-sharded one K5, K6, K6b and K8 on (R1/s, R2, C).
-R2_VIEW = {"k1_mats": 0, "k1_cs": 1, "k1_rs": 1, "k3_mats": 0, "er": 1,
-           "ec": None, "wt": 1, "cum": 1, "widths": 1}
+R2_VIEW = {"k1_mats": 0, "k1_cs": 1, "k1_rs": 1, "k3_mats": 0, "k3_rs": 1,
+           "er": 1, "ec": None, "wt": 1, "cum": 1, "widths": 1}
 R1_VIEW = {"g2": None, "mf": 0, "mi": 0, "lane_f": None, "lane_i": None,
            "Mf": None, "Mi": None, "cs_f": None, "cs_i": None, "tri": 0,
            "t_r_inv": 0, "ec": None, "widths": 0, "bwt": 0, "bcum": 0}
@@ -211,6 +215,7 @@ class DevTables:
     t_r_inv: torch.Tensor | None = None
     k1_cs: torch.Tensor | None = None
     k1_rs: torch.Tensor | None = None
+    k3_rs: torch.Tensor | None = None
     unfolded: "UnfoldedView | None" = None
 
     @classmethod
@@ -359,8 +364,8 @@ def p1_carry_plain(t: DevTables, x: torch.Tensor,
 
 
 def _p1_dft(t: DevTables, y: torch.Tensor) -> torch.Tensor:
-    """Halve where wrapped, then the per-r2 folded r1 DFT: K1 and K4
-    forward after their injections."""
+    """Halve where wrapped, then the per-r2 folded r1 DFT: the plain K1
+    and K4 forward after their injections."""
     y = gl.join(*gl.halve_where(*gl.split(y), _wrap_mask(t)))
     # out[k1, r2, c] = sum_j k1_mats[r2][k1][j] * y[j, r2, c]
     out = gl.matmul_mod(t.k1_mats, y.permute(1, 0, 2))
@@ -569,7 +574,13 @@ def p1_carry_model(t: DevTables, x: torch.Tensor,
     """K1 as csrc/k1_p1c.cu computes it, for the tests: the plain
     injection and halve, x k1_cs, the r1 DFT by axis_fft_model, x k1_rs
     (equal mod P to p1_carry_plain)."""
-    y = _p1_inject(t, x, co)
+    return _p1_fft_model(t, _p1_inject(t, x, co))
+
+
+def _p1_fft_model(t: DevTables, y: torch.Tensor) -> torch.Tensor:
+    """The halve where wrapped, x k1_cs, the r1 DFT by axis_fft_model and x
+    k1_rs: K1 and K4 forward after their injections, as the CUDA kernels
+    compute them (equal mod P to _p1_dft)."""
     y = gl.join(*gl.halve_where(*gl.split(y), _wrap_mask(t)))
     y = axis_fft_model(gl.mulmod(y, t.k1_cs.unsqueeze(-1)), False)
     return gl.mulmod(y, t.k1_rs.unsqueeze(-1))
@@ -592,17 +603,19 @@ def axis1_model(t: DevTables, x: torch.Tensor, which: str) -> torch.Tensor:
     return gl.mulmod(y, t.mf)
 
 
-AXIS_MOVES = {"k1": 0, "p2": 1, "p6": 2}     # csrc/axis_dft.cuh's modes
+# csrc/axis_dft.cuh's modes; "k3" is K3a and K4 inverse's body, and K4
+# forward's move-only body is K1's (the same table words, no carries)
+AXIS_MOVES = {"k1": 0, "k4f": 0, "p2": 1, "p6": 2, "k3": 3}
 
 
 def axis_fft_move(t: DevTables, x: torch.Tensor, which: str,
                   out: torch.Tensor | None = None) -> torch.Tensor:
     """The move-only body of csrc/axis_fft.cuh at L = 64 or 128, for the
-    pass profiler alone: K1 ("k1", on the r1 axis) or K5's "p2" / "p6"
-    (on the r2 axis) with its loads, shared-memory exchange and stores,
-    an add in place of every product and no butterflies. It computes no
-    transform, so no plain version exists and no counter moves. CUDA
-    tensors only."""
+    pass profiler alone: K1 ("k1"), K3a and K4 inverse ("k3") or K4
+    forward ("k4f") on the r1 axis, or K5's "p2" / "p6" on the r2 axis,
+    with its loads, shared-memory exchange and stores, an add in place of
+    every product and no butterflies. It computes no transform, so no
+    plain version exists and no counter moves. CUDA tensors only."""
     if which not in AXIS_MOVES:
         raise ValueError(which)
     if _on_cpu(x):
@@ -611,8 +624,10 @@ def axis_fft_move(t: DevTables, x: torch.Tensor, which: str,
     R1, R2, C = t.shape
     if out is None:
         out = torch.empty_like(x)
-    if which == "k1":
+    if which in ("k1", "k4f"):
         dims, tab, cs, rs = (1, R1, R2), None, t.k1_cs, t.k1_rs
+    elif which == "k3":
+        dims, tab, cs, rs = (1, R1, R2), None, None, t.k3_rs
     else:
         dims, cs, rs = (R1, R2, 1), None, t.t_r_inv
         tab = t.mf if which == "p2" else t.mi
@@ -889,10 +904,23 @@ def p7_dft_plain(t: DevTables, x: torch.Tensor, a: int = 1) -> torch.Tensor:
     """K3's first half: per-r2 folded r1 inverse DFT, double where
     wrapped, canon, optional x a and canon. Canonical out."""
     y = gl.matmul_mod(t.k3_mats, x.permute(1, 0, 2)).permute(1, 0, 2)
+    return _p7_epilogue(t, y, a)
+
+
+def _p7_epilogue(t: DevTables, y: torch.Tensor, a: int) -> torch.Tensor:
     y0, y1 = gl.canon(*gl.double_where(*gl.split(y), _wrap_mask(t)))
     if a != 1:
         y0, y1 = gl.canon(*gl.mul_small(y0, y1, a))
     return gl.join(y0, y1)
+
+
+def p7_dft_model(t: DevTables, x: torch.Tensor, a: int = 1) -> torch.Tensor:
+    """K3's first half (K3a) as csrc/k3_p7c.cu computes it, for the tests:
+    the r1 inverse DFT by axis_fft_model down dim 0, x k3_rs, then
+    p7_dft_plain's double, canon and x a (bit for bit equal to it: both
+    canonical)."""
+    y = axis_fft_model(x, True)
+    return _p7_epilogue(t, gl.mulmod(y, t.k3_rs.unsqueeze(-1)), a)
 
 
 def carry_plain(t: DevTables, y: torch.Tensor, sub2: bool = False,
@@ -972,7 +1000,7 @@ def p7_carry_pass(t: DevTables, x: torch.Tensor, a: int = 1,
                              device=x.device)
     err = build.lib().prmers_k3_p7c(
         x.data_ptr(), out.data_ptr(), co_out.data_ptr(),
-        t.k3_mats.data_ptr(), t.er.data_ptr(), t.ec.data_ptr(), t.fp.n,
+        t.k3_rs.data_ptr(), t.er.data_ptr(), t.ec.data_ptr(), t.fp.n,
         t.widths.data_ptr(), t.rounds, a, int(a != 1), int(sub2), s2,
         R1, R2, C, t.ct, _stream())
     calls["k3_p7c"] += 1
@@ -1010,11 +1038,28 @@ def axis0_plain(t: DevTables, x: torch.Tensor, inverse: bool,
     return _p1_dft(t, x)
 
 
+def axis0_model(t: DevTables, x: torch.Tensor, inverse: bool,
+                co: torch.Tensor | None = None) -> torch.Tensor:
+    """K4 as csrc/k4_axis0.cu computes it, for the tests: forward, the
+    plain injection, then the halve, x k1_cs, axis_fft_model and x k1_rs
+    (equal mod P to axis0_plain); inverse, p7_dft_model with a = 1 (bit
+    for bit)."""
+    if inverse:
+        if co is not None:
+            raise ValueError("K4 inverse takes no carries")
+        return p7_dft_model(t, x)
+    if co is not None:
+        x = inject_block_carries_plain(t, x, co)
+    return _p1_fft_model(t, x)
+
+
 def axis0_pass(t: DevTables, x: torch.Tensor, inverse: bool,
                co: torch.Tensor | None = None,
                out: torch.Tensor | None = None) -> torch.Tensor:
     """K4: P1 (with the unrolled (R1, 1) block carries co injected, when
-    given) or P7 (kernels.py:1619-1639) over the whole register."""
+    given) or P7 (kernels.py:1619-1639) over the whole register; on the
+    card as shift butterflies on k1_cs, k1_rs (forward) or k3_rs
+    (inverse), never the matrices k1_mats or k3_mats."""
     if inverse and co is not None:
         raise ValueError("K4 inverse takes no carries")
     if co is not None and t.bwt is None:
@@ -1030,9 +1075,8 @@ def axis0_pass(t: DevTables, x: torch.Tensor, inverse: bool,
     err = build.lib().prmers_k4_axis0(
         x.data_ptr(), out.data_ptr(), int(inverse), _ptr(co),
         _ptr(t.bwt), _ptr(t.bcum), t.bk, t.er.data_ptr(),
-        t.ec.data_ptr(), t.fp.n,
-        (t.k3_mats if inverse else t.k1_mats).data_ptr(), R1, R2, C,
-        _stream())
+        t.ec.data_ptr(), t.fp.n, None if inverse else t.k1_cs.data_ptr(),
+        (t.k3_rs if inverse else t.k1_rs).data_ptr(), R1, R2, C, _stream())
     calls["k4_axis0"] += 1
     build.check(err, "k4_axis0")
     return out

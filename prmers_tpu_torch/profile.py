@@ -16,8 +16,9 @@ The pipeline is create_engine's: the default row carry, or what the JAX
 package's switches ask for, e.g. `PRMERS_NO_ROWCARRY=1 python -m
 prmers_tpu_torch.profile 136279841` for the block-carry pipeline. The
 line names it and gives each port kernel's wrapper calls per squaring
-(k4_axis0 and k7_block_carry there: K4 forward and inverse share the
-`axis_dft_kernel` name with K1 and K3a on the device).
+(k4_axis0 and k7_block_carry there: on the device K4 inverse runs as
+`axis_fft_kernel<3, ...>`, the name of K3a, and K4 forward as
+`axis_fft_kernel<4, ...>`).
 
 With `-backend sharded`, under `python -m torch.distributed.run
 --nproc_per_node=<s>`, it profiles the mesh on rank 0's card (every rank

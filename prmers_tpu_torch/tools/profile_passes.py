@@ -46,9 +46,11 @@ turns as --r5's.
 
 `python -m prmers_tpu_torch.tools.profile_passes --axis [reps]` times
 the axis DFTs of csrc/axis_fft.cuh (register-pass shift butterflies):
-K1 (the r1 pass) at n = 2^23 and 2^25 and K5's P2 and P6 (the r2 passes)
-at n = 2^23, 2^25 and 2^26 (L2 = 128), each beside its bound
-(axis_bound) and held against the dense plain version; then, under
+the r1 passes K1, K3a ("k3", launched as K4 inverse: K3's first launch
+with no x a) and K4 forward with block carries ("k4f") at n = 2^23 and
+2^25, and K5's P2 and P6 (the r2 passes) at n = 2^23, 2^25 and 2^26 (L2
+= 128), each beside its bound (axis_bound) and held against the dense
+plain version; then, under
 "parts", each pass's move-only body (kernels.axis_fft_move: the same
 loads, shared-memory exchange and stores with an add for each product,
 no butterflies, into a second buffer) beside its bytes bound, held to
@@ -56,8 +58,9 @@ nothing: the full pass's time less the move's is the butterflies' and
 the products' share. A pass runs in place, as the engine runs it (K1's
 buffer drifts from digits to residues over the turns, which changes no
 instruction of it); its checked output is one more launch on the
-inputs. The two bodies run in turns (pass, move, move, pass), each turn
-`reps` launches back to back, with no allocation inside a turn.
+inputs (K1's and K4 forward's buffers drift the same way). The two
+bodies run in turns (pass, move, move, pass), each turn `reps` launches
+back to back, with no allocation inside a turn.
 
 The reference tool is stale (it calls kn._to_ay, _middle and _to_ax,
 which are gone); this twin times what the reference still has.
@@ -80,8 +83,8 @@ R5_BODIES = ("split", "no-levels", "move")
 P_CFFT = (136279841, 600000001)  # C = 2048 and C = 8192
 CFFT_BODIES = ("row", "no-slot-levels", "move")
 CIN = 0x9E3779B97F4A7C15        # the scalar carry K4u forward injects
-# n = 2^23, 2^25 (L1 = L2 = 64) and 2^26 (L2 = 128): K1 at the first two,
-# P2 and P6 at all three
+# n = 2^23, 2^25 (L1 = L2 = 64) and 2^26 (L2 = 128): the r1 passes (K1,
+# K3a, K4 forward) at the first two, P2 and P6 at all three
 P_AXIS = (136279841, 600000001, 1000000007)
 AXIS_BODIES = ("pass", "move")
 
@@ -130,13 +133,11 @@ def measure(p: int = P_DEFAULT, reps: int = 10):
         out.append(Timed(kernel, what, ms, b[0], b[1], got, plain, norm))
         return got
 
-    # the folded passes of a block-carry step
+    # the folded passes of a block-carry step (K4 as shift butterflies)
     L1, L2 = R1, R2
-    tabs = nbytes(t.k1_mats, t.er, t.ec)
     s = timed("k4_axis0", "P1 forward (folded)",
               lambda: tk.axis0_pass(t, x, False),
-              lambda: tk.axis0_plain(t, x, False),
-              bound(L1 * n * OPS_PER_PRODUCT, 16 * n + tabs))
+              lambda: tk.axis0_plain(t, x, False), axis_bound(t, "k4f"))
     k2 = tfs.use_r2fold(t.fp) and not tfs.fc_split(t.fp)
     buf = torch.empty_like(s)
 
@@ -152,9 +153,8 @@ def measure(p: int = P_DEFAULT, reps: int = 10):
           lambda: tk.fused_c_plain(t, s, "sqr"), span_bound(t))
     timed("k4_axis0", "P7 inverse (folded)",
           lambda: tk.axis0_pass(t, z, True),
-          lambda: tk.axis0_plain(t, z, True),
-          bound(L1 * n * OPS_PER_PRODUCT, 16 * n + nbytes(t.k3_mats, t.er,
-                                                          t.ec)), norm=None)
+          lambda: tk.axis0_plain(t, z, True), axis_bound(t, "k3"),
+          norm=None)
     # the unfolded r passes, each form on the same inputs: forward_r on the
     # digits x with the carry, inverse_r on the residues z
     shifts = (False, True) if 64 % L1 == 0 and 64 % L2 == 0 else (False,)
@@ -232,18 +232,28 @@ def split_bound(t, which: str):
 
 
 def axis_bound(t, which: str, co=None):
-    """K1 ("k1") or K5's "p2" / "p6" at a power-of-two length as
-    csrc/axis_fft.cuh runs them, at the fewest products their function
-    needs: log2(L) / 2 per digit for the shift butterflies and the scales
-    (K1: x k1_cs, x k1_rs; P2: x mf; P6: x mi, x t_r_inv), against the
-    register in and out and the tables read once (K1 also its carries co
-    and spread tables)."""
+    """K1 ("k1"), K3a and K4 inverse ("k3", a = 1), K4 forward ("k4f") or
+    K5's "p2" / "p6" at a power-of-two length as csrc/axis_fft.cuh runs
+    them, at the fewest products their function needs: log2(L) / 2 per
+    digit for the shift butterflies and the scales (K1, K4 forward: x
+    k1_cs, x k1_rs; K3a: x k3_rs; P2: x mf; P6: x mi, x t_r_inv), against
+    the register in and out and the tables read once (K1 also its carries
+    co and spread tables, K4 forward those of the block carries when co
+    is given; the r1 passes the wrap residues)."""
     R1, R2, C = t.shape
     n = R1 * R2 * C
     if which == "k1":
         per = 2 + math.log2(R1) / 2
         moved = 16 * n + nbytes(co, t.k1_cs, t.k1_rs, t.wt, t.cum, t.er,
                                 t.ec)
+    elif which == "k4f":
+        per = 2 + math.log2(R1) / 2
+        moved = 16 * n + nbytes(t.k1_cs, t.k1_rs, t.er, t.ec)
+        if co is not None:
+            moved += nbytes(co, t.bwt, t.bcum)
+    elif which == "k3":
+        per = 1 + math.log2(R1) / 2
+        moved = 16 * n + nbytes(t.k3_rs, t.er, t.ec)
     elif which == "p2":
         per = 1 + math.log2(R2) / 2
         moved = 16 * n + nbytes(t.mf)
@@ -257,16 +267,17 @@ def axis_bound(t, which: str, co=None):
 
 def move_bound(t, which: str):
     """The move-only body's bytes: the register in and out and the table
-    words it adds (k1_cs and k1_rs; mf; mi and t_r_inv)."""
+    words it adds (k1_cs and k1_rs; k3_rs; mf; mi and t_r_inv)."""
     R1, R2, C = t.shape
-    tabs = {"k1": (t.k1_cs, t.k1_rs), "p2": (t.mf,),
-            "p6": (t.mi, t.t_r_inv)}[which]
+    tabs = {"k1": (t.k1_cs, t.k1_rs), "k4f": (t.k1_cs, t.k1_rs),
+            "k3": (t.k3_rs,), "p2": (t.mf,), "p6": (t.mi, t.t_r_inv)}[which]
     return bound(0, 16 * R1 * R2 * C + nbytes(*tabs))
 
 
 def measure_axis(reps: int = 10):
-    """K1 and K5's P2 / P6 in the shift form at n = 2^23, 2^25 (K1 and K5)
-    and 2^26 (K5 at L2 = 128), and their move-only bodies; returns (the
+    """K1, K3a (as K4 inverse), K4 forward with block carries and K5's P2 /
+    P6 in the shift form at n = 2^23, 2^25 (all five) and 2^26 (K5 at L2
+    = 128), and their move-only bodies; returns (the
     tables of the last plan, the list of Timed, the parts' rows). Each row
     is the mean of its two turns of `reps` launches back to back."""
     import numpy as np
@@ -293,8 +304,12 @@ def measure_axis(reps: int = 10):
                                            dtype=np.int64)).to(dev)
         z = gl.from_numpy_u64(rng.integers(0, gl.P, size=t.shape,
                                            dtype=np.uint64), dev)
-        passes = ("p2", "p6") if R2 > 64 else ("k1", "p2", "p6")
-        src = {which: x if which == "k1" else z for which in passes}
+        bco = torch.from_numpy(rng.integers(
+            0, 1 << 40, size=t.block_carry_shape, dtype=np.int64)).to(dev)
+        passes = ("p2", "p6") if R2 > 64 else ("k1", "k3", "k4f", "p2",
+                                                "p6")
+        src = {which: x if which in ("k1", "k4f") else z
+               for which in passes}
         bufs = {which: src[which].clone() for which in passes}
         moved = {which: torch.empty_like(x) for which in passes}
 
@@ -306,6 +321,9 @@ def measure_axis(reps: int = 10):
                 tk.axis_fft_move(t, src[which], which, out=moved[which])
             elif which == "k1":
                 tk.p1_carry_pass(t, buf, co, out=buf)
+            elif which in ("k3", "k4f"):
+                tk.axis0_pass(t, buf, which == "k3",
+                              co=None if which == "k3" else bco, out=buf)
             else:
                 tk.axis1_pass(t, buf, which, out=buf)
 
@@ -329,6 +347,18 @@ def measure_axis(reps: int = 10):
                     "k1_p1c", f"k1 {at}", ms, *axis_bound(t, "k1", co),
                     bufs[which],
                     lambda t=t, x=x, co=co: tk.p1_carry_plain(t, x, co),
+                    gl.canon64))
+            elif which == "k3":
+                entries.append(Timed(
+                    "k4_axis0", f"k3 (K4 inverse) {at}", ms,
+                    *axis_bound(t, "k3"), bufs[which],
+                    lambda t=t, z=z: tk.axis0_plain(t, z, True)))
+            elif which == "k4f":
+                entries.append(Timed(
+                    "k4_axis0", f"k4f {at}", ms, *axis_bound(t, "k4f", bco),
+                    bufs[which],
+                    lambda t=t, x=x, bco=bco: tk.axis0_plain(t, x, False,
+                                                             co=bco),
                     gl.canon64))
             else:
                 entries.append(Timed(

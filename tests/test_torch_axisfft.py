@@ -17,9 +17,11 @@ two r2 launches and of K5 at a power-of-two L2) on the CPU:
   (d) the header's column functions (axf_dif_stride, axf_dit_stride with
       gl64.cuh's 8-point levels, in the kernel's order) built with the
       host's g++ against the dense product at every L, both ways;
-  (e) what the K1, K5 and K2 wrappers hand the kernels: the scales, and
-      no pointer to a dense matrix (k1_mats, g2, tri), read through a
-      stand-in for the kernel library; and what the entry points include;
+  (e) what the K1, K5, K2, K3 and K4 wrappers hand the kernels: the
+      scales, and no pointer to a dense matrix (k1_mats, g2, tri,
+      k3_mats), read through a stand-in for the kernel library; and what
+      the entry points include (K3a and K4 are held to their models in
+      tests/test_torch_k3fft.py);
   (f) the move-only body's wrapper refuses CPU tensors.
 
 Tolerance: none. Every comparison is exact mod P, after canon.
@@ -386,8 +388,9 @@ def recorder(monkeypatch):
 
 @pytest.mark.parametrize("size", list(NS))
 def test_wrappers_pass_no_dense_matrix(recorder, size):
-    """K1 passes k1_cs and k1_rs, K5 (P2, P6) and K2 mf / mi and t_r_inv;
-    none of them a pointer to k1_mats, g2, tri or k3_mats."""
+    """K1 and K4 forward pass k1_cs and k1_rs, K3 and K4 inverse k3_rs, K5
+    (P2, P6) and K2 mf / mi and t_r_inv; none of them a pointer to
+    k1_mats, g2, tri or k3_mats."""
     t = tk.DevTables.from_host(_kernel_tables(NS[size]), "cpu")
     x = torch.zeros(t.shape, dtype=torch.int64)
     co = torch.zeros(t.row_carry_shape, dtype=torch.int64)
@@ -407,7 +410,19 @@ def test_wrappers_pass_no_dense_matrix(recorder, size):
     assert {t.mf.data_ptr(), t.mi.data_ptr(), t.t_r_inv.data_ptr()} <= \
         set(k2)
     assert not dense & set(k1) and not dense & set(k2)
-    for name in ("prmers_k1_p1c", "prmers_k5_axis1", "prmers_k2_fused_c"):
+    tk.p7_carry_pass(t, x, a=3)
+    k3 = recorder.args["prmers_k3_p7c"]
+    assert t.k3_rs.data_ptr() in k3 and not dense & set(k3)
+    bco = torch.zeros(t.block_carry_shape, dtype=torch.int64)
+    for inverse, co, scales in ((False, bco, (t.k1_cs, t.k1_rs)),
+                                (False, None, (t.k1_cs, t.k1_rs)),
+                                (True, None, (t.k3_rs,))):
+        tk.axis0_pass(t, x, inverse, co=co)
+        k4 = recorder.args["prmers_k4_axis0"]
+        assert {a.data_ptr() for a in scales} <= set(k4), inverse
+        assert not dense & set(k4), inverse
+    for name in ("prmers_k1_p1c", "prmers_k5_axis1", "prmers_k2_fused_c",
+                 "prmers_k3_p7c", "prmers_k4_axis0"):
         assert len(recorder.args[name]) == len(build.SIGNATURES[name])
 
 
@@ -420,9 +435,10 @@ def _function_body(text: str, name: str) -> str:
 
 
 def test_entry_points_run_the_shift_form():
-    """The K1, K5 and K2 entry points launch axis_fft.cuh at a power-of-two
-    length and take no matrix; its kernel has no dot-product accumulator;
-    K3, K4 and K9 keep axis_dft.cuh's dense tile."""
+    """The K1, K5, K2, K3 and K4 entry points launch axis_fft.cuh at a
+    power-of-two length and take no matrix; its kernel has no dot-product
+    accumulator; only K9 keeps axis_dft.cuh's dense tile, which has no
+    launcher of its own and no K4 forward branch left."""
     def read(name):
         with open(os.path.join(CSRC, name)) as f:
             return f.read()
@@ -432,13 +448,21 @@ def test_entry_points_run_the_shift_form():
                              fft[fft.index("axis_fft_kernel"):]), word
     for src, entry in (("k1_p1c.cu", "prmers_k1_p1c"),
                        ("k5_axis1.cu", "prmers_k5_axis1"),
-                       ("k2_fused_c.cu", "prmers_k2_fused_c")):
+                       ("k2_fused_c.cu", "prmers_k2_fused_c"),
+                       ("k3_p7c.cu", "prmers_k3_p7c"),
+                       ("k4_axis0.cu", "prmers_k4_axis0")):
         body = _function_body(read(src), entry)
         assert "axis_fft_launch<" in body and "axis_dft_launch" not in body
-        for word in ("mats", "g2", "tri", "k1_mats"):
+        for word in ("mats", "g2", "tri", "k1_mats", "k3_mats"):
             assert not re.search(r"\b%s\b" % word, body), (src, word)
-    assert "axis_dft_launch<AX_K3A>" in read("k3_p7c.cu")
-    assert "axis_dft_launch<AX_K4F>" in read("k4_axis0.cu")
+    assert "axis_fft_launch<AX_K3A>" in read("k3_p7c.cu")
+    k4 = read("k4_axis0.cu")
+    assert "axis_fft_launch<AX_K3A>" in k4 and "axis_fft_launch<AX_K4F>" in k4
+    dft = read("axis_dft.cuh")
+    assert "axis_dft_launch" not in dft and "AX_K4F" not in \
+        dft[dft.index("void axis_dft_tile"):]
+    for src in os.listdir(CSRC):
+        assert src == "axis_dft.cuh" or "axis_dft_launch" not in read(src)
     k9 = read("k9_chain.cu")
     for mode in ("AX_K1", "AX_K2A", "AX_K2C", "AX_K3A"):
         assert f"axis_dft_tile<{mode}>" in k9

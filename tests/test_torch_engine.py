@@ -8,6 +8,7 @@ crossing between the two engines in both directions (spectral
 multiplicands included).
 """
 
+import json
 import os
 
 import numpy as np
@@ -207,6 +208,78 @@ def test_cli_refuses_fft3161_and_profile(argv, env, monkeypatch):
         app.main([str(P_EXP), "-noproof", *argv])
     assert isinstance(exc.value.code, str)
     assert "not yet ported to prmers_tpu_torch" in exc.value.code
+
+
+def _stub_run(monkeypatch, made):
+    """app's engine and PRP/LL run replaced: the engine is a marker and
+    the run logs one line and returns a prime verdict."""
+    from prmers_tpu_torch import app
+    from prmers_tpu_torch.modes.prp_ll import PrpLlResult
+
+    def engine(*a, **k):
+        made.append(a)
+        return object()
+
+    def prp_run(opts, eng=None, proof_set=None, log=print):
+        log("run line")
+        return PrpLlResult(p=opts.exponent, mode=opts.mode, is_prime=True,
+                           res64="0000000000000001", res2048="01",
+                           transform_size=N)
+    monkeypatch.setattr(app, "create_engine", engine)
+    monkeypatch.setattr(app, "run_prp_or_ll", prp_run)
+    return app
+
+
+def test_cli_writes_results_json_and_log(tmp_path, monkeypatch, capsys):
+    """-results gets the printed JSON line appended, the save dir gets
+    <p>_prp_result.json with the same line, and prmers.log gets the log
+    lines (the run's and the JSON), appended run after run
+    (prmers_tpu/core/app.py:270-274, :293)."""
+    made = []
+    app = _stub_run(monkeypatch, made)
+    res, d = tmp_path / "R.txt", tmp_path / "D"
+    argv = [str(P_EXP), "-noproof", "-results", str(res), "-save-dir",
+            str(d)]
+    for run in (1, 2):
+        assert app.main(argv) == 0
+        line = capsys.readouterr().out.strip().splitlines()[-1]
+        assert json.loads(line)["exponent"] == P_EXP
+        assert res.read_text().splitlines() == [line] * run
+        assert (d / f"{P_EXP}_prp_result.json").read_text() == line
+        log = (d / "prmers.log").read_text().splitlines()
+        assert len(log) == 2 * run
+        assert log[-2].endswith("] run line") and log[-1].endswith(line)
+    assert len(made) == 2
+
+
+@pytest.mark.parametrize("argv", [["-filemers", "m.mers"], ["-gui"]])
+def test_cli_refuses_filemers_and_gui(argv, tmp_path, monkeypatch):
+    """-filemers and -gui are not ported: the run stops with a message
+    before any engine is made, instead of running a PRP."""
+    made = []
+    app = _stub_run(monkeypatch, made)
+    with pytest.raises(SystemExit) as exc:
+        app.main([str(P_EXP), "-noproof", "-save-dir", str(tmp_path),
+                  *argv])
+    assert "not yet ported to prmers_tpu_torch" in exc.value.code
+    assert argv[0] in exc.value.code and made == []
+
+
+@pytest.mark.parametrize("name,value", [("PRMERS_NO_PALLAS", "1"),
+                                        ("PRMERS_SHARDED_IMPL", "xla")])
+def test_create_engine_refuses_xla_switches(name, value, monkeypatch):
+    """The switches that select the JAX package's XLA engines raise, as the
+    unported pipeline switches do; PRMERS_SHARDED_IMPL at another value
+    changes nothing."""
+    from prmers_tpu_torch.engine.factory import create_engine
+    for k in ("PRMERS_NO_PALLAS", "PRMERS_SHARDED_IMPL"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv(name, value)
+    with pytest.raises(NotImplementedError, match=name):
+        create_engine(756839, 2, device="cpu")
+    monkeypatch.setenv("PRMERS_SHARDED_IMPL", "pallas")
+    monkeypatch.delenv("PRMERS_NO_PALLAS", raising=False)
+    assert create_engine(756839, 2, device="cpu").t.fp.n == 1 << 15
 
 
 def test_create_engine_takes_arith_and_workload(monkeypatch):

@@ -15,12 +15,14 @@ from prmers_tpu.core import plan as jplan
 from prmers_tpu.engine.np_engine import NumpyEngine
 from prmers_tpu.io import cli as jcli
 from prmers_tpu.io import json_out as jjson
+from prmers_tpu.io import worktodo as jwt
 from prmers_tpu.io.options import Options as JOptions
 from prmers_tpu.modes import prp_ll as jprp
 from prmers_tpu_torch.core import checkpoints as tck
 from prmers_tpu_torch.core import plan as tplan
 from prmers_tpu_torch.io import cli as tcli
 from prmers_tpu_torch.io import json_out as tjson
+from prmers_tpu_torch.io import worktodo as twt
 from prmers_tpu_torch.io.options import Options as TOptions
 from prmers_tpu_torch.modes import prp_ll as tprp
 
@@ -93,3 +95,25 @@ def test_run_prp_or_ll_equal(p, mode, tmp_path):
     assert (rt.is_prime, rt.res64, rt.res2048, rt.gerbicz_errors) == \
         (rj.is_prime, rj.res64, rj.res2048, rj.gerbicz_errors)
     assert rt.is_prime == (p in (127, 521))
+
+
+def test_worktodo_is_the_original(tmp_path):
+    """io/worktodo.py is the JAX package's, word for word (it imports the
+    standard library only), and both write the same results files and
+    parse the same entries."""
+    with open(jwt.__file__) as a, open(twt.__file__) as b:
+        assert a.read() == b.read()
+    line = '{"exponent": 127, "status": "P"}'
+    for mod, d in ((jwt, tmp_path / "j"), (twt, tmp_path / "t")):
+        d.mkdir()
+        mod.append_results_txt(str(d / "results.txt"), line + "\n")
+        mod.append_results_txt(str(d / "results.txt"), line)
+        assert mod.write_individual_json(str(d), 127, "prp", line) == \
+            str(d / "127_prp_result.json")
+    for name in ("results.txt", "127_prp_result.json"):
+        assert (tmp_path / "j" / name).read_bytes() == \
+            (tmp_path / "t" / name).read_bytes()
+    for text in ("PRP=1,2,756839,-1", "Test=1277", "ECM2=1,2,1277,-1,5,6,7",
+                 'PRP=1,2,1277,-1,75,0,"3"'):
+        assert dataclasses.asdict(jwt.parse_line(text)) == \
+            dataclasses.asdict(twt.parse_line(text))

@@ -425,6 +425,49 @@ def test_cuda_axis_fft_matches_plain(L):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("logn", [15, 18])
+def test_cuda_k3_k4_shift_match_plain(logn):
+    """On the card: K3 (K3a as csrc/axis_fft.cuh's shift butterflies, then
+    K3b) at L1 = 32 (n = 2^15) and 64 (2^18) with a = 1, a = 3 and sub2,
+    in place on lazy words, digits and carries bit for bit against the
+    plain version; K4 forward without and with (R1, 1) block carries (mod
+    P) and K4 inverse (bit for bit), in place; at L1 = 64 the move-only
+    bodies of K3a and K4 forward launch (they compute no transform)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    n = 1 << logn
+    plan = build_plan(int(n * 16.5) | 1, n=n)
+    t = tk.DevTables.from_host(
+        tfs.build_tables(tfs.FourStepPlan.from_plan(plan)), dev)
+    assert t.shape[0] == (32 if logn == 15 else 64)
+    rng = np.random.default_rng(2000 + logn)
+    z = _t(rng.integers(0, 1 << 64, size=t.shape, dtype=np.uint64)).to(dev)
+    x = _t(_digits(plan, rng).reshape(t.shape)).to(dev)
+    bco = torch.from_numpy(rng.integers(0, 1 << 45, size=t.block_carry_shape,
+                                        dtype=np.int64)).to(dev)
+    for a, sub2 in ((1, False), (3, False), (1, True)):
+        dw, cw = tk.p7_carry_plain(t, z, a, sub2)
+        y = z.clone()
+        d, c = tk.p7_carry_pass(t, y, a=a, sub2=sub2, out=y)
+        assert d is y and torch.equal(d, dw) and torch.equal(c, cw), \
+            (a, sub2)
+    for c in (None, bco):
+        want = tk.axis0_plain(t, x, False, co=c)
+        y = x.clone()
+        tk.axis0_pass(t, y, False, co=c, out=y)
+        assert torch.equal(tgl.canon64(y), tgl.canon64(want)), c is None
+    want = tk.axis0_plain(t, z, True)
+    y = z.clone()
+    tk.axis0_pass(t, y, True, out=y)
+    assert torch.equal(y, want)
+    if logn == 18:
+        for which in ("k3", "k4f"):
+            tk.axis_fft_move(t, z, which)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("logn,s", [(18, 2), (18, 4), (23, 2), (23, 4),
                                     (26, 2)])
 def test_cuda_shard_kernels_match_plain(logn, s):
