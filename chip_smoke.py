@@ -75,8 +75,10 @@ Phases; any failure raises and the script exits non-zero with no result:
      1000000007, 332192831 (row and block carry) and 700000001, and at
      p = 756839 and 9999991 through K9 and through the three-kernel step
      (Pipeline(chain=False)); at p = 136279841 the row carry, the block
-     carry and the hybrid in turns; K9 against the three-kernel step and
-     the plain chain, ms per squaring, at each n from 2^15 to 2^19; each
+     carry and the hybrid in turns; K9 against the three-kernel step,
+     its move-only body (kernels.square_chain_part "move": the same grid,
+     loads, stores and grid barriers, no products) and the plain chain,
+     ms per squaring, at each n from 2^15 to 2^19; each
      kernel's time against its plain version at n = 2^23 (K1-K3, K4, K7),
      2^25 (the big-shape kernels, K4 and K7 again), 2^26 (K5 at L2 =
      128, its launches counted over the timed chain at p = 1000000007),
@@ -987,19 +989,7 @@ def main(argv) -> int:
         R1, R2, C = t.shape
         return R1, R2, C // 128, t.mf.numel(), t.carry_shape
 
-    def k9_bound(t, co):
-        """One squaring of a K9 chain of K9_STEPS: its products, and the
-        register, carries, multipliers and tables read once and written
-        once over the whole chain."""
-        L1, L2, ca, n, _ = shape_of(t)
-        tabs = nbytes(t.k1_mats, t.g2, t.mf, t.mi, t.lane_f, t.lane_i, t.Mf,
-                      t.Mi, t.tri, t.k3_mats, t.er, t.ec, t.wt, t.cum,
-                      t.widths)
-        return bound((2 * L1 + 2 * L2 + 2 * ca + 2 * 128 + 3) * n,
-                     (16 * n + 2 * nbytes(co) + 8 * tk.CHAIN_K + tabs)
-                     / K9_STEPS)
-
-    K9_STEPS = 64
+    K9_STEPS = profile_passes.K9_STEPS
     for logn, (t, x, co) in chain_in.items():
         ones = tk.chain_multipliers([1] * tk.CHAIN_K, dev)
         xk, ck = x.clone(), co.clone()
@@ -1012,19 +1002,27 @@ def main(argv) -> int:
             for _ in range(K9_STEPS):
                 tk.square_step(t, xk, ck, out=xk, co_out=ck)
 
+        def move():
+            # the cut-down body: K9's grid, loads, stores and barriers
+            tk.square_chain_part(t, xm, cm, ones, K9_STEPS, "move")
+
         def plain():
             tk.square_chain_plain(t, x, co, [1, 1], 2)
 
-        k0, s0 = timed(k9, 3), timed(steps, 3)
-        s1, k1 = timed(steps, 3), timed(k9, 3)
+        xm, cm = x.clone(), co.clone()
+        k0, s0, m0 = timed(k9, 3), timed(steps, 3), timed(move, 3)
+        m1, s1, k1 = timed(move, 3), timed(steps, 3), timed(k9, 3)
         kms = (k0 + k1) / 2 / K9_STEPS
         sms = (s0 + s1) / 2 / K9_STEPS
+        mms = (m0 + m1) / 2 / K9_STEPS
         pms = timed(plain, 2) / 2
-        bms, by = k9_bound(t, co)
+        bms, by = profile_passes.k9_bound(t, co, K9_STEPS)
         log(f"[4] k9_chain n=2^{logn}: K9 {kms:.6f} ms per squaring "
             f"(runs {k0 / K9_STEPS:.6f}, {k1 / K9_STEPS:.6f}), three-kernel "
             f"step {sms:.6f} ({s0 / K9_STEPS:.6f}, {s1 / K9_STEPS:.6f}), "
-            f"plain {pms:.6f}, bound {bms:.6f} ({by}) ({card})")
+            f"move-only body {mms:.6f} ({m0 / K9_STEPS:.6f}, "
+            f"{m1 / K9_STEPS:.6f}), plain {pms:.6f}, bound {bms:.6f} "
+            f"({by}) ({card})")
         if logn == 19:
             ms["k9_chain"] = (kms, pms)
 
@@ -1055,7 +1053,7 @@ def main(argv) -> int:
             bounds["k6b_fused_c_invh"] = profile_passes.row_bound(t, "inv")
     bounds["k5_axis1[L2=128]"] = k5_bound(huge_in[0])
     t, x, co = chain_in[19]
-    bounds["k9_chain"] = k9_bound(t, co)
+    bounds["k9_chain"] = profile_passes.k9_bound(t, co, K9_STEPS)
 
     def block_bounds(t, bco):
         """K4: the mean of forward with carries and inverse as shift

@@ -195,17 +195,24 @@ __device__ __forceinline__ u64 axf_post(const AxisArgs& g, u64 v, int o,
     return v;
 }
 
+// One tile of the pass: the (o, s) pair and column block cb (32 columns
+// from cb * 32 for L >= 16, 256 from cb * 256 for L <= 8), on the thread
+// (tx, ty) of AX_TC x AX_TY, with L x AX_TC words of shared memory at xs
+// (unused at L <= 8). Its one barrier follows all of its loads, and it
+// writes only what it read, so it runs in place. A caller that runs one
+// tile after another on the same xs separates them by a barrier (K9 does,
+// k9_chain.cu); the standalone kernel runs one tile per block.
 template <int MODE, int LL, int PART>
-__global__ void __launch_bounds__(AX_TC * AX_TY) axis_fft_kernel(AxisArgs g) {
+__device__ __forceinline__ void axis_fft_tile(const AxisArgs& g, int o, int s,
+                                              int cb, int tx, int ty,
+                                              u64* xs) {
     constexpr int L = 1 << LL;
     constexpr bool INV = MODE == AX_K2C || MODE == AX_K3A;
     constexpr bool LEVELS = PART == AXF_FULL;
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int o = blockIdx.z, s = blockIdx.y;
     const int S = g.S, C = g.C;
     if constexpr (LL <= 3) {
         // one register pass: the thread's whole column
-        const int c = blockIdx.x * AXF_COLS_SMALL + ty * AX_TC + tx;
+        const int c = cb * AXF_COLS_SMALL + ty * AX_TC + tx;
         u64 v[L];
         size_t idx[L];
 #pragma unroll
@@ -224,8 +231,7 @@ __global__ void __launch_bounds__(AX_TC * AX_TY) axis_fft_kernel(AxisArgs g) {
     } else {
         constexpr int T = L / 8;            // pass-1 values per thread
         constexpr int G = T >= 8 ? T / 8 : 1;  // pass-2 groups per thread
-        __shared__ u64 xs[L * AX_TC];
-        const int c = blockIdx.x * AX_TC + tx;
+        const int c = cb * AX_TC + tx;
         const size_t base = ((size_t)o * L * S + s) * C + c;
         const size_t rs = (size_t)S * C;    // one step of j
         // pass 2 runs on rows ty < T only where a row has no full group
@@ -294,6 +300,13 @@ __global__ void __launch_bounds__(AX_TC * AX_TY) axis_fft_kernel(AxisArgs g) {
             }
         }
     }
+}
+
+template <int MODE, int LL, int PART>
+__global__ void __launch_bounds__(AX_TC * AX_TY) axis_fft_kernel(AxisArgs g) {
+    __shared__ u64 xs[LL <= 3 ? 1 : (1 << LL) * AX_TC];
+    axis_fft_tile<MODE, LL, PART>(g, blockIdx.z, blockIdx.y, blockIdx.x,
+                                  threadIdx.x, threadIdx.y, xs);
 }
 
 template <int MODE, int LL, int PART>

@@ -1,6 +1,9 @@
 // The C-transform of one (R, C) register row at a time, in shared memory:
-// the row kernel of K2 (its middle launch), of K6 and of K6b; and K9's
-// dense form of it, split by slot (row_slot_unit, then row_lane_dft).
+// the row kernel of K2 (its middle launch), of K6 and of K6b, and K9's row
+// phase (k9_chain.cuh), which at 2^19 runs the kernel's body
+// (fused_c_row_group) on one group of rows after another and at 2^15 ...
+// 2^18 the split form below (c_slot_r2_fwd), three grid phases of short
+// chains on the same scales.
 //
 // The function (fourstep.fused_c_mats, the JAX's _fused_c_kernel :991 and
 // _fused_c_invh_kernel :1117): per row of C = ca * 128 digits (ca = 2^lca
@@ -62,9 +65,6 @@
 // everything but the 128-point butterflies; CF_MOVE: the same loads and
 // stores with an add in place of every product, no DFT), which only the
 // pass profiler launches (k6_fused_c.cu: prmers_fused_c_part).
-//
-// K9 (csrc/k9_chain.cu) keeps its dense form: row_slot_unit and
-// row_lane_dft below, on the tables lane_f, lane_i, Mf, Mi.
 #pragma once
 
 #include "gl64.cuh"
@@ -254,6 +254,168 @@ GL_FN void c_row(u64* x, int lca, const u64* cs, int inverse) {
 #undef CF_ROW_CASE
 }
 
+// ---------------------------------------------------------------------------
+// The split form's slot DFT: radix-2 levels, four words a thread
+// ---------------------------------------------------------------------------
+// K9's split row phase (k9_chain.cuh at the shapes its rule picks) computes
+// the same transform in three grid phases: the lane pass of one (row, lane)
+// at a time (cf_lane_fwd1), every slot on its own warp, the inverse lane
+// pass. A slot's 128-point DFT by w there is the seven radix-2 DIF levels
+// m = 64 ... 1 (a + b and (a - b) w^(64 jj / m), natural in, position i
+// holding frequency bitrev7(i) out, as passes A and B leave it), the
+// inverse their mirror DIT by w^-1 (b w^(-64 jj / m), then a + b, a - b; no
+// 1/128). A warp's thread k holds four words through four register passes:
+// levels (64, 32), (16, 8) and (4, 2) on the words of cf_r2_word<MLO> for
+// MLO = 32, 8, 2, then level 1 (MLO = 0), the square and the inverse back.
+// A thread's chain is 14 butterflies each way (two a level) and a product
+// at each end, against pass A's 16 products, 32 butterflies and 15
+// twiddles, then pass B's 12 butterflies, in the group.
+
+// Word c (< 4) of thread k (< 32) in the pass of levels 2 MLO and MLO:
+// 4 MLO (k / MLO) + k % MLO + MLO c; MLO = 0, level 1: 2k + (c & 1) +
+// 64 (c >> 1).
+template <int MLO>
+GL_FN int cf_r2_word(int k, int c) {
+    if constexpr (MLO == 0)
+        return 2 * k + (c & 1) + 64 * (c >> 1);
+    else
+        return 4 * MLO * (k / MLO) + k % MLO + MLO * c;
+}
+
+// Level 1's butterflies, pairs (0, 1) and (2, 3), twiddle 1: their own
+// inverse but for the factor 2.
+GL_FN void cf_r2_level1(u64* v) {
+#pragma unroll
+    for (int c = 0; c < 4; c += 2) {
+        const u64 a = v[c], b = v[c + 1];
+        v[c] = gl_add(a, b);
+        v[c + 1] = gl_sub(a, b);
+    }
+}
+
+// The DIF levels 2 MLO (pairs c, c + 2: jj = k % MLO + MLO c) and MLO
+// (pairs c, c + 1: jj = k % MLO) on thread k's words; MLO = 0: level 1.
+template <int MLO>
+GL_FN void cf_r2_fwd(u64* v, int k) {
+    if constexpr (MLO == 0) {
+        cf_r2_level1(v);
+    } else {
+        const int r = k % MLO;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+            const u64 a = v[c], b = v[c + 2];
+            v[c] = gl_add(a, b);
+            v[c + 2] = gl_mul_w128pow(gl_sub(a, b), (r + MLO * c) * (32 / MLO));
+        }
+#pragma unroll
+        for (int c = 0; c < 4; c += 2) {
+            const u64 a = v[c], b = v[c + 1];
+            v[c] = gl_add(a, b);
+            v[c + 1] = gl_mul_w128pow(gl_sub(a, b), r * (64 / MLO));
+        }
+    }
+}
+
+// Its mirror: the DIT levels MLO, then 2 MLO, by w^-1.
+template <int MLO>
+GL_FN void cf_r2_inv(u64* v, int k) {
+    if constexpr (MLO == 0) {
+        cf_r2_level1(v);
+    } else {
+        const int r = k % MLO;
+#pragma unroll
+        for (int c = 0; c < 4; c += 2) {
+            const u64 a = v[c], b = gl_mul_w128pow(v[c + 1], -r * (64 / MLO));
+            v[c] = gl_add(a, b);
+            v[c + 1] = gl_sub(a, b);
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+            const u64 a = v[c];
+            const u64 b = gl_mul_w128pow(v[c + 2], -(r + MLO * c) * (32 / MLO));
+            v[c] = gl_add(a, b);
+            v[c + 2] = gl_sub(a, b);
+        }
+    }
+}
+
+// The slot functions on a plain array of 128 words, the kernel's passes in
+// its order: forward x cs then the DIF (bit-reversed out); inverse the DIT
+// (bit-reversed in) then x cs.
+template <int MLO>
+GL_FN void cf_r2_sweep(u64* s, int inverse) {
+    for (int k = 0; k < 32; ++k) {
+        u64 v[4];
+        for (int c = 0; c < 4; ++c) v[c] = s[cf_r2_word<MLO>(k, c)];
+        if (inverse)
+            cf_r2_inv<MLO>(v, k);
+        else
+            cf_r2_fwd<MLO>(v, k);
+        for (int c = 0; c < 4; ++c) s[cf_r2_word<MLO>(k, c)] = v[c];
+    }
+}
+
+GL_FN void c_slot_r2_fwd(u64* s, const u64* cs) {
+    for (int i = 0; i < 128; ++i) s[i] = gl_mul(s[i], cs[i]);
+    cf_r2_sweep<32>(s, 0);
+    cf_r2_sweep<8>(s, 0);
+    cf_r2_sweep<2>(s, 0);
+    cf_r2_sweep<0>(s, 0);
+}
+
+GL_FN void c_slot_r2_inv(u64* s, const u64* cs) {
+    cf_r2_sweep<0>(s, 1);
+    cf_r2_sweep<2>(s, 1);
+    cf_r2_sweep<8>(s, 1);
+    cf_r2_sweep<32>(s, 1);
+    for (int i = 0; i < 128; ++i) s[i] = gl_mul(s[i], cs[i]);
+}
+
+// One row of the split form (ca <= 16: one lane pass), mode 0 forward
+// (the lane DIF, then each slot's, the spectrum in natural order as
+// c_row's), 1 inverse (the mirror), 2 the squaring row of K9's three
+// phases (the lane DIF; per slot the DIF, the square where it leaves the
+// spectrum, the DIT; the lane DIT). cs is cs_f (modes 0, 2) or cs_i (1);
+// ci cs_i in mode 2.
+template <int LCA>
+GL_FN void c_row_split_t(u64* x, const u64* cs, const u64* ci, int mode) {
+    static_assert(LCA <= 4, "the split form's lane pass is one pass");
+    constexpr int CA = 1 << LCA;
+    u64 v[CA];
+    if (mode != 1)
+        for (int l = 0; l < 128; ++l) {
+            for (int i = 0; i < CA; ++i) v[i] = x[(i << 7) + l];
+            cf_lane_fwd1<LCA, 0>(v, 0);
+            for (int i = 0; i < CA; ++i) x[(i << 7) + l] = v[i];
+        }
+    for (int j = 0; j < CA; ++j) {
+        u64* sx = x + (j << 7);
+        if (mode != 1) c_slot_r2_fwd(sx, cs + (j << 7));
+        if (mode == 2)
+            for (int i = 0; i < 128; ++i) sx[i] = gl_sqr(sx[i]);
+        if (mode != 2) cf_slot_bitrev(sx);
+        if (mode != 0) c_slot_r2_inv(sx, (mode == 2 ? ci : cs) + (j << 7));
+    }
+    if (mode != 0)
+        for (int l = 0; l < 128; ++l) {
+            for (int i = 0; i < CA; ++i) v[i] = x[(i << 7) + l];
+            gl_dit_shift_inv<LCA>(v, 1);
+            for (int i = 0; i < CA; ++i) x[(i << 7) + l] = v[i];
+        }
+}
+
+// lca in 1 ... 4.
+GL_FN void c_row_split(u64* x, int lca, const u64* cs, const u64* ci,
+                       int mode) {
+    switch (lca) {
+        case 1: c_row_split_t<1>(x, cs, ci, mode); break;
+        case 2: c_row_split_t<2>(x, cs, ci, mode); break;
+        case 3: c_row_split_t<3>(x, cs, ci, mode); break;
+        case 4: c_row_split_t<4>(x, cs, ci, mode); break;
+        default: break;
+    }
+}
+
 #if defined(__CUDACC__)
 
 #include <cuda_runtime.h>
@@ -262,7 +424,7 @@ GL_FN void c_row(u64* x, int lca, const u64* cs, int inverse) {
 // pass profiler (see above); only CF_FULL computes the transform.
 enum { CF_FULL = 0, CF_NO_SLOT_LEVELS = 1, CF_MOVE = 2 };
 
-// Internal linkage: K2 and K6 both instantiate the row kernel.
+// Internal linkage: K2, K6 and K9 all instantiate the row body.
 namespace {
 
 // The shared-memory word of element i of the block's slot g.
@@ -281,21 +443,26 @@ struct CfShape {
     static constexpr int R2 = LCA - R1;
 };
 
+// The transform of one group of ROWS rows (group grp: rows grp * ROWS
+// ...), on threads tid < NT of the block and E words of shared memory at
+// sm; every thread of the block calls it (its barriers are the block's).
+// It reads every word of its rows before it writes one, so it runs in
+// place; it opens with a sweep that writes sm, so a caller that runs one
+// group after another separates them by a barrier (K9 does, k9_chain.cuh;
+// the kernel below runs one group per block).
 template <int LCA, int ROWS, int PART>
-__global__ void __launch_bounds__(256)
-fused_c_row_kernel(const u64* x, u64* out, const u64* u, int fwd, int op,
-                   int inv, const u64* __restrict__ cs_f,
-                   const u64* __restrict__ cs_i) {
+__device__ __forceinline__ void fused_c_row_group(
+    const u64* x, u64* out, const u64* u, int fwd, int op, int inv,
+    const u64* __restrict__ cs_f, const u64* __restrict__ cs_i, int grp,
+    u64* sm, int tid) {
     using S = CfShape<LCA, ROWS>;
     constexpr int CA = S::CA, NS = S::NS, NT = S::NT;
     constexpr int R1 = S::R1, R2 = S::R2, N1 = 1 << R1, N2 = 1 << R2;
     constexpr bool FULL = PART == CF_FULL, MOVE = PART == CF_MOVE;
-    extern __shared__ u64 sm[];
-    const size_t base = (size_t)blockIdx.x * S::E;
+    const size_t base = (size_t)grp * S::E;
     const u64* xb = x + base;
     u64* ob = out + base;
     const u64* ub = u ? u + base : nullptr;
-    const int tid = threadIdx.x;
 
     if (fwd) {
         // lane pass 1: device memory -> registers -> shared memory
@@ -431,6 +598,120 @@ fused_c_row_kernel(const u64* x, u64* out, const u64* u, int fwd, int op,
     }
 }
 
+// The split form's three bodies (see c_slot_r2_fwd above), each over one
+// item of its grid phase, in place on x; a phase's items touch disjoint
+// words. With R2S (K9 at L2 = 1, where K2's r2 passes are elementwise)
+// the lane passes also take them: x mf as the lane DIF loads a word, x mi
+// and x t_r_inv[row] as the lane DIT stores one.
+
+// The lane DIF of lane l of row `row` (its CA words, stride 128).
+template <int LCA, int PART, bool R2S>
+__device__ __forceinline__ void cf_lane_item_fwd(u64* x, int row, int l,
+                                                 const u64* __restrict__ mf) {
+    constexpr int CA = 1 << LCA;
+    constexpr bool MOVE = PART == CF_MOVE;
+    const size_t base = (size_t)row * (CA << 7) + l;
+    u64 v[CA];
+#pragma unroll
+    for (int i = 0; i < CA; ++i) {
+        v[i] = x[base + (i << 7)];
+        if constexpr (R2S)
+            v[i] = MOVE ? gl_add(v[i], mf[base + (i << 7)])
+                        : gl_mul(v[i], mf[base + (i << 7)]);
+    }
+    if (!MOVE) cf_lane_fwd1<LCA, 0>(v, 0);
+#pragma unroll
+    for (int i = 0; i < CA; ++i) x[base + (i << 7)] = v[i];
+}
+
+// Its mirror, the lane DIT.
+template <int LCA, int PART, bool R2S>
+__device__ __forceinline__ void cf_lane_item_inv(
+    u64* x, int row, int l, const u64* __restrict__ mi,
+    const u64* __restrict__ t_r_inv) {
+    constexpr int CA = 1 << LCA;
+    constexpr bool MOVE = PART == CF_MOVE;
+    const size_t base = (size_t)row * (CA << 7) + l;
+    u64 v[CA];
+#pragma unroll
+    for (int i = 0; i < CA; ++i) v[i] = x[base + (i << 7)];
+    if (!MOVE) gl_dit_shift_inv<LCA>(v, 1);
+#pragma unroll
+    for (int i = 0; i < CA; ++i) {
+        if constexpr (R2S) {
+            const u64 f = mi[base + (i << 7)], t = t_r_inv[row];
+            v[i] = MOVE ? gl_add(gl_add(v[i], f), t)
+                        : gl_mul(gl_mul(v[i], f), t);
+        }
+        x[base + (i << 7)] = v[i];
+    }
+}
+
+// A slot's word w in the warp's shared memory: conflict-free for every
+// pass's half-warp.
+__device__ __forceinline__ int cf_r2_sw(int w) { return w ^ ((w >> 2) & 15); }
+
+// Thread k's words from pass A's layout to pass B's, through sm; each
+// thread writes only the words it next reads, so one warp barrier orders
+// the exchange.
+template <int A, int B>
+__device__ __forceinline__ void cf_r2_swap(u64* v, u64* sm, int k) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sm[cf_r2_sw(cf_r2_word<A>(k, c))] = v[c];
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = sm[cf_r2_sw(cf_r2_word<B>(k, c))];
+}
+
+// One slot of 128 words at xs, in place, on the 32 threads of a warp
+// (lane k) and 128 words of shared memory at sm that no other warp
+// touches: x cs_f, the DIF, the square, the DIT, x cs_i (cs_f, cs_i the
+// slot's scales).
+template <int PART>
+__device__ __forceinline__ void cf_slot_r2_sqr(u64* xs,
+                                               const u64* __restrict__ cs_f,
+                                               const u64* __restrict__ cs_i,
+                                               u64* sm, int k) {
+    constexpr bool MOVE = PART == CF_MOVE;
+    u64 v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const int w = k + 32 * c;
+        v[c] = MOVE ? gl_add(xs[w], cs_f[w]) : gl_mul(xs[w], cs_f[w]);
+    }
+    if (!MOVE) cf_r2_fwd<32>(v, k);
+    cf_r2_swap<32, 8>(v, sm, k);
+    if (!MOVE) cf_r2_fwd<8>(v, k);
+    cf_r2_swap<8, 2>(v, sm, k);
+    if (!MOVE) cf_r2_fwd<2>(v, k);
+    cf_r2_swap<2, 0>(v, sm, k);
+    if (!MOVE) cf_r2_level1(v);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = MOVE ? gl_add(v[c], v[c]) : gl_sqr(v[c]);
+    if (!MOVE) cf_r2_level1(v);
+    cf_r2_swap<0, 2>(v, sm, k);
+    if (!MOVE) cf_r2_inv<2>(v, k);
+    cf_r2_swap<2, 8>(v, sm, k);
+    if (!MOVE) cf_r2_inv<8>(v, k);
+    cf_r2_swap<8, 32>(v, sm, k);
+    if (!MOVE) cf_r2_inv<32>(v, k);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const int w = k + 32 * c;
+        xs[w] = MOVE ? gl_add(v[c], cs_i[w]) : gl_mul(v[c], cs_i[w]);
+    }
+}
+
+template <int LCA, int ROWS, int PART>
+__global__ void __launch_bounds__(256)
+fused_c_row_kernel(const u64* x, u64* out, const u64* u, int fwd, int op,
+                   int inv, const u64* __restrict__ cs_f,
+                   const u64* __restrict__ cs_i) {
+    extern __shared__ u64 sm[];
+    fused_c_row_group<LCA, ROWS, PART>(x, out, u, fwd, op, inv, cs_f, cs_i,
+                                       blockIdx.x, sm, threadIdx.x);
+}
+
 template <int LCA, int ROWS, int PART>
 int cf_launch(const u64* x, u64* out, const u64* u, int fwd, int op,
               int inv, const u64* cs_f, const u64* cs_i, int R,
@@ -461,77 +742,6 @@ int cf_rows(const u64* x, u64* out, const u64* u, int fwd, int op, int inv,
     }
     return cf_launch<LCA, 1, PART>(x, out, u, fwd, op, inv, cs_f, cs_i, R,
                                    st);
-}
-
-// K9's form, dense: dst[r][q*128 + l] = sum_p D[q][p] * src[r][p*128 + l]
-__device__ __forceinline__ void row_lane_dft(const u64* src, u64* dst,
-                                             const u64* D, int rows, int C,
-                                             int ca) {
-    const int tot = rows * C;
-    for (int idx = threadIdx.x; idx < tot; idx += blockDim.x) {
-        const int r = idx / C;
-        const int rem = idx - r * C;
-        const int q = rem >> 7;
-        const int l = rem & 127;
-        const u64* srow = src + r * C + l;
-        const u64* Dq = D + q * ca;
-        GlAcc sum = gl_acc_zero();
-        for (int p = 0; p < ca; ++p) gl_acc_madd(sum, Dq[p], srow[p * 128]);
-        dst[idx] = gl_acc_reduce(sum);
-    }
-}
-
-// K9's form of the row C-transform with the square, split so that the ca
-// slots of a row run in ca blocks: unit (rows r0 ... r0 + G - 1, slot j)
-// forms slot j of each row's forward lane DFT, the Mf[j] slot product, the
-// square and the Mi[j] slot product, and writes that slot of the mirror to
-// S (the inverse lane DFT still to come: row_lane_dft from S finishes each
-// row). Each matrix word read serves G rows. On 256 threads (tid < 256)
-// and 3 * G * 128 u64 of shared memory at smem; the two groups of 128
-// threads each sum half of a slot product. It opens with a barrier, so a
-// block may run one unit after another on the same buffer.
-template <int G>
-__device__ __forceinline__ void row_slot_unit(const u64* x, u64* S,
-                                              const u64* lane_f,
-                                              const u64* __restrict__ Mf,
-                                              const u64* __restrict__ Mi,
-                                              int C, int ca, int r0, int j,
-                                              u64* smem, int tid) {
-    u64* V = smem;              // G x 128: the slot's values
-    u64* P = smem + G * 128;    // 2 x G x 128: the halves of a product
-    const int k = tid & 127;
-    const int h = tid >> 7;
-    __syncthreads();
-    for (int i = tid; i < G * 128; i += 256) {
-        const u64* xr = x + (size_t)(r0 + (i >> 7)) * C + (i & 127);
-        GlAcc sum = gl_acc_zero();
-        for (int p = 0; p < ca; ++p)
-            gl_acc_madd(sum, lane_f[j * ca + p], xr[p * 128]);
-        V[i] = gl_acc_reduce(sum);
-    }
-    for (int pass = 0; pass < 2; ++pass) {
-        const u64* Mj = (pass ? Mi : Mf) + (size_t)j * 128 * 128 + k;
-        __syncthreads();
-        GlAcc acc[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) acc[g] = gl_acc_zero();
-        for (int l = 64 * h; l < 64 * h + 64; ++l) {
-            const u64 m = Mj[l * 128];
-#pragma unroll
-            for (int g = 0; g < G; ++g) gl_acc_madd(acc[g], V[g * 128 + l], m);
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-            P[(h * G + g) * 128 + k] = gl_acc_reduce(acc[g]);
-        __syncthreads();
-        for (int i = tid; i < G * 128; i += 256) {
-            const u64 v = gl_add(P[i], P[G * 128 + i]);
-            if (pass)
-                S[(size_t)(r0 + (i >> 7)) * C + j * 128 + (i & 127)] = v;
-            else
-                V[i] = gl_sqr(v);
-        }
-    }
 }
 
 }  // namespace

@@ -49,9 +49,10 @@ SIGNATURES = {
     "prmers_k6_fused_c": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
     "prmers_k6b_fused_c_invh": [_P, _P, _P, _I, _P, _I, _I, _P],
     "prmers_fused_c_part": [_P, _P, _I, _P, _P, _I, _I, _P],
-    "prmers_k9_chain": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _U32, _P,
-                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _P],
+    "prmers_k9_chain": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _U32] +
+                       [_P] * 7 + [_I] * 4 + [_P],
+    "prmers_k9_chain_part": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
+                             _U32] + [_P] * 7 + [_I] * 7 + [_P],
     "prmers_k4_axis0": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _U32, _P, _P, _I,
                         _I, _I, _P],
     "prmers_k7_block_carry": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],

@@ -33,9 +33,9 @@ mode "fwd"; K3 two; the others one).
       (r2fold off)                              mode, no r2 passes
   K6b fused_c_invh_pass     csrc/k6_fused_c.cu  head op, inverse half of
                                                 the C-transform
-  K9  square_chain          csrc/k9_chain.cu    up to CHAIN_K squarings
-                                                x^2 * a_k in one persistent
-                                                launch (n = 2^15 ... 2^19)
+  K9  square_chain          csrc/k9_chain.cuh   up to CHAIN_K squarings
+                            (axis_fft.cuh,      x^2 * a_k in one persistent
+                            fused_c_row.cuh)    launch (n = 2^15 ... 2^19)
   K4  axis0_pass            csrc/k4_axis0.cu    forward: block-carry inject,
                             (axis_fft.cuh)      wrap halve, r1 DFT; inverse:
                                                 r1 inverse, double, canon
@@ -71,8 +71,9 @@ butterflies on the factored tables instead (k1_cs, k1_rs; k3_rs; mf, mi;
 t_r_inv): one or two products per digit, equal mod P (K3's and K4
 inverse's canonical outputs bit for bit); axis_fft_model,
 p1_carry_model, axis1_model, p7_dft_model and axis0_model below are its
-torch model, for the tests. Only K9 keeps the dense tiles of
-csrc/axis_dft.cuh.
+torch model, for the tests. K9 runs the same bodies as its phases (K1,
+K2a, the row C-transform of csrc/fused_c_row.cuh, K2c, K3a, K3b) on the
+same factored tables; square_chain_model is its torch model.
 
 The radix-5 plans (n = 5 * 2^k, R2 = L2 = 5 * 2^b up to 320) go through
 the same wrappers: no wrapper, plain version or kernel other than the r2
@@ -120,7 +121,8 @@ SOURCES = {
     "k5_axis1": "prmers_tpu_torch/csrc/axis_fft.cuh",
     "k6_fused_c": "prmers_tpu_torch/csrc/fused_c_row.cuh",
     "k6b_fused_c_invh": "prmers_tpu_torch/csrc/fused_c_row.cuh",
-    "k9_chain": "prmers_tpu_torch/csrc/k9_chain.cu",
+    # K9: the kernel's header (k9_chain.cu is the engine's entry point)
+    "k9_chain": "prmers_tpu_torch/csrc/k9_chain.cuh",
     # K4: both launches are the shift butterflies' (k4_axis0.cu the entry)
     "k4_axis0": "prmers_tpu_torch/csrc/axis_fft.cuh",
     "k7_block_carry": "prmers_tpu_torch/csrc/k7_block_carry.cu",
@@ -1238,6 +1240,47 @@ def square_chain_plain(t: DevTables, x: torch.Tensor, co: torch.Tensor,
     return x, co
 
 
+def square_chain_model(t: DevTables, x: torch.Tensor, co: torch.Tensor,
+                       a_vec, count: int):
+    """K9 as csrc/k9_chain.cuh computes it, for the tests: per squaring its
+    six phases in order, each the torch model of the standalone launch
+    whose body it runs: K1 (p1_carry_model), K2a (axis1_model "p2"), the
+    row C-transform with the square (c_fft_plain, which either of the
+    kernel's row forms computes), K2c (axis1_model "p6"),
+    K3a (p7_dft_model, x a_k) and K3b (carry_plain); at L2 = 1 the kernel's
+    row phase takes K2a's x mf and K2c's x mi, x t_r_inv, the same
+    products. Bit for bit equal to square_chain_plain: K3a's output is
+    canonical."""
+    for ak in [int(v) for v in a_vec[:count]]:
+        s = p1_carry_model(t, x, co)
+        s = axis1_model(t, s, "p2")
+        s = c_fft_plain(t, s, True, "sqr", True)
+        s = axis1_model(t, s, "p6")
+        x, co = carry_plain(t, p7_dft_model(t, s, ak))
+    return x, co
+
+
+K9_PHASES = ("k1", "k2a", "row", "k2c", "k3a", "k3b")
+K9_PARTS = {"full": 0, "move": 1}
+K9_FORMS = {"rule": 0, "fused": 1, "split": 2}
+
+
+def _k9_launch(t: DevTables, x: torch.Tensor, co: torch.Tensor,
+               a: torch.Tensor, count: int, part=None) -> int:
+    """prmers_k9_chain, or with part = (part, phases, form)
+    prmers_k9_chain_part."""
+    R1, R2, C = t.shape
+    args = (x.data_ptr(), co.data_ptr(), a.data_ptr(), count,
+            t.k1_cs.data_ptr(), t.k1_rs.data_ptr(), t.wt.data_ptr(),
+            t.cum.data_ptr(), t.k, t.er.data_ptr(), t.ec.data_ptr(), t.fp.n,
+            t.mf.data_ptr(), t.mi.data_ptr(), t.t_r_inv.data_ptr(),
+            t.cs_f.data_ptr(), t.cs_i.data_ptr(), t.k3_rs.data_ptr(),
+            t.widths.data_ptr(), t.rounds, R1, R2, C)
+    if part is None:
+        return build.lib().prmers_k9_chain(*args, _stream())
+    return build.lib().prmers_k9_chain_part(*args, *part, _stream())
+
+
 def square_chain(t: DevTables, x: torch.Tensor, co: torch.Tensor, a_vec,
                  count: int | None = None, out: torch.Tensor | None = None,
                  co_out: torch.Tensor | None = None):
@@ -1275,20 +1318,42 @@ def square_chain(t: DevTables, x: torch.Tensor, co: torch.Tensor, a_vec,
         (co_out if co_out is co else co_out.copy_(co))
     if count == 0:
         return out, co_out
-    R1, R2, C = t.shape
-    scratch = torch.empty_like(out)
-    err = build.lib().prmers_k9_chain(
-        out.data_ptr(), co_out.data_ptr(), scratch.data_ptr(),
-        a_vec.data_ptr(), count,
-        t.k1_mats.data_ptr(), t.wt.data_ptr(), t.cum.data_ptr(), t.k,
-        t.er.data_ptr(), t.ec.data_ptr(), t.fp.n, t.g2.data_ptr(),
-        t.mf.data_ptr(), t.lane_f.data_ptr(), t.lane_i.data_ptr(),
-        t.Mf.data_ptr(), t.Mi.data_ptr(), t.mi.data_ptr(), t.tri.data_ptr(),
-        t.k3_mats.data_ptr(), t.widths.data_ptr(), t.rounds, R1, R2, C,
-        _stream())
+    err = _k9_launch(t, out, co_out, a_vec, count)
     calls["k9_chain"] += 1
     build.check(err, "k9_chain")
     return out, co_out
+
+
+def square_chain_part(t: DevTables, x: torch.Tensor, co: torch.Tensor,
+                      a: torch.Tensor, count: int, part: str = "full",
+                      phases=K9_PHASES, form: str = "rule") -> None:
+    """K9 for the pass profiler and the smoke's timing alone, in place on
+    x and co, through its own entry point (csrc/k9_part.cu): "full" is the
+    kernel, "move" its cut-down body (the same grid, tiles, loads, stores
+    and grid barriers, an add for each product and no butterflies: it
+    computes no chain, so no plain version exists); phases, all of
+    K9_PHASES, none (the barriers alone) or one, runs those between the
+    grid barriers (at L2 = 1 the row phase holds K2a and K2c, whose names
+    then select nothing); form, with the full body and all phases, forces
+    the row phase's "fused" or "split" form in place of the shape's rule.
+    No counter moves. CUDA tensors and a multiplier tensor from
+    chain_multipliers only."""
+    phases = set(phases)
+    whole = phases == set(K9_PHASES)
+    if part not in K9_PARTS or form not in K9_FORMS or \
+            not phases <= set(K9_PHASES) or \
+            not (whole or len(phases) <= 1 and part == "full") or \
+            not (form == "rule" or whole and part == "full"):
+        raise ValueError((part, sorted(phases), form))
+    if _on_cpu(x) or not tfs.chain_ok(t.fp):
+        raise ValueError("square_chain_part: a chain_ok plan on the card")
+    _check(t, (x,), (co,))
+    if not 0 <= count <= a.numel():
+        raise ValueError(f"count={count} outside [0, {a.numel()}]")
+    mask = sum(1 << K9_PHASES.index(p) for p in phases)
+    build.check(_k9_launch(t, x, co, a, count,
+                           (K9_PARTS[part], mask, K9_FORMS[form])),
+                f"k9_chain {part}")
 
 
 # ---------------------------------------------------------------------------

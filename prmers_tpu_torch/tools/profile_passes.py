@@ -62,6 +62,21 @@ inputs (K1's and K4 forward's buffers drift the same way). The two
 bodies run in turns (pass, move, move, pass), each turn `reps` launches
 back to back, with no allocation inside a turn.
 
+`python -m prmers_tpu_torch.tools.profile_passes --k9 [reps]` times K9,
+the whole-chain kernel (csrc/k9_chain.cuh), at every n = 2^15 ... 2^19 it
+takes: ms per squaring over a chain of K9_STEPS = 64 with a = 1, in
+place, in the row form the shape's rule picks ("rule") and in each form
+forced ("fused", "split"; kernels.square_chain_part); its move-only
+body (kernels.square_chain_part "move": the same grid, loads, stores and
+grid barriers, an add for each product, no butterflies); its grid
+barriers alone ("barriers": six in the fused form, eight in the split,
+six at L2 = 1 where its lane phases hold K2a and K2c) and each
+phase alone between them (K9_RUNS runs them in turns, then again in
+reverse order, each turn `reps` chains back to back). The rule's and the
+two forms' entries stand beside k9_bound and are held against the plain
+chain of 2 squarings on their input; the others, under "parts", are held
+to nothing.
+
 The reference tool is stale (it calls kn._to_ay, _middle and _to_ax,
 which are gone); this twin times what the reference still has.
 """
@@ -87,6 +102,15 @@ CIN = 0x9E3779B97F4A7C15        # the scalar carry K4u forward injects
 # K3a, K4 forward) at the first two, P2 and P6 at all three
 P_AXIS = (136279841, 600000001, 1000000007)
 AXIS_BODIES = ("pass", "move")
+K9_STEPS = 64                   # squarings per timed K9 chain
+# K9's runs, (part, phases, form): the shape's rule, each row form forced,
+# the move-only body, the grid barriers alone and each phase alone between
+# them (the last three in the rule's form)
+K9_RUNS = {"rule": ("full", None, "rule"), "fused": ("full", None, "fused"),
+           "split": ("full", None, "split"),
+           "move": ("move", None, "rule"), "barriers": ("full", (), "rule")}
+K9_RUNS.update({f"{p} alone": ("full", (p,), "rule") for p in
+                ("k1", "k2a", "row", "k2c", "k3a", "k3b")})
 
 
 def _pass_bound(t, axis: int, kw: dict):
@@ -445,17 +469,91 @@ def measure_cfft(reps: int = 10):
     return t, entries, parts
 
 
+def k9_bound(t, co, steps: int = K9_STEPS):
+    """One squaring of a K9 chain of `steps` at the fewest products its
+    function needs (PERF.md section 3: K1 2 + log2(L1)/2, K2a 1 +
+    log2(L2)/2, K2c 2 + log2(L2)/2, the C-transform 2 x
+    fourstep.c_fft_products(C), the square, K3a 1 + log2(L1)/2), against
+    the register, carries, multipliers and the tables K9 reads, read once
+    and written once over the chain."""
+    from ..ops import kernels as tk
+    R1, R2, C = t.shape
+    n = R1 * R2 * C
+    per = (2 + math.log2(R1) / 2) + (1 + math.log2(R2) / 2) + \
+        (2 + math.log2(R2) / 2) + 2 * tfs.c_fft_products(C) + 1 + \
+        (1 + math.log2(R1) / 2)
+    tabs = nbytes(t.k1_cs, t.k1_rs, t.mf, t.mi, t.t_r_inv, t.cs_f, t.cs_i,
+                  t.k3_rs, t.er, t.ec, t.wt, t.cum, t.widths)
+    return bound(per * n * OPS_PER_PRODUCT,
+                 (16 * n + 2 * nbytes(co) + 8 * tk.CHAIN_K + tabs) / steps)
+
+
+def measure_k9(reps: int = 3):
+    """K9 at n = 2^15 ... 2^19: each of K9_RUNS; returns (the tables of
+    the last plan, the list of Timed (the rule's runs), the parts' rows
+    (the others)), ms per squaring, each the mean of its two turns."""
+    import numpy as np
+    import torch
+
+    from ..core.plan import build_plan
+    from ..engine.fourstep_engine import get_tables
+    from ..ops import kernels as tk
+    from ..utils import digits as dg
+    dev = require_card()
+    ones = tk.chain_multipliers([1] * tk.CHAIN_K, dev)
+    entries, parts = [], []
+    for logn in range(15, 20):
+        n = 1 << logn
+        plan = build_plan(int(n * 16.5) | 1, n=n)
+        t = get_tables(plan, dev)
+        rng = np.random.default_rng(logn)
+        v = int.from_bytes(rng.bytes(plan.p // 8 + 1), "little") % \
+            ((1 << plan.p) - 1)
+        x = torch.from_numpy(dg.int_to_digits(v, plan.widths).astype(
+            np.int64)).to(dev).reshape(t.shape)
+        co = torch.from_numpy(rng.integers(0, 1 << 40, size=t.carry_shape,
+                                           dtype=np.int64)).to(dev)
+        bufs = {k: (x.clone(), co.clone()) for k in K9_RUNS}
+        runs = {}
+        for k in list(K9_RUNS) + list(K9_RUNS)[::-1]:
+            part, phases, form = K9_RUNS[k]
+            xb, cb = bufs[k]
+            runs.setdefault(k, []).append(stream_ms(
+                lambda: tk.square_chain_part(
+                    t, xb, cb, ones, K9_STEPS, part,
+                    tk.K9_PHASES if phases is None else phases, form),
+                reps) / K9_STEPS)
+        at = f"n=2^{logn}"
+        a31 = tk.chain_multipliers([3, 1], dev)
+        for k, ms in runs.items():
+            ms = sum(ms) / len(ms)
+            if k not in tk.K9_FORMS:
+                parts.append({"what": f"{k} {at}", "ms": ms})
+                continue
+            xg, cg = x.clone(), co.clone()
+            tk.square_chain_part(t, xg, cg, a31, 2, form=k)
+            entries.append(Timed(
+                "k9_chain", at if k == "rule" else f"{at} {k}", ms,
+                *k9_bound(t, co), torch.cat([xg.reshape(-1),
+                                             cg.reshape(-1)]),
+                lambda t=t, x=x, co=co: torch.cat([
+                    a.reshape(-1) for a in
+                    tk.square_chain_plain(t, x, co, [3, 1], 2)])))
+    return t, entries, parts
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    flag = argv[0] if argv[:1] in (["--r5"], ["--cfft"], ["--axis"]) \
-        else ""
+    flag = argv[0] if argv[:1] in (["--r5"], ["--cfft"], ["--axis"],
+                                   ["--k9"]) else ""
     if flag:
         argv = argv[1:]
-    if flag in ("--cfft", "--axis"):
-        p = P_CFFT[-1] if flag == "--cfft" else P_AXIS[-1]
+    if flag in ("--cfft", "--axis", "--k9"):
+        p = {"--cfft": P_CFFT[-1], "--axis": P_AXIS[-1],
+             "--k9": int((1 << 19) * 16.5) | 1}[flag]
         reps = int(argv[0]) if argv else 10
-        t, entries, *parts = (measure_cfft if flag == "--cfft"
-                              else measure_axis)(reps)
+        t, entries, *parts = {"--cfft": measure_cfft, "--axis": measure_axis,
+                              "--k9": measure_k9}[flag](reps)
     else:
         p = int(argv[0]) if argv else (P_R5 if flag else P_DEFAULT)
         reps = int(argv[1]) if len(argv) > 1 else 10

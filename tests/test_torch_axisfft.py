@@ -436,16 +436,18 @@ def _function_body(text: str, name: str) -> str:
 
 def test_entry_points_run_the_shift_form():
     """The K1, K5, K2, K3 and K4 entry points launch axis_fft.cuh at a
-    power-of-two length and take no matrix; its kernel has no dot-product
-    accumulator; only K9 keeps axis_dft.cuh's dense tile, which has no
-    launcher of its own and no K4 forward branch left."""
+    power-of-two length and take no matrix; the tile the kernel runs
+    (and all after it) has no dot-product accumulator; axis_dft.cuh has no launcher and no tile left, and K9
+    runs axis_fft.cuh's tile in its four axis phases."""
     def read(name):
         with open(os.path.join(CSRC, name)) as f:
             return f.read()
     fft = read("axis_fft.cuh")
+    tile = fft[fft.index("void axis_fft_tile("):]
+    kernel = _function_body(fft, "axis_fft_kernel")
+    assert "axis_fft_tile<MODE, LL, PART>(" in kernel
     for word in ("gl_acc_madd", "GlAcc", "mats"):
-        assert not re.search(r"\b%s\b" % word,
-                             fft[fft.index("axis_fft_kernel"):]), word
+        assert not re.search(r"\b%s\b" % word, tile), word
     for src, entry in (("k1_p1c.cu", "prmers_k1_p1c"),
                        ("k5_axis1.cu", "prmers_k5_axis1"),
                        ("k2_fused_c.cu", "prmers_k2_fused_c"),
@@ -459,13 +461,13 @@ def test_entry_points_run_the_shift_form():
     k4 = read("k4_axis0.cu")
     assert "axis_fft_launch<AX_K3A>" in k4 and "axis_fft_launch<AX_K4F>" in k4
     dft = read("axis_dft.cuh")
-    assert "axis_dft_launch" not in dft and "AX_K4F" not in \
-        dft[dft.index("void axis_dft_tile"):]
+    assert "axis_dft_launch" not in dft and "axis_dft_tile" not in dft
     for src in os.listdir(CSRC):
-        assert src == "axis_dft.cuh" or "axis_dft_launch" not in read(src)
-    k9 = read("k9_chain.cu")
+        assert "axis_dft_launch" not in read(src)
+        assert "axis_dft_tile" not in read(src)
+    k9 = read("k9_chain.cuh")
     for mode in ("AX_K1", "AX_K2A", "AX_K2C", "AX_K3A"):
-        assert f"axis_dft_tile<{mode}>" in k9
+        assert f"axis_fft_tile<{mode}," in k9
 
 
 # ---------------------------------------------------------------------------

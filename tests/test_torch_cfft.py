@@ -18,7 +18,7 @@ K2, K6 and K6b) on the CPU:
       order) built with the host's g++ against the dense product, forward
       and inverse at every C;
   (e) what the row kernel reads: neither the dense matrices nor a dense
-      product, while K9 keeps its dense form.
+      product, nor does K9's row phase, which runs the kernel's body.
 
 Tolerance: none. Every comparison is exact mod P, after canon.
 """
@@ -375,24 +375,30 @@ def _function_body(text: str, name: str) -> str:
 
 
 def test_row_kernel_reads_no_dense_table():
-    """fused_c_row_kernel reads cs_f / cs_i only: no lane_f, lane_i, Mf, Mi
-    and no dot-product accumulator; row_slot_mat is gone; the entry points
-    of K2, K6 and K6b pass the scales; K9 keeps its dense row_slot_unit
-    and row_lane_dft on lane_f, lane_i, Mf, Mi."""
+    """fused_c_row_kernel runs fused_c_row_group, which reads cs_f / cs_i
+    only: no lane_f, lane_i, Mf, Mi and no dot-product accumulator; row_slot_mat, row_slot_unit and
+    row_lane_dft are gone; the entry points of K2, K6 and K6b pass the
+    scales; K9's row phase runs the kernel's body on cs_f, cs_i and
+    names none of lane_f, lane_i, Mf, Mi."""
     with open(os.path.join(CSRC, "fused_c_row.cuh")) as f:
         row = f.read()
-    body = _function_body(row, "fused_c_row_kernel")
+    kernel = _function_body(row, "fused_c_row_kernel")
+    assert "fused_c_row_group<LCA, ROWS, PART>(" in kernel
+    body = _function_body(row, "void fused_c_row_group")
+    assert "cf_slot_a_fwd(" in body and "cf_slot_b_inv(" in body
     for word in ("lane_f", "lane_i", "Mf", "Mi", "gl_acc_madd", "GlAcc"):
         assert not re.search(r"\b%s\b" % word, body), word
-    assert "row_slot_mat" not in row
+    for name in ("row_slot_mat", "row_slot_unit", "row_lane_dft"):
+        assert name not in row, name
     for src in ("k6_fused_c.cu", "k2_fused_c.cu"):
         with open(os.path.join(CSRC, src)) as f:
             text = f.read()
         assert "fused_c_rows(" in text
         for call in re.findall(r"fused_c_rows\([^;]*;", text):
             assert "cs_i" in call and not re.search(r"\bM[fi]\b", call)
-    with open(os.path.join(CSRC, "k9_chain.cu")) as f:
+    with open(os.path.join(CSRC, "k9_chain.cuh")) as f:
         k9 = f.read()
-    assert "row_slot_unit<" in k9 and "row_lane_dft(" in k9
+    assert "fused_c_row_group<" in k9
+    assert "g.cs_f" in k9 and "g.cs_i" in k9
     for word in ("lane_f", "lane_i", "Mf", "Mi"):
-        assert re.search(r"\bg\.%s\b" % word, k9), word
+        assert not re.search(r"\bg\.%s\b" % word, k9), word

@@ -318,6 +318,66 @@ def test_cuda_kernels_match_plain(case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("logn", [15, 16, 17, 18, 19])
+def test_cuda_k9_row_forms_match_plain(logn):
+    """On the card: at each (L1, L2) K9 takes, the kernel with its row
+    phase forced to each form (kernels.square_chain_part "fused": the row
+    kernel's group; "split": the lane, slot and inverse lane phases),
+    a = [3, 1, 3] and then [1, 3] on its output, digits and unit carries
+    bit for bit against the plain chain, whichever form the shape's rule
+    picks for the engine."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 1 << logn
+    plan = build_plan(int(n * 16.5) | 1, n=n)
+    t = tk.DevTables.from_host(
+        tfs.build_tables(tfs.FourStepPlan.from_plan(plan)), "cuda")
+    rng = np.random.default_rng(700 + logn)
+    x0 = _t(_digits(plan, rng).reshape(t.shape)).cuda()
+    co0 = torch.from_numpy(rng.integers(0, 1 << 40, size=t.carry_shape,
+                                        dtype=np.int64)).cuda()
+    for form in ("fused", "split"):
+        x, co = x0.clone(), co0.clone()
+        for a in ([3, 1, 3], [1, 3]):
+            dw, cw = tk.square_chain_plain(t, x, co, a, len(a))
+            tk.square_chain_part(t, x, co, tk.chain_multipliers(a, "cuda"),
+                                 len(a), form=form)
+            assert torch.equal(x, dw) and torch.equal(co, cw), (form, a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logn", [15, 16, 17, 18, 19])
+def test_cuda_k9_long_chain_matches_steps(logn):
+    """On the card: at each (L1, L2) K9 takes ((32, 1), (64, 1), (64, 2),
+    (64, 4), (64, 8)), a chain of 600 squarings x^2 * a_k (a_k in {1, 3},
+    numpy-seeded) through FourStepEngine.square_mul_seq, which splits it
+    into K9 launches of CHAIN_K = 512 and 88, against an engine on
+    Pipeline(chain=False) that runs 600 three-kernel steps: digits and
+    unit carries bit for bit, and the value equal."""
+    from prmers_tpu_torch.engine.fourstep_engine import FourStepEngine
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 1 << logn
+    p = int(n * 16.5) | 1
+    plan = build_plan(p, n=n)
+    chain = FourStepEngine(p, 1, plan=plan, device="cuda")
+    steps = FourStepEngine(p, 1, plan=plan, device="cuda",
+                           pipe=tfs.Pipeline(chain=False))
+    assert chain._chain and not steps._chain
+    rng = np.random.default_rng(600 + logn)
+    v = int.from_bytes(rng.bytes(p // 8 + 1), "little") % ((1 << p) - 1)
+    a = [int(k) for k in rng.choice([1, 3], size=600)]
+    before = tk.calls["k9_chain"]
+    for e in (chain, steps):
+        e.set(0, v)
+        e.square_mul_seq(0, a)
+    assert tk.calls["k9_chain"] - before == 2
+    for got, want in zip(chain.regs[0][:2], steps.regs[0][:2]):
+        assert torch.equal(got, want)
+    assert chain.get_int(0) == steps.get_int(0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("ca", [2, 4, 8, 16, 32, 64])
 def test_cuda_row_kernel_matches_plain(ca):
     """On the card: the factored row kernel (csrc/fused_c_row.cuh) as K6
