@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: python3 chip_smoke.py
 (one card; `python3 chip_smoke.py --mesh-only` runs phases 1 and 6 alone,
 at every world size the machine's cards allow; `--tools-only` phases 1
-and 7; `python3 chip_smoke.py
+and 7; `--anysize-only` phases 1 and 8; `python3 chip_smoke.py
 --mm31` runs phase 1 and the engine at MM31, p = 2^31 - 1, n = 5 * 2^25:
 two squarings of a dense value against GMP, with the host table build's
 time and peak memory).
@@ -23,9 +23,11 @@ p = 332192831 at (64, 320, 1024); K1, K5, K6, K5, K3 from 5 * 2^23; the r2
 launches of K2 and K5 in the 5 x 2^b split form), and the mesh
 (parallel/: one process per card over torch.distributed with NCCL; the
 row-carry MeshEngine runs K1, K5, K6, K5, K3 per rank, the block-carry
-ShardedStep K4, K5, K6, K5, K4, K8, with all-to-alls between), and the
+ShardedStep K4, K5, K6, K5, K4, K8, with all-to-alls between), the
 tools (prmers_tpu_torch/tools/: the pass profiler's unfolded r passes K4u
-and K5u, the microbenchmarks and the probes).
+and K5u, the microbenchmarks and the probes), and the any-size engine
+(engine/torch_engine.py: ops/ntt.py's transform in torch ops, no kernel of
+its own, for every plan the four-step kernels do not take).
 Phases; any failure raises and the script exits non-zero with no result:
   1. the card (nvidia-smi name and power limit) and the kernel build
      (one nvcc per prmers_tpu_torch/csrc/*.cu, all at once, timed);
@@ -91,12 +93,16 @@ Phases; any failure raises and the script exits non-zero with no result:
      MACs = 128 int8 operations each in the JAX package's limb-plane form,
      over 1,979 TOP/s. No PyTorch call computes a Goldilocks product, so
      library_ms is null;
-  5. `python -m prmers_tpu_torch 756839 -noproof` in a subprocess: the
-     whole PRP of M756839 (n = 2^15, through K9) must report prime; then
-     the PRP/LL driver in this process on the same engine, stopped (its
-     Ctrl-C path) 20000 squarings before the end, leaves a checkpoint,
-     from which the same CLI with PRMERS_NO_ROWCARRY=1 (the block-carry
-     path) resumes and must report prime;
+  5. the PRP/LL driver in this process on the CLI's engine (K9), stopped
+     (its Ctrl-C path) 20000 squarings before the end, leaves a
+     checkpoint; then `python -m prmers_tpu_torch 756839 -proofverify`
+     in a subprocess, the whole PRP of M756839 (n = 2^15, through K9),
+     must report prime and write its proof (power best_power(p) = 6),
+     which must verify, with the power and the file's md5 in the result
+     JSON: its squarings run beside the same CLI with
+     PRMERS_NO_ROWCARRY=1 (the block-carry path), which resumes from the
+     checkpoint and must report prime, and its proof's host big-int build
+     and check beside phases 6-8 (its result is read after phase 8);
   6. the mesh at p = 136279841: (a) on this card, the shard-local kernel
      forms of rank 0 and the last rank of s = 2 and 4 (K1, K3 with a = 1,
      3 and sub2 with the rank's amount, K4 both ways on the r2-sharded
@@ -135,7 +141,26 @@ Phases; any failure raises and the script exits non-zero with no result:
      be > 0; then each timed launch's output is held against its plain
      version on the same inputs (exact mod P for K4u/K5u and the field
      ops after canon, bit for bit for the rest), and each time stands
-     beside its bound and the card.
+     beside its bound and the card;
+  8. the any-size engine (engine/torch_engine.TorchEngine, what
+     create_engine gives where the four-step engine does not take the
+     plan, and for every p under PRMERS_NO_PALLAS): the table build time
+     (numpy on the host, then to the card) and PRP iter/s with each
+     squaring a CUDA graph and eager, in turns, with the CUDA launches of
+     one eager squaring, at n = 512 (p = 9941), 4096 (100003) and 81920
+     (1600003); at p = 1600003 (n = 5 * 2^14, the widest plan only this
+     engine takes, through create_engine) 64 squarings with a = [3, 1], a
+     multiplicand, mul, sub, add_small and addsub against GMP; the
+     reference goldens through the CLI in subprocesses, M100003 in one
+     chain and the rest in another, side by side on the card while this
+     process builds the 2^23 tables: M127 -ll and -llsafe prime, M2699
+     with its 5 known factors PRP and with 4 composite, M9941's proof
+     hashes (tests/test_proof.py) and the proof verified, M11213's res64
+     every 1000 iterations and its final res64 1
+     (tests/test_prp_ll.py:127-149), M100003's res64 and res2048
+     (:106-124); then at p = 136279841 under PRMERS_NO_PALLAS (n = 2^23)
+     8 squarings of a dense value against GMP and FourStepEngine, with
+     the table build time and iter/s.
 
 The last lines of standard output are the smoke's total seconds, the
 per-kernel JSON object (k8_local's launches from the s = 1 ranks' drive,
@@ -145,6 +170,8 @@ probe_shapes the sums over their ops and cases), the card's name and power limit
 true, "device": {...}}.
 """
 
+import atexit
+import hashlib
 import json
 import math
 import os
@@ -153,6 +180,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import threading
 import time
 import tracemalloc
 from concurrent.futures import ThreadPoolExecutor
@@ -502,6 +530,260 @@ def mm31(dev, card) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 8: the any-size engine (engine/torch_engine.py) and the reference
+# goldens it opens (tests/test_prp_ll.py, test_proof.py,
+# test_llsafe_cofactor.py; the reference's unit_tests.sh)
+P_ANY_WIDE = 1600003    # n = 81920 = 5 * 2^14: the widest plan only it takes
+ANY_RATES = ((9941, 512), (100003, 256), (P_ANY_WIDE, 64))
+GOLDEN_9941 = [
+    "proof [0] : M 87f3d3eabe4d6049, h 4526397be82cea45",
+    "proof [1] : M d6a355de518574d7, h 7faf92dd48dc2013",
+    "proof [2] : M 5aac235405ca84c7, h 934611f5f1192dd0",
+]
+GOLDEN_11213 = {
+    1000: "FBA631FBCB73A011", 2000: "F01283650C4A1491",
+    3000: "7E79193B757010B7", 4000: "31482E4D80FE99BB",
+    5000: "973B76BACF73BBEF", 6000: "8CFFB332495FC320",
+    7000: "98080C76DF068843", 8000: "8FDA516F885D3FEE",
+    9000: "2AADBC4F1E318E92", 10000: "0A4AAF339C8B290C",
+    11000: "A1F26F470CFE412D",
+}
+RES2048_100003 = (
+    "af262d00ed00a05d53e99d0e0e451b12405ddabe139fe8396a4c520b505bb65b"
+    "ed1609d3c8ef23bbb1d0f8140a6bcdd2c67f9c8aa3bd0e6eeb3e8e79db904810"
+    "c88de09820557176b389290f84f18424efa6a59fb9f132a74f53a83ba6e2f508"
+    "c617a5e1451c3ee08d179e6614026f973d1900602f2068a08894cd81ed5035de"
+    "9ded85909b1ee6ff4dc723118b79d3f940272ae1066aebe27c86338ad7edf70e"
+    "76c0e8abf3e985b73db2a06f1b742a9a908728be2bd4b7daa2d6aafc11bacaaa"
+    "40944e9a66b039cb0deaaa8e5e357cd54b81b3ec6661d55e48bacb994bfd3cbb"
+    "33f3f01d82347fa00578ec86c4cd7eb568a1463cf3e38dae1cf45e9503c71fd6")
+F2699 = ("5399", "307687", "1187561", "7570504839257", "1987104667810711")
+NO_PALLAS_K = 8         # squarings of the p = 136279841 check
+
+
+def cli_run(root: str, tag: str, args, timeout=900):
+    """`python -m prmers_tpu_torch <args>` in a subprocess with its own
+    save dir; returns (rc, stdout, seconds). The result JSON is the last
+    line."""
+    d = os.path.join(root, "build", "smoke_any", tag)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t1 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "prmers_tpu_torch", *args,
+                        "-save-dir", d], cwd=root, capture_output=True,
+                       text=True, timeout=timeout)
+    dt = time.perf_counter() - t1
+    tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    log(f"[8] CLI {' '.join(args)}: rc={r.returncode} in {dt:.3f} s: {tail}")
+    if not tail.startswith("{"):
+        raise AssertionError(f"CLI {args} printed no result:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    return r.returncode, r.stdout, dt, json.loads(tail)
+
+
+def anysize_drive(root: str, dev, card: str) -> None:
+    """Phase 8: the any-size engine on the card. Table builds and iter/s
+    (CUDA graphs against eager, in turns) with the launches of one eager
+    squaring; the widest plan only it takes against GMP; the reference
+    goldens through the CLI (two chains of subprocesses, beside the host
+    build of the 2^23 tables); then the main exponent under
+    PRMERS_NO_PALLAS against GMP and FourStepEngine. Any mismatch
+    raises."""
+    import torch
+
+    from prmers_tpu_torch.core.plan import cached_plan
+    from prmers_tpu_torch.engine import torch_engine as te
+    from prmers_tpu_torch.engine.factory import create_engine
+    from prmers_tpu_torch.engine.fourstep_engine import FourStepEngine
+    from prmers_tpu_torch.utils import gmp
+
+    t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(max_workers=2)
+    rnd = random.Random(P_MAIN)
+    v_main = rnd.getrandbits(P_MAIN - 1)
+    want_main = pool.submit(gmp.powmod, v_main, 1 << NO_PALLAS_K,
+                            (1 << P_MAIN) - 1)
+
+    def tables(plan):
+        t1 = time.perf_counter()
+        te.get_tables(plan, dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        log(f"[8] n={plan.n} p={plan.p}: tables (numpy host build, to the "
+            f"card, lifted) in {dt:.3f} s")
+
+    def rate(p, graphs, iters):
+        eng = te.TorchEngine(p, 2, device=dev, graphs=graphs)
+        eng.set(0, 3)
+        eng.square_mul_seq(0, [1] * 8)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.square_mul_seq(0, [1] * iters)
+        torch.cuda.synchronize()
+        return iters / (time.perf_counter() - t1)
+
+    def launches(p):
+        """CUDA kernels of one eager squaring (torch.profiler; "not
+        measured" where the profiler sees no device)."""
+        from torch.profiler import ProfilerActivity, profile
+        eng = te.TorchEngine(p, 2, device=dev, graphs=False)
+        eng.set(0, 3)
+        eng.square_mul(0)
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.square_mul(0)
+                torch.cuda.synchronize()
+            k = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        except (RuntimeError, AttributeError) as e:
+            log(f"[8] torch.profiler: {e}")
+            k = 0
+        return k if k else "not measured"
+
+    for p, iters in ANY_RATES:
+        tables(cached_plan(p))
+        got = {True: [], False: []}
+        for graphs in (True, False, False, True):
+            got[graphs].append(rate(p, graphs, iters))
+        log(f"[8] any-size PRP @ p={p} (n={cached_plan(p).n}): CUDA graph "
+            f"{sum(got[True]) / 2:.3f} iter/s (runs {got[True][0]:.3f}, "
+            f"{got[True][1]:.3f}), eager {sum(got[False]) / 2:.3f} iter/s "
+            f"(runs {got[False][0]:.3f}, {got[False][1]:.3f}); "
+            f"{launches(p)} CUDA launches per eager squaring ({card})")
+
+    # the widest plan only the any-size engine takes, through create_engine
+    p = P_ANY_WIDE
+    mp = (1 << p) - 1
+    eng = create_engine(p, 6, device=dev)
+    if type(eng) is not te.TorchEngine:
+        raise AssertionError(f"auto gave {type(eng).__name__} at p={p}")
+    rnd = random.Random(p)
+    v, w = rnd.getrandbits(p - 1), rnd.getrandbits(p - 1)
+    eng.set(0, v)
+    eng.set(1, w)
+    a_vec = [3, 1] * 32
+    eng.square_mul_seq(0, a_vec)
+    eng.set_multiplicand(2, 1)
+    eng.mul(0, 2, 3)
+    eng.sub(0, 5)
+    eng.add_small(0, 11)
+    eng.addsub(3, 4, 0, 1)
+    x = v
+    for a in a_vec:
+        x = gmp.mersenne_mod(gmp.mul(x, x) * a, p)
+    x = (gmp.mersenne_mod(gmp.mul(x, w) * 3, p) + 6) % mp
+    ok = (eng.get_int(0) == x, eng.get_int(3) == (x + w) % mp,
+          eng.get_int(4) == (x - w) % mp)
+    log(f"[8] p={p} (n={eng.get_size()}, auto: {type(eng).__name__}): 64 "
+        f"squarings with a = [3, 1], mul, sub, add_small, addsub vs GMP: "
+        f"{ok}")
+    if not all(ok):
+        raise AssertionError(f"the any-size engine disagrees with GMP at "
+                             f"p={p}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # the goldens through the CLI, two chains of subprocesses side by side
+    # (the card time-slices them), while this process builds the 2^23
+    # tables on the host
+    goldens = ThreadPoolExecutor(max_workers=2)
+    long_chain = goldens.submit(lambda: [
+        cli_run(root, "100003", ["100003", "-noproof"])])
+    short_chain = goldens.submit(lambda: [
+        cli_run(root, "127-ll", ["127", "-ll"]),
+        cli_run(root, "127-llsafe", ["127", "-llsafe"]),
+        cli_run(root, "2699-5", ["2699", "-noproof", "-factors",
+                                 ",".join(F2699)]),
+        cli_run(root, "2699-4", ["2699", "-noproof", "-factors",
+                                 ",".join(F2699[:4])]),
+        cli_run(root, "9941", ["9941", "-proofverify"]),
+        cli_run(root, "11213", ["11213", "-noproof",
+                                "-res64_display_interval", "1000"])])
+    plan = cached_plan(P_MAIN)
+    tables(plan)
+    from prmers_tpu_torch.engine.fourstep_engine import host_tables
+    from prmers_tpu_torch.ops import fourstep as tfs
+    host_tables(tfs.FourStepPlan.from_plan(plan))
+    t1 = time.perf_counter()
+    (r100003,), short = long_chain.result(), short_chain.result()
+    goldens.shutdown()
+    log(f"[8] waited {time.perf_counter() - t1:.3f} s for the CLI goldens")
+
+    def expect(what, cond):
+        log(f"[8]   {what}: {cond}")
+        if not cond:
+            raise AssertionError(f"golden failed: {what}")
+
+    (rc, _o, _d, j), (rc2, _o, _d, j2) = short[0], short[1]
+    expect("M127 -ll prime", rc == 0 and j["status"] == "P")
+    expect("M127 -llsafe prime", rc2 == 0 and j2["status"] == "P")
+    (rc, _o, _d, j), (rc2, _o, _d, j2) = short[2], short[3]
+    expect("M2699 cofactor with 5 known factors PRP",
+           rc == 0 and j["status"] == "PRP")
+    expect("M2699 cofactor with 4 known factors composite",
+           rc2 == 1 and j2["status"] == "C")
+    rc, out, _d, j = short[4]
+    lines = [ln.strip() for ln in out.splitlines()
+             if ln.strip().startswith("proof [")]
+    expect("M9941 prime", rc == 0 and j["status"] == "P")
+    expect("M9941 proof hashes equal GOLDEN_9941", lines == GOLDEN_9941)
+    expect("M9941 proof verifies", "Verification result: SUCCESS" in out)
+    rc, out, _d, j = short[5]
+    seen = {}
+    for ln in out.splitlines():
+        if "Res64:" in ln and "Iter:" in ln:
+            it = int(ln.split("Iter:")[1].split("|")[0].strip())
+            seen[it] = ln.split("Res64:")[1].strip()
+    expect("M11213 res64 stream equals the golden's",
+           all(seen.get(k) == v for k, v in GOLDEN_11213.items()))
+    expect("M11213 final res64 0000000000000001",
+           rc == 0 and j["res64"] == "0000000000000001")
+    rc, _o, dt, j = r100003
+    expect("M100003 res64 1CF45E9503C71FD6",
+           j["status"] == "C" and j["res64"] == "1CF45E9503C71FD6")
+    expect("M100003 res2048 equals the golden's",
+           j["res2048"].lower() == RES2048_100003)
+    log(f"[8] M100003 PRP in {dt:.3f} s through the CLI, beside the other "
+        f"goldens ({card})")
+
+    # the main exponent through the any-size engine (PRMERS_NO_PALLAS)
+    os.environ["PRMERS_NO_PALLAS"] = "1"
+    try:
+        eng = create_engine(P_MAIN, 2, device=dev)
+    finally:
+        del os.environ["PRMERS_NO_PALLAS"]
+    if type(eng) is not te.TorchEngine:
+        raise AssertionError("PRMERS_NO_PALLAS did not give TorchEngine")
+    eng.set(0, v_main)
+    eng.sync()
+    t1 = time.perf_counter()
+    eng.square_mul_seq(0, [1] * NO_PALLAS_K)
+    eng.sync()
+    dt = time.perf_counter() - t1
+    got = eng.get_digits(0)
+    del eng
+    torch.cuda.empty_cache()
+    ref = create_engine(P_MAIN, 2, device=dev)
+    if type(ref) is not FourStepEngine:
+        raise AssertionError("auto did not give FourStepEngine at 2^23")
+    ref.set(0, v_main)
+    ref.square_mul_seq(0, [1] * NO_PALLAS_K)
+    same = bool((ref.get_digits(0) == got).all())
+    from prmers_tpu_torch.utils import digits as dg
+    gmp_ok = dg.digits_to_int(got, plan.widths) == want_main.result()
+    log(f"[8] p={P_MAIN} (n=2^23) under PRMERS_NO_PALLAS: "
+        f"{NO_PALLAS_K} squarings at {NO_PALLAS_K / dt:.3f} iter/s (eager, "
+        f"{card}); equal to GMP {gmp_ok}, to FourStepEngine {same}")
+    if not (gmp_ok and same):
+        raise AssertionError("the any-size engine disagrees at 2^23")
+    del ref
+    pool.shutdown()
+    torch.cuda.empty_cache()
+    log(f"[8] phase 8 in {time.perf_counter() - t0:.3f} s")
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -545,6 +827,10 @@ def main(argv) -> int:
         timed7, calls = tools_drive(dev, card)
         print(json.dumps({"tools": [e.row() for e in timed7],
                           "calls": calls}))
+        print(card)
+        return 0
+    if "--anysize-only" in argv:
+        anysize_drive(root, dev, card)
         print(card)
         return 0
     if "--mesh-only" in argv:
@@ -1093,31 +1379,83 @@ def main(argv) -> int:
     del spec, z
     torch.cuda.empty_cache()
 
-    # ---- 5: M756839 through the CLI: whole on K9, resumed on the block carry
-    run_dir = os.path.join(root, "build", "smoke_run")
-
-    def cli_prime(phase, label, launcher=(), env=None, args=(), resume=None):
-        """The CLI's PRP of M756839 in a subprocess, from the start or (with
-        resume) from that checkpoint; it must report prime."""
-        shutil.rmtree(run_dir, ignore_errors=True)
-        os.makedirs(run_dir)
+    # ---- 5: M756839 through the CLI: whole on K9 with its proof, resumed on
+    # the block carry
+    def cli_start(tag, launcher=(), env=None, args=(), resume=None,
+                  proof=False):
+        """The CLI's PRP of M756839 in a subprocess with its own save dir,
+        from the start or (with resume) from that checkpoint; returns the
+        running job. Its output is read as it comes, and `squared` is set
+        at its first proof line (the squarings are over) or at its end."""
+        d = os.path.join(root, "build", "smoke_run", tag)
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
         if resume is not None:
-            shutil.copy(resume, run_dir)
-        t1 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", *launcher,
-                            "prmers_tpu_torch", str(P_GOLDEN), "-noproof",
-                            "-save-dir", run_dir, *args],
-                           cwd=root, capture_output=True, text=True,
-                           timeout=400, env=dict(os.environ, **(env or {})))
-        dt = time.perf_counter() - t1
-        tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
-        how = "resumed" if resume else "whole"
+            shutil.copy(resume, d)
+        job = {"dir": d, "t1": time.perf_counter(), "out": [], "err": [],
+               "squared": threading.Event(), "resume": resume,
+               "proof": proof}
+        job["proc"] = subprocess.Popen(
+            [sys.executable, "-m", *launcher, "prmers_tpu_torch",
+             str(P_GOLDEN), "-proofverify" if proof else "-noproof",
+             "-save-dir", d, *args], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONUNBUFFERED="1", **(env or {})))
+        # a failing phase must not leave the run behind
+        atexit.register(lambda: job["proc"].poll() is None and
+                        job["proc"].kill())
+
+        def pump(stream, lines, watch):
+            for ln in stream:
+                lines.append(ln)
+                if watch and "proof [" in ln:
+                    job["squared"].set()
+            if watch:
+                job["squared"].set()
+
+        job["pumps"] = [threading.Thread(target=pump, args=a, daemon=True)
+                        for a in ((job["proc"].stdout, job["out"], True),
+                                  (job["proc"].stderr, job["err"], False))]
+        for t in job["pumps"]:
+            t.start()
+        return job
+
+    def cli_finish(phase, label, job):
+        """Wait for a cli_start job; it must report prime (resumed: from
+        the checkpoint). With its proof, the proof must verify and the
+        result JSON carry its power (best_power(p)) and the file's md5."""
+        from prmers_tpu_torch.core.proof import best_power
+        rc = job["proc"].wait(timeout=400)
+        for t in job["pumps"]:
+            t.join(timeout=60)
+        dt = time.perf_counter() - job["t1"]
+        out, err = "".join(job["out"]), "".join(job["err"])
+        tail = out.strip().splitlines()[-1] if out.strip() else ""
+        how = "resumed" if job["resume"] else "whole"
         log(f"[{phase}] M{P_GOLDEN} PRP ({how}) through the {label} "
-            f"rc={r.returncode} in {dt:.3f} s: {tail}")
-        if r.returncode != 0 or '"status":"P"' not in tail.replace(" ", "") \
-                or (resume and "Resuming from a checkpoint." not in r.stdout):
+            f"rc={rc} in {dt:.3f} s: {tail}")
+        if rc != 0 or '"status":"P"' not in tail.replace(" ", "") \
+                or (job["resume"] and "Resuming from a checkpoint." not in
+                    out):
             raise AssertionError(f"M{P_GOLDEN} was not reported prime ({how}):"
-                                 f"\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+                                 f"\n{out[-2000:]}\n{err[-2000:]}")
+        if job["proof"]:
+            power = best_power(P_GOLDEN)
+            path = os.path.join(job["dir"], f"m{P_GOLDEN}-{power}.proof")
+            with open(path, "rb") as f:
+                md5 = hashlib.md5(f.read()).hexdigest()
+            got = json.loads(tail).get("proof", {})
+            ok = (got.get("power") == power and got.get("md5") == md5
+                  and "Verification result: SUCCESS" in out)
+            log(f"[{phase}] M{P_GOLDEN} proof: power {got.get('power')} "
+                f"(best_power {power}), md5 {got.get('md5')} (file {md5}), "
+                f"verified {'Verification result: SUCCESS' in out}")
+            if not ok:
+                raise AssertionError(f"M{P_GOLDEN}'s proof is wrong:\n"
+                                     f"{out[-2000:]}")
+
+    def cli_prime(phase, label, tag, **kw):
+        cli_finish(phase, label, cli_start(tag, **kw))
 
     def golden_checkpoint() -> str:
         """The PRP/LL driver in this process, on the engine the CLI takes
@@ -1152,10 +1490,17 @@ def main(argv) -> int:
             raise AssertionError("no checkpoint near the end of M756839")
         return path
 
-    cli_prime(5, "K9")
+    # K9 in one process at a time: the checkpoint first, then the whole run
+    # with its proof, whose proof build and check (host big-int, minutes)
+    # go on beside phases 6-8 once its squarings are over
     golden = golden_checkpoint()
-    cli_prime(5, "block carry", env={"PRMERS_NO_ROWCARRY": "1"},
+    proof_job = cli_start("k9-proof", proof=True)
+    cli_prime(5, "block carry", "block", env={"PRMERS_NO_ROWCARRY": "1"},
               resume=golden)
+    t1 = time.perf_counter()
+    proof_job["squared"].wait(timeout=400)
+    log(f"[5] waited {time.perf_counter() - t1:.3f} s for the squarings of "
+        f"the run with its proof")
 
     # ---- 6: the mesh ------------------------------------------------------
     # (a) the shard-local kernel forms on this card, s = 2 and 4
@@ -1258,7 +1603,7 @@ def main(argv) -> int:
             f"row carry ({card})")
 
     # (c) M756839 through the CLI on the mesh, one rank, resumed
-    cli_prime(6, "mesh (-backend sharded, torchrun, 1 rank)",
+    cli_prime(6, "mesh (-backend sharded, torchrun, 1 rank)", "mesh",
               launcher=("torch.distributed.run", "--standalone",
                         "--nproc_per_node=1", "-m"),
               env={"NCCL_SOCKET_IFNAME": os.environ.get(
@@ -1284,6 +1629,10 @@ def main(argv) -> int:
                  and e.what.endswith(form), "mean")
     for kern in pr.KERNELS:
         fold(kern, lambda e, kern=kern: e.kernel == kern, "sum")
+
+    # ---- 8: the any-size engine and the reference goldens ------------------
+    anysize_drive(root, dev, card)
+    cli_finish(5, "K9 with its proof (-proofverify)", proof_job)
 
     sources = {**tk.SOURCES, **pr.SOURCES}
     replaces = {**tk.REPLACES, **pr.REPLACES}

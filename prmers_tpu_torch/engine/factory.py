@@ -1,15 +1,30 @@
-"""Engine factory of the port (counterpart of prmers_tpu/engine/factory.py).
+"""Engine factory of the port (counterpart of prmers_tpu/engine/factory.py,
+its _create_engine at :131-202).
 
-It hands out the four-step kernel engine for the shapes the port covers
-(engine/fourstep_engine.check_shape) and raises NotImplementedError with
-the shape for any other: there is no fallback to another engine or to the
-JAX package. The backend "sharded" (`backend=`, or PRMERS_BACKEND) gives
-the mesh engine (parallel/mesh_engine.MeshEngine) over the process group
-of parallel/dist, and so does "auto" when that group has more than one
-rank (factory.py:68-84, 151-153); a shape the mesh does not take raises
-ValueError with the shape, for there is no XLA mesh engine to fall back
-on. "pallas" is the four-step engine as "auto" is on one rank; "jax" and
-"numpy" name engines the port does not have.
+The backends (`backend=`, or PRMERS_BACKEND):
+  * "auto" on one rank: the four-step kernel engine
+    (engine/fourstep_engine.FourStepEngine) where it covers the plan
+    (fourstep_engine.covers, the predicate of check_shape: n = 2^k with
+    2^15 <= n <= 2^26, n = 5 * 2^k with 163840 <= n <= 5 * 2^25), and the
+    any-size engine (engine/torch_engine) elsewhere, as the reference
+    takes PallasEngine where _pallas_eligible holds and JaxEngine
+    elsewhere (:151-157). The route is decided by that predicate before
+    any engine is made; no refusal is caught and turned into another
+    engine.
+  * "pallas": the four-step engine, which raises NotImplementedError with
+    the shape for a plan it does not cover.
+  * "jax": the any-size engine, TorchEngine, or TorchRowEngine from n =
+    ROW_MODE_MIN_N = 2^25 (:196-201).
+  * "numpy": the host oracle, engine/np_engine.NumpyEngine (a copy of the
+    reference's; it takes no device).
+  * "sharded", and "auto" when the process group of parallel/dist has
+    more than one rank (:68-84, :151-153): the mesh engine
+    (parallel/mesh_engine.MeshEngine); a shape the mesh does not take
+    raises ValueError with the shape, for there is no XLA mesh engine to
+    fall back on.
+PRMERS_NO_PALLAS sends every p to the any-size engine (:40, :73), on any
+number of ranks. PRMERS_SHARDED_IMPL=xla, the reference's XLA mesh engine
+(:74, :180), is not ported and raises NotImplementedError.
 
 The arithmetic (`arith=`, or PRMERS_ARITH, as factory.py:135 reads them)
 is Goldilocks: "auto" and "gl64" give the engines above, and "fft3161",
@@ -19,14 +34,14 @@ decide, since without one the JAX's policy picks gl64 too
 (policy.py:170-186), so `workload=` (what the JAX's policy weighs) is
 taken for the callers' sake and changes nothing.
 
-The pipeline is the JAX package's default unless the caller passes one,
-or the environment names one with the JAX package's own switches, read
-here and nowhere else in the port: PRMERS_NO_ROWCARRY (the block-carry
-pipeline, kernels.py:917), PRMERS_XLA_CARRY (the canonical-digit hybrid,
-:987) and PRMERS_NO_CHAIN (no whole-chain kernel, :1901). So
-`PRMERS_NO_ROWCARRY=1 python -m prmers_tpu_torch <p> -noproof` and the
-bench reach those pipelines with no flag of their own. The mesh engine
-takes only the row carry and raises under the other two.
+The four-step engine's pipeline is the JAX package's default unless the
+caller passes one, or the environment names one with the JAX package's
+own switches, read here and nowhere else in the port: PRMERS_NO_ROWCARRY
+(the block-carry pipeline, kernels.py:917), PRMERS_XLA_CARRY (the
+canonical-digit hybrid, :987) and PRMERS_NO_CHAIN (no whole-chain kernel,
+:1901). So `PRMERS_NO_ROWCARRY=1 python -m prmers_tpu_torch <p> -noproof`
+and the bench reach those pipelines with no flag of their own. The mesh
+engine takes only the row carry and raises under the other two.
 
 The JAX package's other three pipeline switches, PRMERS_NO_MXU (the
 unfolded passes with shift-twiddle butterflies, kernels.py:1453),
@@ -39,13 +54,6 @@ kernels.py:1619-1628, and the third ends in the assert at :1675), so the
 port has no such pipeline. The unfolded passes themselves are ported
 (ops/kernels.forward_r, inverse_r) and run through
 tools/profile_passes, as in the reference.
-
-Two more switches name engines the port does not have yet, and make
-create_engine raise NotImplementedError in the same way: PRMERS_NO_PALLAS
-(the JAX package's XLA engines in place of its kernel engines,
-factory.py:40 and :73) and PRMERS_SHARDED_IMPL=xla (the XLA mesh engine,
-:74 and :180). Neither is ported (ROADMAP queue 1), so a run under them
-stops rather than take the kernel engine they turned away from.
 """
 
 from __future__ import annotations
@@ -57,7 +65,9 @@ from ..ops.fourstep import Pipeline
 from ..parallel import dist
 from ..parallel.mesh_engine import MeshEngine
 from .api import Engine
-from .fourstep_engine import FourStepEngine
+from .fourstep_engine import FourStepEngine, covers
+from .np_engine import NumpyEngine
+from .torch_engine import ROW_MODE_MIN_N, TorchEngine, TorchRowEngine
 
 BACKENDS = ("auto", "pallas", "sharded", "jax", "numpy")
 ARITHS = ("auto", "gl64", "fft3161")
@@ -83,10 +93,9 @@ def create_engine(p: int, reg_count: int, device=None,
     a = arith or os.environ.get("PRMERS_ARITH") or "auto"
     if a not in ARITHS:
         raise ValueError(f"unknown arithmetic {a!r}")
-    for name in (b, a):
-        if name in ("jax", "numpy", "fft3161"):
-            raise NotImplementedError(f"the {name!r} engine is not ported "
-                                      "to prmers_tpu_torch")
+    if a == "fft3161":
+        raise NotImplementedError("the 'fft3161' engine is not ported to "
+                                  "prmers_tpu_torch")
     for name in UNPORTED_SWITCHES:
         if os.environ.get(name):
             raise NotImplementedError(
@@ -95,16 +104,25 @@ def create_engine(p: int, reg_count: int, device=None,
                 "PRMERS_NO_WFOLD and PRMERS_NO_FUSE give wrong results "
                 "(ROADMAP queue 3); unset it. The unfolded passes run "
                 "through python -m prmers_tpu_torch.tools.profile_passes")
-    if os.environ.get("PRMERS_NO_PALLAS"):
-        raise NotImplementedError(
-            "PRMERS_NO_PALLAS selects the JAX package's XLA engines, which "
-            "are not ported to prmers_tpu_torch; unset it")
     if os.environ.get("PRMERS_SHARDED_IMPL") == "xla":
         raise NotImplementedError(
             "PRMERS_SHARDED_IMPL=xla selects the JAX package's XLA mesh "
             "engine, which is not ported to prmers_tpu_torch; unset it")
+    plan = cached_plan(p)
+    if b == "numpy":
+        return NumpyEngine(p, reg_count, plan=plan)
+    if b == "auto":
+        if os.environ.get("PRMERS_NO_PALLAS"):
+            b = "jax"
+        elif dist.process_count() > 1:
+            b = "sharded"
+        else:
+            pipe = pipeline_from_env() if pipe is None else pipe
+            b = "pallas" if covers(plan, pipe) else "jax"
+    if b == "jax":
+        cls = TorchRowEngine if plan.n >= ROW_MODE_MIN_N else TorchEngine
+        return cls(p, reg_count, plan=plan, device=device)
     pipe = pipeline_from_env() if pipe is None else pipe
-    if b == "sharded" or (b == "auto" and dist.process_count() > 1):
+    if b == "sharded":
         return MeshEngine(p, reg_count, device=device, pipe=pipe)
-    return FourStepEngine(p, reg_count, plan=cached_plan(p), device=device,
-                          pipe=pipe)
+    return FourStepEngine(p, reg_count, plan=plan, device=device, pipe=pipe)

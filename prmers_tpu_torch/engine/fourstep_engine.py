@@ -50,15 +50,14 @@ _DEV_TABLES: dict = {}
 R5_MIN, R5_MAX = 5 << 15, 5 << 25
 
 
-def check_shape(fp: tfs.FourStepPlan) -> None:
+def shape_ok(fp: tfs.FourStepPlan) -> bool:
     """The shapes this engine covers, with every branch of the JAX
     row-carry pipeline the plan selects (r2 passes folded or as K5, the
     C-transform whole or split, carry units of 256 to 4096 digits): n = 2^k
     with 2^15 <= n <= 2^26, and n = 5 * 2^k with 163840 <= n <= 5 * 2^25
     (L2 = 5 * 2^b <= 320) under the plan conditions of the JAX
     _pallas_eligible (factory.py:45-59: L1 >= 32, C % 128 = 0, 2 <= ca <=
-    64, ca a power of two). Anything else raises: the port never falls
-    back to another pipeline."""
+    64, ca a power of two)."""
     n = fp.n
     L2, ca = fp.rs.L2, fp.C // tfs.LANES
     if n % 5:
@@ -67,15 +66,30 @@ def check_shape(fp: tfs.FourStepPlan) -> None:
     else:
         b = n // 5
         sized = b & (b - 1) == 0 and R5_MIN <= n <= R5_MAX and L2 <= 320
-    ok = (sized and fp.rs.L1 >= 32 and fp.C % tfs.LANES == 0
-          and 2 <= ca <= 64 and ca & (ca - 1) == 0
-          and 256 <= tfs.carry_ct(fp) <= 4096)
-    if not ok:
+    return (sized and fp.rs.L1 >= 32 and fp.C % tfs.LANES == 0
+            and 2 <= ca <= 64 and ca & (ca - 1) == 0
+            and 256 <= tfs.carry_ct(fp) <= 4096)
+
+
+def check_shape(fp: tfs.FourStepPlan) -> None:
+    """shape_ok, or NotImplementedError with the shape: this engine never
+    falls back to another pipeline."""
+    if not shape_ok(fp):
         raise NotImplementedError(
             f"prmers_tpu_torch covers n = 2^k with 2^15 <= n <= 2^26 and "
             f"n = 5*2^k with {R5_MIN} <= n <= {R5_MAX}; this plan has "
-            f"n={n} (R1={fp.rs.L1}, R2={L2}, C={fp.C}, "
+            f"n={fp.n} (R1={fp.rs.L1}, R2={fp.rs.L2}, C={fp.C}, "
             f"carry_ct={tfs.carry_ct(fp)})")
+
+
+def covers(plan: Plan, pipe: tfs.Pipeline = tfs.Pipeline()) -> bool:
+    """Does this engine take the plan under the pipeline? shape_ok of its
+    kernel plan, outside 2^15 <= n <= 5 * 2^25 without one (shape_ok
+    refuses those n, and FourStepPlan.from_plan asserts below n = 4096);
+    create_engine routes on this, not on a refusal."""
+    if not (1 << 15) <= plan.n <= R5_MAX:
+        return False
+    return shape_ok(tfs.FourStepPlan.from_plan(plan, pipe))
 
 
 def four_step_plan(plan: Plan, pipe: tfs.Pipeline) -> tfs.FourStepPlan:

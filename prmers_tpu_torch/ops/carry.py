@@ -11,19 +11,31 @@ reference does:
   * absorb: shift-and-add rounds while any carry exceeds 1; carries shrink
     geometrically, so this takes about 64 / min(width) rounds;
   * lookahead: the remaining 0/1 carries are resolved with a
-    generate/propagate prefix scan (written by hand: torch has no
-    associative_scan), so a saturated run of all-ones digits costs
-    O(log n) steps, not one ripple round per digit; the cyclic wrap is
-    closed by feeding the total generate back into digit 0.
+    generate/propagate prefix scan (torch has no associative_scan; since
+    a digit never both generates and propagates, a running maximum finds
+    each digit's last non-propagating one), so a saturated run of
+    all-ones digits costs a few launches, not one ripple round per digit;
+    the cyclic wrap is closed by feeding the total generate back into
+    digit 0.
 
 torch's `>>` on int64 is arithmetic, so the split and the multiply before
 the first round work on the 32-bit halves of each value, as the carry
 kernels' plain versions do; from the first round on every carry is below
 2^63 (below 2^49 for widths of 16 bits and more) and plain int64
 arithmetic is exact.
+
+With `rounds` given, the absorb phase runs that many rounds and no loop
+that reads the data, so a squaring can be captured in a CUDA graph (the
+any-size engine, engine/torch_engine.py); `absorb_rounds` is the bound
+that makes every carry 0 or 1 after them. `carry_full_np` is the
+reference's numpy path (prmers_tpu/ops/carry.py:24-54, the host oracle
+engine/np_engine.py): the split, then single-digit rounds until every
+carry is zero.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -32,26 +44,67 @@ _M32 = 0xFFFFFFFF
 
 def _prefix_scan(g: torch.Tensor, p: torch.Tensor):
     """Inclusive scan of (g, p) under (earlier a, later b) ->
-    (g_b | (p_b & g_a), p_b & p_a): Hillis-Steele, log2(n) steps."""
+    (g_b | (p_b & g_a), p_b & p_a), for g and p never both set (a digit
+    that generates a carry does not propagate one): G[j] is g at the last
+    position <= j that does not propagate (False if none), and P[j] is
+    whether every position <= j propagates. The last such position is a
+    running maximum, taken within rows of up to 1024 digits and then
+    across the rows' last values: torch's cummax along one long row runs
+    in a single thread block."""
     n = g.shape[0]
-    shift = 1
-    while shift < n:
-        g_prev = torch.zeros_like(g)
-        p_prev = torch.zeros_like(p)
-        g_prev[shift:] = g[:-shift]
-        p_prev[shift:] = p[:-shift]
-        g = g | (p & g_prev)
-        p = torch.cat([p[:shift], p[shift:] & p_prev[shift:]])
-        shift *= 2
-    return g, p
+    idx = torch.arange(n, device=g.device)
+    last = torch.cummax(torch.where(p, -1, idx).reshape(-1, math.gcd(n, 1024)),
+                        1).values
+    if last.shape[0] > 1:
+        rows = torch.cummax(last[:, -1], 0).values
+        last[1:] = torch.maximum(last[1:], rows[:-1, None])
+    last = last.reshape(n)
+    P = last < 0
+    G = g[last.clamp(min=0)] & ~P
+    return G, P
+
+
+def absorb_rounds(bound: int, wmin: int) -> int:
+    """Absorb rounds (the first included) after which every carry of a
+    digit vector whose values times a stay below bound is 0 or 1, for
+    digit widths of at least wmin bits: the rule of
+    prmers_tpu/ops/ntt.py:197-203. After r rounds a carry is below 1 +
+    2^(1 - wmin) + bound / 2^((r + 1) wmin), and bound >> (r wmin) <= 1
+    puts the last term below 2^(1 - wmin)."""
+    rounds = 1
+    while bound >> (rounds * wmin) > 1:
+        rounds += 1
+    return rounds
+
+
+def carry_full_np(F, y, widths, masks, a=1):
+    """The reference's numpy path (prmers_tpu/ops/carry.py:24-54 with
+    lax=None): y (n,) u64 values, widths and masks u64 (masks None: from
+    the widths), a small multiplier a < 2^16."""
+    xp = F.xp
+    if masks is None:
+        widths = widths.astype(xp.uint64)
+        masks = (xp.uint64(1) << widths) - xp.uint64(1)
+    c, d = y >> widths, y & masks
+    if not (isinstance(a, int) and a == 1):
+        a64 = xp.uint64(a) if isinstance(a, int) else a
+        t = d * a64
+        c = c * a64 + (t >> widths)
+        d = t & masks
+    while bool((c != 0).any()):
+        t = d + xp.roll(c, 1)
+        c, d = t >> widths, t & masks
+    return d
 
 
 def carry_full(y: torch.Tensor, widths: torch.Tensor,
-               masks: torch.Tensor | None = None, a: int = 1) -> torch.Tensor:
+               masks: torch.Tensor | None = None, a: int = 1,
+               rounds: int | None = None) -> torch.Tensor:
     """Exact normalization of y (n,) int64 (u64 bit patterns) times a:
     digits d[j] < 2^widths[j] with the value (sum y_j 2^(q_j)) * a mod
     M_p. a < 2^16, as the reference requires, so every intermediate fits
-    64 bits."""
+    64 bits. rounds: the absorb rounds (absorb_rounds of a bound on y * a)
+    in place of the loop while any carry exceeds 1."""
     if not 0 < a < (1 << 16):
         raise ValueError(f"carry_full takes a multiplier in [1, 2^16) "
                          f"(got {a})")
@@ -78,8 +131,12 @@ def carry_full(y: torch.Tensor, widths: torch.Tensor,
         t = d + torch.roll(c, 1)
         return t >> widths, t & masks
 
-    while bool((c > 1).any()):
-        c, d = inject(c, d)
+    if rounds is None:
+        while bool((c > 1).any()):
+            c, d = inject(c, d)
+    else:
+        for _ in range(rounds - 1):
+            c, d = inject(c, d)
 
     s = d + torch.roll(c, 1)           # <= mask + 1
     g = s > masks                      # generates an out-carry

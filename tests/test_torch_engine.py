@@ -171,22 +171,27 @@ def test_checkpoints_cross_both_ways(port, jax_eng):
 
 
 def test_factory_raises_on_uncovered_shapes():
+    """The four-step engine, and the factory's "pallas" backend, raise on
+    a plan check_shape does not take; "auto" routes such a plan to the
+    any-size engine instead (engine/torch_engine.py)."""
     from prmers_tpu_torch.engine.factory import create_engine
+    from prmers_tpu_torch.engine.torch_engine import TorchEngine
     with pytest.raises(NotImplementedError):
-        create_engine(9941, 2, device="cpu")        # n < 2^15
+        create_engine(9941, 2, device="cpu", backend="pallas")  # n < 2^15
     with pytest.raises(NotImplementedError):
         FourStepEngine(P_EXP, 2, plan=build_plan(P_EXP, n=5 << 14),
                        device="cpu")
+    assert type(create_engine(9941, 2, device="cpu")) is TorchEngine
 
 
 def test_cli_refuses_what_is_not_ported():
+    """P-1 and ECM are not ported: the run stops before any engine (PRP
+    proofs and -llsafe are, tests/test_torch_proof.py)."""
     from prmers_tpu.io.cli import parse_args
     from prmers_tpu_torch import app
-    with pytest.raises(SystemExit, match="-noproof"):
-        app.run(parse_args([str(P_EXP)]), device="cpu")
-    with pytest.raises(SystemExit, match="not yet ported"):
-        app.run(parse_args([str(P_EXP), "-pm1", "-b1", "100"]),
-                device="cpu")
+    for argv in (["-pm1", "-b1", "100"], ["-ecm", "-b1", "100"]):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            app.run(parse_args([str(P_EXP), *argv]), device="cpu")
 
 
 @pytest.mark.parametrize("argv,env", [
@@ -268,15 +273,21 @@ def test_cli_refuses_filemers_and_gui(argv, tmp_path, monkeypatch):
 @pytest.mark.parametrize("name,value", [("PRMERS_NO_PALLAS", "1"),
                                         ("PRMERS_SHARDED_IMPL", "xla")])
 def test_create_engine_refuses_xla_switches(name, value, monkeypatch):
-    """The switches that select the JAX package's XLA engines raise, as the
-    unported pipeline switches do; PRMERS_SHARDED_IMPL at another value
-    changes nothing."""
+    """PRMERS_SHARDED_IMPL=xla, the JAX package's XLA mesh engine, raises,
+    as the unported pipeline switches do; PRMERS_NO_PALLAS, the XLA engine
+    in place of the kernel engine, gives the port's counterpart, the
+    any-size engine; PRMERS_SHARDED_IMPL at another value changes
+    nothing."""
     from prmers_tpu_torch.engine.factory import create_engine
+    from prmers_tpu_torch.engine.torch_engine import TorchEngine
     for k in ("PRMERS_NO_PALLAS", "PRMERS_SHARDED_IMPL"):
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match=name):
-        create_engine(756839, 2, device="cpu")
+    if name == "PRMERS_NO_PALLAS":
+        assert type(create_engine(756839, 2, device="cpu")) is TorchEngine
+    else:
+        with pytest.raises(NotImplementedError, match=name):
+            create_engine(756839, 2, device="cpu")
     monkeypatch.setenv("PRMERS_SHARDED_IMPL", "pallas")
     monkeypatch.delenv("PRMERS_NO_PALLAS", raising=False)
     assert create_engine(756839, 2, device="cpu").t.fp.n == 1 << 15

@@ -117,3 +117,69 @@ def test_worktodo_is_the_original(tmp_path):
                  'PRP=1,2,1277,-1,75,0,"3"'):
         assert dataclasses.asdict(jwt.parse_line(text)) == \
             dataclasses.asdict(twt.parse_line(text))
+
+
+# The port's copies of JAX-package modules that differ from their original
+# in more than imports: the definitions each copy changes, drops or adds,
+# as its header ("Port: ...") lists them. Everything else is the original's.
+COPIES = {
+    "core/field.py": {},
+    "modes/llsafe.py": {},
+    "engine/np_engine.py": {"changed": {"NumpyEngine._carry"}},
+    "ops/ntt.py": {"dropped": {"_register_pytrees", "<_register_pytrees()>"},
+                   "added": {"NttTables.to_device"}},
+    "core/proof.py": {"changed": {
+        "ProofSet.__init__", "ProofSet.checkpoint",
+        "ProofSet.checkpoint_engine", "ProofSet._write_shards"}},
+}
+
+
+def _definitions(path):
+    """{name: ast dump} of a module's functions, methods, classes (without
+    their methods) and other top-level statements, imports and the module
+    docstring left out."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = {}
+
+    def visit(body, prefix):
+        for node in body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                continue
+            if isinstance(node, ast.ClassDef):
+                visit(node.body, prefix + node.name + ".")
+                rest = [b for b in node.body if not isinstance(
+                    b, (ast.FunctionDef, ast.AsyncFunctionDef))]
+                out[prefix + node.name] = ast.dump(ast.ClassDef(
+                    name=node.name, bases=node.bases, keywords=node.keywords,
+                    body=rest, decorator_list=node.decorator_list))
+            elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                out[prefix + node.name] = ast.dump(node)
+            elif not (prefix == "" and node is tree.body[0]
+                      and isinstance(node, ast.Expr)):
+                src = ast.unparse(node)
+                out[f"<{src}>" if len(src) < 40 else ast.dump(node)] = \
+                    ast.dump(node)
+
+    visit(tree.body, "")
+    return out
+
+
+@pytest.mark.parametrize("rel", sorted(COPIES))
+def test_copies_are_the_originals(rel):
+    """Each copy equals its original definition by definition (the ast,
+    so the imports may differ), except the definitions its header lists
+    as changed, dropped or added."""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    a = _definitions(os.path.join(root, "prmers_tpu", rel))
+    b = _definitions(os.path.join(root, "prmers_tpu_torch", rel))
+    spec = COPIES[rel]
+    assert set(a) - set(b) == spec.get("dropped", set())
+    assert set(b) - set(a) == spec.get("added", set())
+    differ = {k for k in set(a) & set(b) if a[k] != b[k]}
+    assert differ == spec.get("changed", set())
+    with open(os.path.join(root, "prmers_tpu_torch", rel)) as f:
+        head = f.read(4000)
+    assert ("Port: a copy of prmers_tpu/" + rel in head) == bool(spec)

@@ -2,9 +2,10 @@
 (tests/conftest.py imports jax into this one), importing every module of
 prmers_tpu_torch (the mesh's parallel/ too) and running one CPU squaring
 through the four-step engine and one through the mesh engine leaves
-neither jax nor prmers_tpu in sys.modules. The machine with the CUDA card
-has no jax at all, and the port keeps its own copies of the host modules
-it needs."""
+neither jax nor prmers_tpu in sys.modules, and so does one squaring
+through the any-size engine and one through the numpy oracle. The
+machine with the CUDA card has no jax at all, and the port keeps its own
+copies of the host modules it needs."""
 
 import os
 import subprocess
@@ -31,6 +32,12 @@ m = MeshEngine(p, 2, device="cpu", n=n)
 m.set(0, 3)
 m.square_mul(0, 3)
 assert m.get_int(0) == 27
+from prmers_tpu_torch.engine.torch_engine import TorchEngine
+from prmers_tpu_torch.engine.np_engine import NumpyEngine
+for eng in (TorchEngine(9941, 2, device="cpu"), NumpyEngine(9941, 2)):
+    eng.set(0, 3)
+    eng.square_mul(0, 3)
+    assert eng.get_int(0) == 27
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 print("JAXMODS", bad)
 ref = sorted(k for k in sys.modules

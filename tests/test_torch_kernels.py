@@ -647,3 +647,42 @@ def test_cuda_probes_match_plain():
         xs = pr.shape_inputs(case, device="cuda")
         assert torch.equal(pr.shape_case(case, *xs),
                            pr.shape_plain(case, *xs)), case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [127, 9941, 216091])
+def test_cuda_anysize_engine_graphs_match_eager(p):
+    """On the card: the any-size engine (engine/torch_engine.py) with each
+    squaring a CUDA graph and eager, on the same op sequence (squarings
+    with a = 3 and 1, LL steps, a multiplicand and mul), digit for digit
+    and against big-int; n = 8, 512 and 10240 (radix 5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import random
+    from prmers_tpu_torch.engine.torch_engine import TorchEngine
+    mp = (1 << p) - 1
+    rnd = random.Random(p)
+    x, y = rnd.randrange(mp), rnd.randrange(mp)
+    a_vec = [3, 1, 1, 3] * 5
+    engines = [TorchEngine(p, 3, device="cuda", graphs=g)
+               for g in (True, False)]
+    for e in engines:
+        e.set_int(0, x)
+        e.set_int(1, y)
+        e.square_mul_seq(0, a_vec)
+        e.square_sub2_seq(1, 4)
+        e.set_multiplicand(2, 1)
+        e.mul(0, 2, 3)
+        e.square_mul_seq(0, a_vec)
+    assert len(engines[0]._graphs) == 3 and not engines[1]._graphs
+    for a in a_vec:
+        x = x * x * a % mp
+    for _ in range(4):
+        y = (y * y - 2) % mp
+    x = x * y * 3 % mp
+    for a in a_vec:
+        x = x * x * a % mp
+    for r in (0, 1):
+        assert np.array_equal(engines[0].get_digits(r),
+                              engines[1].get_digits(r)), r
+    assert engines[0].get_int(0) == x and engines[0].get_int(1) == y

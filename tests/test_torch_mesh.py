@@ -567,7 +567,8 @@ def test_mesh_eligible_matches_jax(p, s):
 def test_factory_backends(monkeypatch):
     """"sharded" (argument or PRMERS_BACKEND) gives the mesh engine, on a
     group of one here; "auto" without a group the four-step engine; the
-    mesh refuses the block carry and shapes it does not take."""
+    mesh refuses the block carry and shapes it does not take; "jax" and
+    "numpy" give the any-size engine and the numpy oracle."""
     for k in ("PRMERS_NO_ROWCARRY", "PRMERS_XLA_CARRY", "PRMERS_BACKEND"):
         monkeypatch.delenv(k, raising=False)
     assert dist.process_count() == 1
@@ -588,9 +589,11 @@ def test_factory_backends(monkeypatch):
     monkeypatch.setenv("PRMERS_XLA_CARRY", "1")
     with pytest.raises(ValueError, match="R1, R2, C"):
         factory.create_engine(756839, 2, device="cpu")
-    for b in ("jax", "numpy"):
-        with pytest.raises(NotImplementedError):
-            factory.create_engine(756839, 2, device="cpu", backend=b)
+    from prmers_tpu_torch.engine.np_engine import NumpyEngine
+    from prmers_tpu_torch.engine.torch_engine import TorchEngine
+    for b, cls in (("jax", TorchEngine), ("numpy", NumpyEngine)):
+        assert type(factory.create_engine(756839, 2, device="cpu",
+                                          backend=b)) is cls
     with pytest.raises(ValueError, match="must divide"):
         sk.check_mesh(tfs.FourStepPlan.from_plan(build_plan(756839)), 2)
 
