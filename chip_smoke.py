@@ -4,10 +4,14 @@
 Run from the repository root with no arguments: python3 chip_smoke.py
 (one card; `python3 chip_smoke.py --mesh-only` runs phases 1 and 6 alone,
 at every world size the machine's cards allow; `--tools-only` phases 1
-and 7; `--anysize-only` phases 1 and 8; `python3 chip_smoke.py
---mm31` runs phase 1 and the engine at MM31, p = 2^31 - 1, n = 5 * 2^25:
-two squarings of a dense value against GMP, with the host table build's
-time and peak memory).
+and 7; `--anysize-only` phases 1 and 8; `--modes-only` phases 1 and 9,
+and with `--pm1-full` also M1362763's P-1 over its whole stage-2 range,
+timed; `python3 chip_smoke.py --mm31` runs phase 1 and the engine at
+MM31, p = 2^31 - 1, n = 5 * 2^25: two squarings of a dense value against
+GMP, with the host table build's time and peak memory, then P-1 of MM31
+(-b1 100 -b2 5000 -pm1-ultralowmem -nogcd-stage1, ~7,400 squarings and
+one gcd of 2^31-bit numbers) through the CLI's entry, which must find
+295257526626031).
 
 It drives seven paths of the port: the n = 2^23 path (K1, K2, K3 with
 whole-row carries), the C = 8192 big-shape path of n = 2^25 and 2^26
@@ -92,7 +96,8 @@ Phases; any failure raises and the script exits non-zero with no result:
      output written once) over 3.35 TB/s and its mod-P products, 64 int8
      MACs = 128 int8 operations each in the JAX package's limb-plane form,
      over 1,979 TOP/s. No PyTorch call computes a Goldilocks product, so
-     library_ms is null;
+     library_ms is null but for probe_shapes, whose int8 dot cases b and
+     e torch._int_mm computes (phase 7);
   5. the PRP/LL driver in this process on the CLI's engine (K9), stopped
      (its Ctrl-C path) 20000 squarings before the end, leaves a
      checkpoint; then `python -m prmers_tpu_torch 756839 -proofverify`
@@ -160,7 +165,32 @@ Phases; any failure raises and the script exits non-zero with no result:
      (tests/test_prp_ll.py:127-149), M100003's res64 and res2048
      (:106-124); then at p = 136279841 under PRMERS_NO_PALLAS (n = 2^23)
      8 squarings of a dense value against GMP and FourStepEngine, with
-     the table build time and iter/s.
+     the table build time and iter/s;
+  9. the modes (modes/pm1.py, ecm.py, ecm_edwards.py, memtest.py,
+     bench.py, app.py's worktodo loop and -filemers, engine/paged.py),
+     against the reference's goldens. Through the CLI in two chains of
+     subprocesses, started beside phase 8's goldens, on the any-size
+     engine: P-1 of M541 (-b1 899: 4312790327) with -resume, whose
+     stage-1 residue, written as a .mers, -filemers turns into the .save
+     the reference's interop writes (sha256 below); M367 (-b1 11981 -b2
+     38971) on V-trace (stage 1 646300400639, stage 2
+     50500996776315830904406967), on ultralowmem, and paged onto 4 device
+     slots (PRMERS_MAX_DEVICE_REGS=4, the [ALLOC] line); ECM of M29 and
+     M37, Edwards and -montgomery, at the reference tests' bounds and
+     seeds, each with the factor, curve and stage of the reference's
+     numpy run; a worktodo file of a Pminus1 line for M541 and a PRP line
+     for M9941, both results in -results and their JSON files, the file
+     left empty. In this process, through app.main (the CLI's entry) so
+     the wrapper counts show (reset just before, read just after; K9, K1,
+     K2, K3 each > 0): P-1 on the kernel engine of M544139 (-b1 3 -b2 7:
+     22853839 in both stages) and of M1362763 (-b1 29 -b2 6910159, known
+     factors 46333943 and 282345414919, -b2start 6900000:
+     28401397572100073); one Edwards curve's stage 1 (B1 = 50) at p =
+     544139 on FourStepEngine, whose point must equal the any-size
+     engine's; memtest at p = 136279841 (0 errors); -bench over (9941,
+     756839) with its PRMERS_SCORE line; and each engine's device bytes
+     per word beside its registers (tables, an op's temporaries) against
+     engine/paged.OVERHEAD_BYTES, what the paging budget charges.
 
 The last lines of standard output are the smoke's total seconds, the
 per-kernel JSON object (k8_local's launches from the s = 1 ranks' drive,
@@ -194,6 +224,7 @@ P_R5 = 332192831        # n = 5 * 2^22, (64, 320, 1024): 100M digits
 P_R5_SMALL = 6972593    # n = 5 * 2^16, (64, 5, 1024); M6972593 is prime
 P_R5_BIG = 700000001    # n = 5 * 2^23, (64, 320, 2048): K5 + K6 + K5
 P_MM31 = 2147483647     # n = 5 * 2^25, (64, 320, 8192), T = 2 (--mm31)
+MM31_PM1_FACTOR = 295257526626031   # P-1 -b1 100 -b2 5000 (BASELINE.md)
 GOLDEN_TAIL = 20000     # squarings the resumed CLI runs of M756839 take
 DRIVE_K = 8             # the sparse chain's squarings in a phase-3 drive
 HBM_BYTES_PER_S = 3.35e12
@@ -243,10 +274,13 @@ def log(*args):
 
 def drive_values(p: int):
     """The values a phase-3 drive at p sets, from random.Random(p), and
-    what GMP says its ops must give: (v, w, s, (the sparse chain
-    (3 * 2^s)^(2^DRIVE_K) ^2 * 3, v^2 * 3 * w, w^2 - 2)). The GMP products
-    release the GIL, so the smoke computes these on threads while the card
-    works."""
+    what GMP says its ops must give, as digit vectors of p's plan: (v, w,
+    s, (the sparse chain (3 * 2^s)^(2^DRIVE_K) ^2 * 3, v^2 * 3 * w,
+    w^2 - 2)). The GMP products release the GIL, so the smoke computes
+    these on threads while the card works, and the drive compares digits
+    (a vector compare) instead of rebuilding big ints from the card's."""
+    from prmers_tpu_torch.core.plan import cached_plan
+    from prmers_tpu_torch.utils import digits as dg
     from prmers_tpu_torch.utils import gmp
     mp = (1 << p) - 1
     rnd = random.Random(p)
@@ -256,9 +290,11 @@ def drive_values(p: int):
     for _ in range(DRIVE_K + 1):
         c, e = c * c, 2 * e % p
     vv = gmp.mersenne_mod(gmp.mul(v, v) * 3, p)
-    return v, w, s, (gmp.mersenne_mod(c * 3 << e, p),
-                     gmp.mersenne_mod(gmp.mul(vv, w), p),
-                     (gmp.mersenne_mod(gmp.mul(w, w), p) - 2) % mp)
+    want = (gmp.mersenne_mod(c * 3 << e, p),
+            gmp.mersenne_mod(gmp.mul(vv, w), p),
+            (gmp.mersenne_mod(gmp.mul(w, w), p) - 2) % mp)
+    widths = cached_plan(p).widths
+    return v, w, s, tuple(dg.int_to_digits(x, widths) for x in want)
 
 
 def mesh_rank(out_dir: str) -> int:
@@ -277,6 +313,7 @@ def mesh_rank(out_dir: str) -> int:
     from prmers_tpu_torch.utils import digits as dg
     from prmers_tpu_torch.utils import gmp
 
+    import numpy as np
     dist.init_from_env()
     s, rank = dist.process_count(), dist.rank()
     p = P_MAIN
@@ -340,7 +377,7 @@ def mesh_rank(out_dir: str) -> int:
     res["engine_s"] = time.perf_counter() - t0
     res["engine_calls"] = dict(tk.calls)
     res["collectives"] = {k: n - c0[k] for k, n in dist.counts.items()}
-    res["engine_ok"] = [eng.get_int(r) == want[i]
+    res["engine_ok"] = [bool(np.array_equal(eng.get_digits(r), want[i]))
                         for i, r in enumerate((0, 1, 4))]
     res["engine_ok"].append(eng.get_int(5) == (79 - 100) % mp)
 
@@ -439,7 +476,8 @@ def tools_drive(dev, card):
     136279841, the microbenchmarks, the probes), the wrapper counts of
     their run (reset just before, read just after; each > 0), then every
     timed launch held against its plain version; returns (the checked
-    Timed, the counts)."""
+    Timed, the counts, torch._int_mm's ms on the shape probe's dot cases
+    b and e)."""
     import torch
     from prmers_tpu_torch import tools
     from prmers_tpu_torch.ops import kernels as tk
@@ -485,7 +523,7 @@ def tools_drive(dev, card):
     log(f"[7] torch._int_mm on cases b, e: {int_mm} ms; bitcast order "
         f"{order} {col} ({card})")
     log(f"[7] phase 7 in {time.perf_counter() - t1:.3f} s")
-    return timed7, calls
+    return timed7, calls, int_mm
 
 
 def mm31(dev, card) -> None:
@@ -528,6 +566,36 @@ def mm31(dev, card) -> None:
         raise AssertionError(f"MM31: GMP {ok}, wrapper calls {calls}")
     del eng
     torch.cuda.empty_cache()
+    # P-1 on MM31 through the CLI's entry, in this process (the tables
+    # stay built): ultralowmem's stage 2 recomputes 3^(E * 2p * Q), whose
+    # gcd covers both stages. -nogcd-stage1 skips stage 1's own gcd, ~20
+    # min of host GMP at 2^31 bits, which cannot find this factor: q - 1
+    # = 2 * p * 3 * 5 * 4583 has its large prime in stage 2's range
+    import contextlib
+    import io
+    from prmers_tpu_torch import app
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "smoke_mm31")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    buf = io.StringIO()
+    tk.reset_calls()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = app.main([str(p), "-pm1", "-b1", "100", "-b2", "5000",
+                       "-pm1-ultralowmem", "-nogcd-stage1", "-save-dir", d,
+                       "-results", os.path.join(d, "results.txt")])
+    dt = time.perf_counter() - t0
+    calls = dict(tk.calls)
+    out = buf.getvalue()
+    j = json.loads(out.strip().splitlines()[-1])
+    squarings = [ln for ln in out.splitlines() if "exponent bits" in ln]
+    log(f"[mm31] P-1 -b1 100 -b2 5000 -pm1-ultralowmem: rc={rc} in "
+        f"{dt:.3f} s ({card}); factors {j.get('factors')}; {squarings}; "
+        f"wrapper calls {calls}")
+    if rc != 0 or j.get("factors") != [str(MM31_PM1_FACTOR)] or \
+            any(calls[k] <= 0 for k in need):
+        raise AssertionError(f"MM31 P-1: {out[-2000:]}")
 
 
 # phase 8: the any-size engine (engine/torch_engine.py) and the reference
@@ -561,34 +629,42 @@ F2699 = ("5399", "307687", "1187561", "7570504839257", "1987104667810711")
 NO_PALLAS_K = 8         # squarings of the p = 136279841 check
 
 
-def cli_run(root: str, tag: str, args, timeout=900):
+def cli_run(root: str, tag: str, args, timeout=900, phase=8, env=None,
+            fresh=True, result=True):
     """`python -m prmers_tpu_torch <args>` in a subprocess with its own
-    save dir; returns (rc, stdout, seconds). The result JSON is the last
-    line."""
+    save dir (build/smoke_any/<tag>; emptied first unless fresh=False);
+    returns (rc, stdout and stderr, seconds, the result JSON, the save
+    dir). The result JSON is the last line of stdout."""
     d = os.path.join(root, "build", "smoke_any", tag)
-    shutil.rmtree(d, ignore_errors=True)
-    os.makedirs(d)
+    if fresh:
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d, exist_ok=True)
     t1 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "prmers_tpu_torch", *args,
                         "-save-dir", d], cwd=root, capture_output=True,
-                       text=True, timeout=timeout)
+                       text=True, timeout=timeout,
+                       env=dict(os.environ, **(env or {})))
     dt = time.perf_counter() - t1
     tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
-    log(f"[8] CLI {' '.join(args)}: rc={r.returncode} in {dt:.3f} s: {tail}")
+    log(f"[{phase}] CLI {' '.join(args)}: rc={r.returncode} in {dt:.3f} s: "
+        f"{tail[:300]}")
+    if not result:
+        return r.returncode, r.stdout + r.stderr, dt, None, d
     if not tail.startswith("{"):
         raise AssertionError(f"CLI {args} printed no result:\n"
                              f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
-    return r.returncode, r.stdout, dt, json.loads(tail)
+    return r.returncode, r.stdout + r.stderr, dt, json.loads(tail), d
 
 
-def anysize_drive(root: str, dev, card: str) -> None:
+def anysize_drive(root: str, dev, card: str, beside=None) -> None:
     """Phase 8: the any-size engine on the card. Table builds and iter/s
     (CUDA graphs against eager, in turns) with the launches of one eager
     squaring; the widest plan only it takes against GMP; the reference
     goldens through the CLI (two chains of subprocesses, beside the host
     build of the 2^23 tables); then the main exponent under
-    PRMERS_NO_PALLAS against GMP and FourStepEngine. Any mismatch
-    raises."""
+    PRMERS_NO_PALLAS against GMP and FourStepEngine. `beside` is called
+    just before the goldens start (the full smoke starts phase 9's CLI
+    chains there). Any mismatch raises."""
     import torch
 
     from prmers_tpu_torch.core.plan import cached_plan
@@ -688,6 +764,8 @@ def anysize_drive(root: str, dev, card: str) -> None:
     # the goldens through the CLI, two chains of subprocesses side by side
     # (the card time-slices them), while this process builds the 2^23
     # tables on the host
+    if beside is not None:
+        beside()
     goldens = ThreadPoolExecutor(max_workers=2)
     long_chain = goldens.submit(lambda: [
         cli_run(root, "100003", ["100003", "-noproof"])])
@@ -708,6 +786,8 @@ def anysize_drive(root: str, dev, card: str) -> None:
     host_tables(tfs.FourStepPlan.from_plan(plan))
     t1 = time.perf_counter()
     (r100003,), short = long_chain.result(), short_chain.result()
+    short = [c[:4] for c in short]
+    r100003 = r100003[:4]
     goldens.shutdown()
     log(f"[8] waited {time.perf_counter() - t1:.3f} s for the CLI goldens")
 
@@ -784,6 +864,322 @@ def anysize_drive(root: str, dev, card: str) -> None:
     log(f"[8] phase 8 in {time.perf_counter() - t0:.3f} s")
 
 
+# phase 9: the modes (modes/pm1.py, ecm.py, ecm_edwards.py, memtest.py,
+# bench.py; app.py's worktodo loop and -filemers; engine/paged.py) with
+# the reference's goldens (tests/test_pm1.py, test_ecm.py,
+# test_ecm_edwards.py; BASELINE.md)
+M367 = ["367", "-pm1", "-b1", "11981", "-b2", "38971"]
+M367_S1, M367_S2 = 646300400639, 50500996776315830904406967
+P_PM1_K9 = 544139           # n = 2^15: P-1 (3, 7) in both stages
+PM1_K9_FACTOR = 22853839
+M1362763 = ["1362763", "-pm1", "-b1", "29", "-b2", "6910159",
+            "-factors", "46333943,282345414919", "-nogcd-stage1"]
+M1362763_FACTOR = 28401397572100073
+# (argv, (factor, curve, stage)) of the reference's numpy run of the same
+# command line (prmers_tpu's app.run_once, -backend numpy,
+# PRMERS_ECM_NO_BATCH=1)
+ECM_GOLDENS = [
+    (["29", "-ecm", "-b1", "300", "-K", "3", "-curve-seed", "7"],
+     (233, 0, 1)),
+    (["37", "-ecm", "-b1", "20", "-b2", "400", "-K", "6", "-curve-seed",
+      "3"], (223, 0, 2)),
+    (["29", "-ecm", "-b1", "300", "-K", "2", "-curve-seed", "7",
+      "-montgomery"], (1103, 0, 1)),
+    (["37", "-ecm", "-b1", "20", "-b2", "400", "-K", "4", "-curve-seed",
+      "3", "-montgomery"], (223, 0, 1)),
+]
+# sha256 of the .save prmers_tpu's io/interop.write_ecm_resume writes for
+# M541's stage-1 residue 3^(E(899) * 2 * 541) at B1 = 899
+SAVE_541_SHA256 = \
+    "0253c81ad4026567c922e72fdce4f766717be8690a2f71811e2023a1aa0fbb33"
+BENCH_LADDER = [9941, 756839]
+MODES_KERNELS = ("k9_chain", "k1_p1c", "k2_fused_c", "k3_p7c")
+ECM_K9_B1 = 50
+
+
+def pm1_found(out: str) -> tuple:
+    """(stage-1 factor, stage-2 factor) from a P-1 run's log, 0 where the
+    stage reported none."""
+    s1 = [int(ln.rsplit(":", 1)[1]) for ln in out.splitlines()
+          if "P-1 factor stage 1 found:" in ln]
+    s2 = [int(ln.rsplit(":", 1)[1]) for ln in out.splitlines()
+          if "Factor P-1 (stage 2) found" in ln]
+    return (s1[-1] if s1 else 0, s2[-1] if s2 else 0)
+
+
+def ecm_found(out: str):
+    """(factor, curve, stage) of the first factor an ECM run's log
+    reports."""
+    import re
+    for ln in out.splitlines():
+        m = re.search(r"curve (\d+)\b.*?stage (\d) factor (\d+)", ln)
+        if m:
+            return int(m.group(3)), int(m.group(1)), int(m.group(2))
+    return None
+
+
+def modes_chains(root: str):
+    """Phase 9's CLI runs on the any-size engine, two chains of
+    subprocesses: P-1 (M541 with its resume files, the .mers of its
+    stage-1 residue through -filemers, M367 on V-trace and ultralowmem,
+    M367 paged onto 4 device slots) and ECM (M29 and M37, Edwards and
+    Montgomery) with the worktodo loop. Returns the running futures."""
+    from prmers_tpu_torch.core.plan import cached_plan
+    from prmers_tpu_torch.io import interop
+    from prmers_tpu_torch.utils import digits as dg
+
+    def pm1_chain():
+        out = {"541": cli_run(root, "pm1-541", ["541", "-pm1", "-b1", "899",
+                                                 "-resume"], phase=9)}
+        d = out["541"][4]
+        b1, p, x = interop.read_ecm_resume(
+            os.path.join(d, "resume_p541_B1_899.save"))
+        mers = os.path.join(d, f"{p}pm{b1}.mers")
+        dg.int_to_digits(x, cached_plan(p).widths).astype("<u8").tofile(mers)
+        out["filemers"] = cli_run(root, "pm1-541", ["-filemers", mers],
+                                  phase=9, fresh=False, result=False)
+        with open(os.path.join(d, f"{p}pm{b1}.save"), "rb") as f:
+            out["filemers_sha256"] = hashlib.sha256(f.read()).hexdigest()
+        out["367"] = cli_run(root, "pm1-367", M367, phase=9)
+        out["367-ulm"] = cli_run(root, "pm1-367-ulm",
+                                 M367 + ["-pm1-ultralowmem"], phase=9)
+        out["367-paged"] = cli_run(root, "pm1-367-paged", M367, phase=9,
+                                   env={"PRMERS_MAX_DEVICE_REGS": "4",
+                                        "PRMERS_GPU_ALLOC_DIAG": "1"})
+        return out
+
+    def ecm_chain():
+        out = [cli_run(root, f"ecm-{i}", argv, phase=9)
+               for i, (argv, _want) in enumerate(ECM_GOLDENS)]
+        d = os.path.join(root, "build", "smoke_any", "worktodo")
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        wt = os.path.join(d, "worktodo.txt")
+        with open(wt, "w") as f:
+            f.write("Pminus1=1,2,541,-1,899,0\nPRP=1,2,9941,-1\n")
+        res = os.path.join(d, "results.txt")
+        out.append(cli_run(root, "worktodo", ["-noproof", "-worktodo", wt,
+                                              "-results", res], phase=9,
+                           fresh=False))
+        return out
+
+    pool = ThreadPoolExecutor(max_workers=2)
+    chains = (pool.submit(pm1_chain), pool.submit(ecm_chain))
+    pool.shutdown(wait=False)
+    return chains
+
+
+def check_chains(chains) -> None:
+    """Wait for phase 9's CLI chains (modes_chains) and hold their results
+    to the goldens; any mismatch raises."""
+    def expect(what, cond):
+        log(f"[9]   {what}: {cond}")
+        if not cond:
+            raise AssertionError(f"phase 9 failed: {what}")
+
+    t1 = time.perf_counter()
+    pm1_out, ecm_out = chains[0].result(), chains[1].result()
+    log(f"[9] waited {time.perf_counter() - t1:.3f} s for the CLI chains")
+    rc, out, _dt, j, _d = pm1_out["541"]
+    expect("M541 -pm1 -b1 899: stage-1 factor 4312790327",
+           rc == 0 and j["factors"] == ["4312790327"]
+           and pm1_found(out)[0] == 4312790327)
+    expect(".save from -filemers on M541's .mers equals the reference's",
+           pm1_out["filemers"][0] == 0 and
+           pm1_out["filemers_sha256"] == SAVE_541_SHA256)
+    rc, out, _dt, j, _d = pm1_out["367"]
+    expect(f"M367 V-trace: stage 1 {M367_S1}, stage 2 {M367_S2}",
+           rc == 0 and pm1_found(out) == (M367_S1, M367_S2)
+           and j["factors"] == [str(M367_S2)])
+    rc, out, _dt, j, _d = pm1_out["367-ulm"]
+    expect(f"M367 ultralowmem: stage 2 {M367_S2}",
+           rc == 0 and pm1_found(out)[1] == M367_S2)
+    rc, out, _dt, j, _d = pm1_out["367-paged"]
+    alloc = [ln for ln in out.splitlines() if ln.startswith("[ALLOC]")]
+    for ln in alloc:
+        log(f"[9]   {ln}")
+    expect(f"M367 V-trace on 4 device slots (PagedEngine): stage 2 "
+           f"{M367_S2}", rc == 0 and pm1_found(out)[1] == M367_S2
+           and any("host-paged LRU" in ln for ln in alloc))
+    for (argv, want), (rc, out, _dt, j, _d) in zip(ECM_GOLDENS, ecm_out):
+        got = ecm_found(out)
+        expect(f"ECM {' '.join(argv)}: (factor, curve, stage) {got}, the "
+               f"reference's {want}", got == want
+               and j["factors"] == [str(want[0])] and rc == 0)
+    rc, out, _dt, j, d = ecm_out[-1]
+    with open(os.path.join(d, "results.txt")) as f:
+        res = [json.loads(ln) for ln in f if ln.strip()]
+    with open(os.path.join(d, "worktodo.txt")) as f:
+        left = f.read().strip()
+    expect("worktodo: M541 P-1 and M9941 PRP in -results, their JSON "
+           "files, the worktodo file empty",
+           rc == 0 and [(e["exponent"], e["status"]) for e in res] ==
+           [(541, "F"), (9941, "P")] and left == "" and
+           os.path.exists(os.path.join(d, "541_pm1_result.json")) and
+           os.path.exists(os.path.join(d, "9941_prp_result.json")))
+
+
+def modes_drive(root: str, dev, card: str, chains=None,
+                full=False) -> dict:
+    """Phase 9: the modes on the card. The CLI chains (modes_chains;
+    started here unless the caller started them beside phase 8) hold the
+    any-size engine's goldens; in this process, through app.main (the
+    CLI's entry) and the mode drivers, the kernel engine's: P-1 at
+    p = 544139 and M1362763 (K9 for stage 1, K1-K3 for stage 2's
+    products, the wrapper counts reset just before and read just after),
+    one Edwards curve's stage 1 at p = 544139 on FourStepEngine against
+    the any-size engine, memtest at p = 136279841, the -bench ladder over
+    two exponents, and the bytes each engine holds beside its registers
+    against engine/paged.OVERHEAD_BYTES. With `full`, M1362763's P-1 over
+    the whole stage-2 range, timed. Returns the wrapper counts of the
+    kernel-engine P-1 runs."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from prmers_tpu_torch import app
+    from prmers_tpu_torch.engine import fourstep_engine as fse
+    from prmers_tpu_torch.engine import paged
+    from prmers_tpu_torch.engine import torch_engine as te
+    from prmers_tpu_torch.engine.factory import create_engine
+    from prmers_tpu_torch.io.cli import parse_args
+    from prmers_tpu_torch.modes import bench as mbench
+    from prmers_tpu_torch.modes import ecm_edwards as ed
+    from prmers_tpu_torch.ops import kernels as tk
+
+    t0 = time.perf_counter()
+    if chains is None:
+        chains = modes_chains(root)
+
+    def expect(what, cond):
+        log(f"[9]   {what}: {cond}")
+        if not cond:
+            raise AssertionError(f"phase 9 failed: {what}")
+
+    def main_here(tag, args):
+        """app.main(args) in this process; returns (rc, log, result)."""
+        d = os.path.join(root, "build", "smoke_modes", tag)
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = app.main(args + ["-save-dir", d, "-results",
+                                  os.path.join(d, "results.txt")])
+        out = buf.getvalue()
+        dt = time.perf_counter() - t1
+        j = json.loads(out.strip().splitlines()[-1])
+        log(f"[9] app.main {' '.join(args)}: rc={rc} in {dt:.3f} s: "
+            f"factors {j.get('factors')} ({card})")
+        return rc, out, j, dt
+
+    # P-1 on the kernel engine (K9; K1-K3), through the CLI's entry here
+    tk.reset_calls()
+    rc, out, j, _dt = main_here("pm1-k9", [str(P_PM1_K9), "-pm1", "-b1", "3",
+                                           "-b2", "7"])
+    expect(f"M{P_PM1_K9} P-1 (3, 7): {PM1_K9_FACTOR} in both stages",
+           rc == 0 and pm1_found(out) == (PM1_K9_FACTOR, PM1_K9_FACTOR))
+    rc, out, j, dt = main_here("pm1-1362763",
+                               M1362763 + ["-b2start", "6900000"])
+    expect(f"M1362763 P-1 -b2start 6900000, known factors divided out: "
+           f"{M1362763_FACTOR}", rc == 0 and j.get("factors") ==
+           [str(M1362763_FACTOR)])
+    counts = dict(tk.calls)
+    log(f"[9] kernel-engine P-1 wrapper calls {counts}")
+    for name in MODES_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by P-1")
+    if full:
+        rc, out, j, dt = main_here("pm1-1362763-full", M1362763)
+        expect(f"M1362763 P-1 over all of (29, 6910159] in {dt:.3f} s "
+               f"({card}): {M1362763_FACTOR}", rc == 0 and
+               j.get("factors") == [str(M1362763_FACTOR)])
+
+    # one Edwards curve's stage 1 on the kernel engine and the any-size one
+    p = P_PM1_K9
+    n = (1 << p) - 1
+    x0, y0, d = ed.edwards_curve(ed.splitmix64(0x5EED), n)
+    points = []
+    for cls in (fse.FourStepEngine, te.TorchEngine):
+        eng = cls(p, ed.ED_BASE_REGS, device=dev)
+        tk.reset_calls()
+        t1 = time.perf_counter()
+        ed._stage1(ed.EdOps(eng, n, d), x0, y0, ECM_K9_B1, 0, log)
+        eng.sync()
+        dt = time.perf_counter() - t1
+        points.append([eng.get_int(r) for r in (ed.EX, ed.EY, ed.EZ,
+                                                 ed.ET)])
+        log(f"[9] Edwards stage 1 (B1={ECM_K9_B1}) at p={p} on "
+            f"{cls.__name__} in {dt:.3f} s; wrapper calls "
+            f"{ {k: v for k, v in tk.calls.items() if v} } ({card})")
+        del eng
+    expect(f"Edwards stage 1 at p={p}: FourStepEngine's point equals the "
+           "any-size engine's", points[0] == points[1])
+
+    # memtest at the main exponent on the kernel engine
+    lines = []
+    tk.reset_calls()
+    r, _j = app.run(parse_args([str(P_MAIN), "-memtest", "-iters", "2"]),
+                    device=dev, log=lines.append)
+    expect(f"memtest p={P_MAIN}: {r.passes} passes, 0 errors, "
+           f"{r.ips:.3f} iter/s ({card})", r.errors == 0 and
+           r.roundtrip_errors == 0 and r.passes == 2
+           and tk.calls["k2_fused_c"] > 0)
+
+    # the -bench ladder over two of its exponents
+    lines = []
+    ladder, mbench.BENCH_EXPONENTS = mbench.BENCH_EXPONENTS, BENCH_LADDER
+    try:
+        r, _j = app.run(parse_args(["-bench", "-iters", "256"]), device=dev,
+                        log=lines.append)
+    finally:
+        mbench.BENCH_EXPONENTS = ladder
+    for ln in lines:
+        log(f"[9] -bench: {ln} ({card})")
+    expect("-bench: both rows and a PRMERS_SCORE line",
+           [row[0] for row in r.rows] == BENCH_LADDER and r.score > 0
+           and any("PRMERS_SCORE" in str(ln) for ln in lines))
+
+    # the bytes each engine holds beside its registers, per word
+    for backend, p in (("pallas", P_MAIN), ("jax", P_ANY_WIDE)):
+        te._TABLES_CACHE.clear()
+        fse._DEV_TABLES.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = create_engine(p, 3, device=dev, backend=backend)
+        rnd = random.Random(p)
+        eng.set(0, rnd.getrandbits(p - 1))
+        eng.set(1, rnd.getrandbits(p - 1))
+        eng.square_mul(0, 3)
+        eng.set_multiplicand(2, 1)
+        eng.mul(0, 2, 3)
+        eng.add(0, 1)
+        eng.sub_reg(0, 1)
+        eng.sub(0, 2)
+        eng.square_mul(0, 3)
+        torch.cuda.synchronize()
+        m = eng.get_size()
+        extra = (torch.cuda.max_memory_allocated() - base
+                 - 3 * paged.register_bytes(m, backend)) / m
+        expect(f"{type(eng).__name__} at n={m}: {extra:.1f} bytes per word "
+               f"beside its registers, charged "
+               f"{paged.OVERHEAD_BYTES[backend]}",
+               extra <= paged.OVERHEAD_BYTES[backend])
+        del eng
+    te._TABLES_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    check_chains(chains)
+    log(f"[9] phase 9 in {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -797,7 +1193,8 @@ def main(argv) -> int:
     from prmers_tpu_torch import bench
     from prmers_tpu_torch.core.plan import build_plan, cached_plan
     from prmers_tpu_torch.engine.factory import create_engine
-    from prmers_tpu_torch.engine.fourstep_engine import (get_tables,
+    from prmers_tpu_torch.engine.fourstep_engine import (four_step_plan,
+                                                         get_tables,
                                                          host_tables)
     from prmers_tpu_torch.ops import build
     from prmers_tpu_torch.ops import fourstep as tfs
@@ -811,9 +1208,26 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = bench.card()
+
+    def mark(phase):
+        log(f"[smoke] phase {phase} from {time.perf_counter() - t_start:.3f}"
+            " s")
     log(f"[1] card: {card}")
     log(f"[1] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    # the full smoke's five largest kernel plans: their host tables build on
+    # a thread from here, beside nvcc and phase 2's smaller sizes (phase 2
+    # waits for each before it uses it)
+    prebuilt = {}
+    if not any(a.startswith("--") for a in argv):
+        prebuild = ThreadPoolExecutor(max_workers=1)
+        for p, n in ((P_MAIN, 1 << 23), (P_BIG, cached_plan(P_BIG).n),
+                     (P_HUGE, cached_plan(P_HUGE).n), (P_R5, 5 << 22),
+                     (P_R5_BIG, 5 << 23)):
+            prebuilt[p] = prebuild.submit(
+                lambda p=p, n=n: host_tables(
+                    four_step_plan(build_plan(p, n=n), tfs.Pipeline())))
+        prebuild.shutdown(wait=False)
     t0 = time.perf_counter()
     built = not os.path.exists(build.library_path())
     build.lib()
@@ -824,13 +1238,17 @@ def main(argv) -> int:
         print(card)
         return 0
     if "--tools-only" in argv:
-        timed7, calls = tools_drive(dev, card)
+        timed7, calls, _int_mm = tools_drive(dev, card)
         print(json.dumps({"tools": [e.row() for e in timed7],
                           "calls": calls}))
         print(card)
         return 0
     if "--anysize-only" in argv:
         anysize_drive(root, dev, card)
+        print(card)
+        return 0
+    if "--modes-only" in argv:
+        modes_drive(root, dev, card, full="--pm1-full" in argv)
         print(card)
         return 0
     if "--mesh-only" in argv:
@@ -851,6 +1269,7 @@ def main(argv) -> int:
     expected = {p: pool.submit(drive_values, p) for p in (
         P_R5_BIG, P_BIG, P_R5, P_MAIN, P_CHAIN, P_R5_SMALL, P_GOLDEN)}
 
+    mark(2)
     # ---- 2: every kernel against its plain version -----------------------
     errs = {e[0]: 0.0 for e in ENTRIES}
 
@@ -875,6 +1294,11 @@ def main(argv) -> int:
 
     def tables(p, n, pipe=tfs.Pipeline()):
         plan = build_plan(p, n=n)
+        if p in prebuilt and pipe == tfs.Pipeline():
+            t1 = time.perf_counter()
+            prebuilt.pop(p).result()
+            log(f"[2] p={p}: waited {time.perf_counter() - t1:.3f} s for "
+                "its host tables (built on a thread since phase 1)")
         t1 = time.perf_counter()
         tracemalloc.start()
         t = get_tables(plan, dev, pipe)
@@ -1021,6 +1445,7 @@ def main(argv) -> int:
 
     chain_in = {logn: chain_case(logn) for logn in range(15, 20)}
 
+    mark(3)
     # ---- 3: both paths through the Engine API, against GMP ----------------
     counts = {}
 
@@ -1055,8 +1480,9 @@ def main(argv) -> int:
                 raise AssertionError(f"{name} was not launched on the {path}"
                                      " path")
         t1 = time.perf_counter()
-        ok = [eng.get_int(r) == want[i] for i, r in enumerate((0, 1, 4))]
-        log(f"[3] {path} path big-int check in "
+        ok = [bool(np.array_equal(eng.get_digits(r), want[i]))
+              for i, r in enumerate((0, 1, 4))]
+        log(f"[3] {path} path big-int check (digits) in "
             f"{time.perf_counter() - t1:.3f} s: sparse chain {ok[0]}, "
             f"x3 + mul {ok[1]}, sub2 {ok[2]}")
         if not all(ok):
@@ -1116,6 +1542,7 @@ def main(argv) -> int:
     pool.shutdown()
     del expected
 
+    mark(4)
     # ---- 4: timings -------------------------------------------------------
     for p, warm, iters in ((P_MAIN, 16, 192), (P_BIG, 4, 48),
                            (P_HUGE, 4, 24), (P_R5, 4, 48), (P_R5_BIG, 4, 24)):
@@ -1379,6 +1806,7 @@ def main(argv) -> int:
     del spec, z
     torch.cuda.empty_cache()
 
+    mark(5)
     # ---- 5: M756839 through the CLI: whole on K9 with its proof, resumed on
     # the block carry
     def cli_start(tag, launcher=(), env=None, args=(), resume=None,
@@ -1502,6 +1930,7 @@ def main(argv) -> int:
     log(f"[5] waited {time.perf_counter() - t1:.3f} s for the squarings of "
         f"the run with its proof")
 
+    mark(6)
     # ---- 6: the mesh ------------------------------------------------------
     # (a) the shard-local kernel forms on this card, s = 2 and 4
     fpm = tfs.FourStepPlan.from_plan(cached_plan(P_MAIN))
@@ -1610,8 +2039,9 @@ def main(argv) -> int:
                   "NCCL_SOCKET_IFNAME", "lo")},
               args=("-backend", "sharded"), resume=golden)
 
+    mark(7)
     # ---- 7: the tools: the pass profiler, microbenchmarks, probes ---------
-    timed7, counts["tools"] = tools_drive(dev, card)
+    timed7, counts["tools"], int_mm = tools_drive(dev, card)
 
     def fold(entry, sel, how):
         """A row from phase 7's Timed: mean (or sum) of the selected."""
@@ -1630,9 +2060,16 @@ def main(argv) -> int:
     for kern in pr.KERNELS:
         fold(kern, lambda e, kern=kern: e.kernel == kern, "sum")
 
+    mark(8)
     # ---- 8: the any-size engine and the reference goldens ------------------
-    anysize_drive(root, dev, card)
+    chains9 = []
+    anysize_drive(root, dev, card,
+                  beside=lambda: chains9.append(modes_chains(root)))
     cli_finish(5, "K9 with its proof (-proofverify)", proof_job)
+
+    # ---- 9: the modes ------------------------------------------------------
+    mark(9)
+    counts["modes"] = modes_drive(root, dev, card, chains=chains9[0])
 
     sources = {**tk.SOURCES, **pr.SOURCES}
     replaces = {**tk.REPLACES, **pr.REPLACES}
@@ -1642,7 +2079,11 @@ def main(argv) -> int:
                 "launches": counts[path][name], "max_abs_err": errs[entry],
                 "ms": ms[entry][0], "plain_ms": ms[entry][1],
                 "bound_ms": bounds[entry][0], "bound_by": bounds[entry][1],
-                "library_ms": None}
+                # torch._int_mm on the int8 dot cases b and e, the only
+                # ones a library call computes; no PyTorch call computes
+                # a Goldilocks product or this carry
+                "library_ms": (sum(int_mm.values())
+                               if entry == "probe_shapes" else None)}
                for entry, name, path in ENTRIES]
     log(f"[smoke] total {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))

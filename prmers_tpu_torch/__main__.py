@@ -1,4 +1,4 @@
-"""python -m prmers_tpu_torch — PRP / LL on the CUDA port."""
+"""python -m prmers_tpu_torch: the command line of the CUDA port (app.main)."""
 import sys
 
 from .app import main

@@ -1,30 +1,44 @@
-"""`python -m prmers_tpu_torch <p> [-ll | -llsafe | -llsafe2]`: a PRP, LL
-or LL-safe run on the port.
+"""`python -m prmers_tpu_torch <p> [mode flags]`: the port's command line,
+one run or the worktodo loop.
 
-Counterpart of prmers_tpu/core/app.py:92-150. It parses with the port's
-copy of the CLI (io/cli.parse_args), runs its copy of the PRP/LL driver
-(modes/prp_ll.run_prp_or_ll) or of the LL-safe modes (modes/llsafe) on
-the port's engine, and prints the PrimeNet result JSON (io/json_out). A
-PRP of p > 128 writes its GIMPS proof (core/proof, power -proofpower or
-best_power(p); -noproof skips it), logs its hashes, puts its power and
-the md5 of the file in the JSON, and verifies it under -proofverify, as
-prmers_tpu/core/app.py:96-121 does. As prmers_tpu/core/app.py:270-274 and
-:293 do, rank 0 appends that line to the results file (`-results`,
-default results.txt), writes it to `<save_dir>/<p>_<mode>_result.json`
-(io/worktodo, a copy of the JAX package's) and tees its log to
-`<save_dir>/prmers.log` (LogTee). Other modes, the second arithmetic
-(`-arith fft3161`, its `-pfa*` aliases, PRMERS_ARITH=fft3161),
-`-profile`, `-filemers` (the .mers to GMP-ECM conversion) and `-gui` (the
-web GUI) are not ported yet and stop with a message saying so, before any
-engine is made, rather than run a PRP under a flag that asked otherwise.
+Counterpart of prmers_tpu/core/app.py:65-297. It parses with the port's
+copy of the CLI (io/cli.parse_args) and dispatches to the port's copies
+of the mode drivers, each on the port's engine: PRP and LL
+(modes/prp_ll), LL-safe (modes/llsafe), P-1 (modes/pm1, all its stage-1
+and stage-2 forms), ECM (modes/ecm_edwards, twisted Edwards, unless
+-montgomery: modes/ecm), -bench (modes/bench: the exponent ladder and
+PRMERS_SCORE) and -memtest (modes/memtest), with their PrimeNet result
+JSON built as :152-188 do (io/json_out). A PRP of p > 128 writes its
+GIMPS proof (core/proof, power -proofpower or best_power(p); -noproof
+skips it), logs its hashes, puts its power and the md5 of the file in the
+JSON, and verifies it under -proofverify (:96-121).
+
+With no exponent, run_app takes the entries of the worktodo file
+(-worktodo, default worktodo.txt; io/worktodo, a copy of the JAX
+package's) one at a time, each merged into the options as :21-35 do, and
+removes each once done; -filemers converts a .mers checkpoint into a
+GMP-ECM .save (io/interop.convert_mers_to_save). The exit codes are the
+reference's (:227-280): 0 for a prime, PRP, factor, or a clean bench or
+memtest, 1 otherwise, 2 with nothing to do, 0 after a worktodo loop. Rank
+0 appends each result line to the results file (-results, default
+results.txt), writes it to `<save_dir>/<p>_<mode>_result.json` and tees
+its log to `<save_dir>/prmers.log` (LogTee).
+
+Not ported yet, and stopped with a message saying so before any engine is
+made, rather than run under a flag that asked otherwise: -tune and
+-profile (ROADMAP queue 1 item 4; python -m prmers_tpu_torch.profile
+profiles the kernels), the second arithmetic (-arith fft3161, its -pfa*
+aliases, PRMERS_ARITH=fft3161; item 7) and -gui (the web GUI; item 9).
+The "Arithmetic path" line of _log_arith_decision waits for
+engine/policy.py (item 4).
 
 Under torchrun (or the JAX package's PRMERS_COORDINATOR variables) each
-process joins the group first (parallel/dist.init_from_env, as
-prmers_tpu/core/app.py:291 does), and `-backend sharded` (or "auto" with
-more than one rank) runs the mesh engine on it, one card per process:
-`python -m torch.distributed.run --nproc_per_node=4 -m prmers_tpu_torch
-<p> -noproof -backend sharded`. Only rank 0 prints the log and the result
-and writes checkpoints and proofs.
+process joins the group first (parallel/dist.init_from_env, as :291
+does), and `-backend sharded` (or "auto" with more than one rank) runs the
+mesh engine on it, one card per process: `python -m
+torch.distributed.run --nproc_per_node=4 -m prmers_tpu_torch <p> -noproof
+-backend sharded`. Only rank 0 prints the log and the result and writes
+checkpoints, proofs, results and the worktodo file.
 """
 
 from __future__ import annotations
@@ -36,10 +50,17 @@ import time
 
 from .core.proof import ProofSet, best_power
 from .engine.factory import create_engine
-from .io import json_out
+from .io import interop, json_out
 from .io.cli import parse_args
-from .io.worktodo import append_results_txt, write_individual_json
+from .io.options import Options
+from .io.worktodo import (Worktodo, append_results_txt,
+                          write_individual_json)
+from .modes.bench import run_bench
+from .modes.ecm import run_ecm
+from .modes.ecm_edwards import run_ecm_edwards
 from .modes.llsafe import LLSAFE2_REGS, LLSAFE_REGS, run_llsafe, run_llsafe2
+from .modes.memtest import run_memtest
+from .modes.pm1 import run_pm1
 from .modes.prp_ll import run_prp_or_ll
 from .parallel import dist
 
@@ -72,14 +93,34 @@ class LogTee:
             self._f = None
 
 
-def run(opts, device=None, log=print):
-    """One PRP, LL or LL-safe run; returns (result, json_line)."""
-    if opts.filemers or opts.gui:
-        raise SystemExit(f"{'-filemers' if opts.filemers else '-gui'} is "
-                         "not yet ported to prmers_tpu_torch")
-    if opts.mode not in ("prp", "ll", "llsafe", "llsafe2"):
-        raise SystemExit(f"mode {opts.mode!r} is not yet ported to "
-                         "prmers_tpu_torch (PRP, LL and LL-safe only)")
+# Largest exponent any plan family carries: the 5*2^26 Goldilocks shape
+# at 16 bits/word (prmers_tpu/core/app.py:59-61)
+MAX_EXPONENT = 17 * (5 << 26) - 1
+
+
+def _merge_worktodo(opts: Options, entry) -> Options:
+    opts.exponent = entry.exponent
+    opts.mode = entry.mode
+    opts.aid = entry.aid or opts.aid
+    if entry.known_factors:
+        opts.known_factors = entry.known_factors
+    if entry.b1:
+        opts.b1 = entry.b1
+    if entry.b2:
+        opts.b2 = entry.b2
+    if entry.b2_start:
+        opts.b2_start = entry.b2_start
+    if entry.curves:
+        opts.curves = entry.curves
+    return opts
+
+
+def _refuse_unported(opts) -> None:
+    """Stop, before any engine, a run that asks for what is not ported."""
+    if opts.gui:
+        raise SystemExit("-gui is not yet ported to prmers_tpu_torch")
+    if opts.mode == "tune":
+        raise SystemExit("-tune is not yet ported to prmers_tpu_torch")
     if "fft3161" in (opts.arith, os.environ.get("PRMERS_ARITH")):
         raise SystemExit("the fft3161 arithmetic (-arith fft3161, -pfa*, "
                          "PRMERS_ARITH) is not yet ported to "
@@ -88,8 +129,48 @@ def run(opts, device=None, log=print):
         raise SystemExit("-profile is not yet ported to prmers_tpu_torch; "
                          "python -m prmers_tpu_torch.profile <p> profiles "
                          "the kernels")
+
+
+def run(opts, device=None, log=print):
+    """One workload (prmers_tpu/core/app.py:run_once); returns (result,
+    json_line), the line empty for -bench and -memtest."""
+    _refuse_unported(opts)
     if opts.save_dir:
         os.makedirs(opts.save_dir, exist_ok=True)
+    if opts.exponent > MAX_EXPONENT:
+        raise SystemExit(
+            f"Exponent {opts.exponent} out of range: the largest "
+            f"supported transform (5*2^26) caps at {MAX_EXPONENT}")
+    if opts.mode == "pm1":
+        r = run_pm1(opts, log=log, device=device)
+        factors = (str(r.factor),) if r.factor else ()
+        j = json_out.build_result_json(
+            exponent=opts.exponent, worktype="PM1",
+            status="F" if r.factor else "NF",
+            b1=opts.b1, b2=opts.b2, factors=factors,
+            gerbicz_errors=r.gerbicz_errors,
+            fft_length=r.transform_size,
+            user=opts.user, computer=opts.computer, aid=opts.aid)
+        return r, j
+    if opts.mode == "ecm":
+        # twisted Edwards unless -montgomery (:165-170)
+        ecm = run_ecm_edwards if getattr(opts, "edwards", True) else run_ecm
+        r = ecm(opts, log=log, device=device)
+        factors = (str(r.factor),) if r.factor else ()
+        j = json_out.build_result_json(
+            exponent=opts.exponent, worktype="ECM",
+            status="F" if r.factor else "NF",
+            b1=opts.b1, b2=opts.b2, factors=factors,
+            curves=r.curves, curve_seed=opts.curve_seed,
+            edwards=False, torsion=opts.torsion, sigma=opts.sigma,
+            user=opts.user, computer=opts.computer, aid=opts.aid)
+        return r, j
+    if opts.mode == "bench":
+        return run_bench(opts, log=log, device=device), ""
+    if opts.mode == "memtest":
+        return run_memtest(opts, log=log, device=device), ""
+    if opts.mode not in ("prp", "ll", "llsafe", "llsafe2"):
+        raise ValueError(f"unknown mode {opts.mode!r}")
     if opts.mode in ("llsafe", "llsafe2"):
         # prmers_tpu/core/app.py:139-150
         llsafe, regs = ((run_llsafe2, LLSAFE2_REGS) if opts.mode == "llsafe2"
@@ -148,30 +229,65 @@ def run(opts, device=None, log=print):
     return r, j
 
 
+def _record(opts, j: str, log) -> None:
+    """Rank 0's files for one result line (prmers_tpu/core/app.py:270-274)."""
+    if j and dist.is_primary():
+        append_results_txt(opts.results_path, j)
+        write_individual_json(opts.save_dir, opts.exponent, opts.mode, j)
+        log(j)
+
+
+def run_app(opts, log=print, device=None) -> int:
+    """The worktodo loop or one run (prmers_tpu/core/app.py:227-280);
+    returns the exit code."""
+    if opts.filemers:
+        # .mers checkpoint -> GMP-ECM .save (:232-243)
+        try:
+            out = interop.convert_mers_to_save(opts.filemers)
+        except (OSError, ValueError) as e:
+            log(f"-filemers failed: {e}")
+            return 1
+        log(f"GMP ECM file written to: {out}")
+        return 0
+    wt = Worktodo(opts.worktodo_path)
+    entry = wt.first_entry()
+    if entry is not None and opts.exponent == 0:
+        while entry is not None:
+            _merge_worktodo(opts, entry)
+            _r, j = run(opts, device=device, log=log)
+            _record(opts, j, log)
+            if dist.is_primary():
+                wt.remove_first_processed()
+            dist.barrier()
+            entry = wt.first_entry()
+        return 0
+    if opts.exponent == 0 and opts.mode not in ("bench", "tune", "memtest"):
+        log("nothing to do: no exponent and no worktodo entries")
+        return 2
+    r, j = run(opts, device=device, log=log)
+    _record(opts, j, log)
+    if opts.mode in ("bench", "tune", "memtest"):
+        errs = getattr(r, "errors", 0) + getattr(r, "roundtrip_errors", 0)
+        return 0 if not errs else 1
+    found = bool(getattr(r, "is_prime", False) or getattr(r, "factor", 0)
+                 or getattr(r, "wagstaff_prp", False)
+                 or getattr(r, "cofactor_prp", False))
+    return 0 if found else 1
+
+
 def main(argv=None) -> int:
     opts = parse_args(argv)
-    if opts.exponent == 0:
-        print("usage: python -m prmers_tpu_torch <p> [-ll] [-noproof]")
-        return 2
     dist.init_from_env()
     try:
         if dist.is_primary():
             os.makedirs(opts.save_dir, exist_ok=True)
             log = LogTee(os.path.join(opts.save_dir, "prmers.log"))
             try:
-                r, j = run(opts, log=log)
-                append_results_txt(opts.results_path, j)
-                write_individual_json(opts.save_dir, opts.exponent,
-                                      opts.mode, j)
-                log(j)
+                return run_app(opts, log=log)
             finally:
                 log.close()
-        else:
-            with open(os.devnull, "w") as null, \
-                    contextlib.redirect_stdout(null):
-                r, j = run(opts)
+        with open(os.devnull, "w") as null, \
+                contextlib.redirect_stdout(null):
+            return run_app(opts)
     finally:
         dist.shutdown()
-    prime = bool(r.is_prime or getattr(r, "wagstaff_prp", None)
-                 or getattr(r, "cofactor_prp", None))
-    return 0 if prime else 1

@@ -22,6 +22,12 @@ The backends (`backend=`, or PRMERS_BACKEND):
     (parallel/mesh_engine.MeshEngine); a shape the mesh does not take
     raises ValueError with the shape, for there is no XLA mesh engine to
     fall back on.
+"pallas" and "jax" (after "auto" has chosen) page registers to the host
+when reg_count exceeds engine/paged.device_reg_budget (the card's free
+memory over the engine's bytes per register), as :158-176 do: the engine
+gets the budget's count of slots and engine/paged.PagedEngine maps the
+logical registers onto them; PRMERS_GPU_ALLOC_DIAG=1 prints the [ALLOC]
+line, PRMERS_MAX_DEVICE_REGS and PRMERS_MEMLIM_MB set the budget.
 PRMERS_NO_PALLAS sends every p to the any-size engine (:40, :73), on any
 number of ranks. PRMERS_SHARDED_IMPL=xla, the reference's XLA mesh engine
 (:74, :180), is not ported and raises NotImplementedError.
@@ -59,7 +65,9 @@ tools/profile_passes, as in the reference.
 from __future__ import annotations
 
 import os
+import sys
 
+from .. import torchconf
 from ..core.plan import cached_plan
 from ..ops.fourstep import Pipeline
 from ..parallel import dist
@@ -67,6 +75,7 @@ from ..parallel.mesh_engine import MeshEngine
 from .api import Engine
 from .fourstep_engine import FourStepEngine, covers
 from .np_engine import NumpyEngine
+from .paged import PagedEngine, device_reg_budget
 from .torch_engine import ROW_MODE_MIN_N, TorchEngine, TorchRowEngine
 
 BACKENDS = ("auto", "pallas", "sharded", "jax", "numpy")
@@ -119,6 +128,21 @@ def create_engine(p: int, reg_count: int, device=None,
         else:
             pipe = pipeline_from_env() if pipe is None else pipe
             b = "pallas" if covers(plan, pipe) else "jax"
+    if b in ("pallas", "jax"):
+        # more registers than the card holds spill to the host through the
+        # LRU paging wrapper (factory.py:158-176)
+        device = torchconf.device(device)
+        budget = device_reg_budget(plan.n, device=device, backend=b)
+        if os.environ.get("PRMERS_GPU_ALLOC_DIAG") == "1":
+            gib = reg_count * plan.n * 8 / (1 << 30)
+            print(f"[ALLOC] logical regs={reg_count} slab={gib:.2f} GiB "
+                  f"device budget={budget} regs"
+                  f"{' -> host-paged LRU' if reg_count > budget else ''}",
+                  file=sys.stderr)
+        if reg_count > budget:
+            inner = create_engine(p, budget, device=device, pipe=pipe,
+                                  backend=b, arith="gl64")
+            return PagedEngine(inner, reg_count)
     if b == "jax":
         cls = TorchRowEngine if plan.n >= ROW_MODE_MIN_N else TorchEngine
         return cls(p, reg_count, plan=plan, device=device)

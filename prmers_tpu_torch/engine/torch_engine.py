@@ -19,14 +19,17 @@ one (n,) tensor per register and never writes one in place, so `copy` may
 alias. A squaring ends in the inverse's canonical digits (a lazy word >= P
 would be another integer) and carry_full with a static round count
 (carry.absorb_rounds), so no op of it waits on the host. On a card,
-TorchEngine captures each squaring (square_mul_seq: one per register and
-multiplier; square_sub2_seq: one per register) in a CUDA graph at its
-first call and replays it after (a squaring is hundreds of small
-launches); graphs=False keeps every op eager. get_raw gives canonical
-values, so checkpoints cross with JaxEngine in both directions; like
-JaxEngine it flags no register spectral in them (its spectral layout is
-the register layout) and refuses one flagged so (the four-step engine's
-(R1, R2, C) layout), which the PRP driver takes as no checkpoint.
+TorchEngine captures each op that runs on the device (squarings,
+set_multiplicand, mul, add, sub_reg, addsub, sub, add_small) in a CUDA
+graph at its first call, keyed by (op, registers, multiplier), and
+replays it after (a squaring is hundreds of small launches, an add tens);
+an engine's graphs share one memory pool (its first graph's), so each
+pins no temporaries of its own. graphs=False keeps every op eager.
+get_raw gives canonical values, so checkpoints cross with JaxEngine in
+both directions; like JaxEngine it flags no register spectral in them
+(its spectral layout is the register layout) and refuses one flagged so
+(the four-step engine's (R1, R2, C) layout), which the PRP driver takes
+as no checkpoint.
 """
 
 from __future__ import annotations
@@ -127,6 +130,7 @@ class TorchEngine(Engine):
         self.graphs = self.device.type == "cuda" if graphs is None \
             else graphs
         self._graphs: dict = {}
+        self._pool = None
         self._wmin = int(self.plan.widths.min())
 
     # -- storage (TorchRowEngine keeps one tensor per register) -----------
@@ -152,7 +156,12 @@ class TorchEngine(Engine):
     def _run(self, key, fn) -> None:
         """fn(), through a CUDA graph where this engine takes them: the
         first call runs fn eagerly (the warm-up, and this call's result),
-        then captures it; later calls replay the capture."""
+        then captures it; later calls replay the capture. Every capture
+        after the first goes into the first one's memory pool: each
+        graph's result lands in a register allocated outside the pool and
+        the graphs replay one after another on one stream, so a capture
+        may reuse the temporaries of those before it. The pool lives as
+        long as the engine's graphs do."""
         if not self.graphs:
             fn()
             return
@@ -162,8 +171,10 @@ class TorchEngine(Engine):
             return
         fn()
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with torch.cuda.graph(g, pool=self._pool):
             fn()
+        if self._pool is None:
+            self._pool = g.pool()
         self._graphs[key] = g
 
     def get_size(self) -> int:
@@ -193,7 +204,7 @@ class TorchEngine(Engine):
 
     def square_sub2_seq(self, src: Reg, count: int) -> None:
         F, t, r = self.F, self.t, self._rounds(1)
-        delta = self._delta_vec(2)
+        delta = self._digits_vec((1 << self.p) - 3)
 
         def step():
             x = _square(F, t, self._get(src), 1, r)
@@ -203,47 +214,59 @@ class TorchEngine(Engine):
             self._run(("sub2", src), step)
 
     def set_multiplicand(self, dst: Reg, src: Reg) -> None:
-        s = _fwd(self.F, self.t, self._get(src))
-        self._put(dst, self.F.lower(s).reshape(self.plan.n))
+        F, t, n = self.F, self.t, self.plan.n
+        self._run(("fwd", dst, src), lambda: self._put(
+            dst, F.lower(_fwd(F, t, self._get(src))).reshape(n)))
 
     def mul(self, dst: Reg, src: Reg, a: int = 1) -> None:
-        self._put(dst, _mul(self.F, self.t, self._get(dst), self._get(src),
-                            int(a), self._rounds(a)))
+        a = int(a)
+        F, t, r = self.F, self.t, self._rounds(a)
+        self._run(("mul", dst, src, a), lambda: self._put(
+            dst, _mul(F, t, self._get(dst), self._get(src), a, r)))
 
     def add(self, dst: Reg, src: Reg) -> None:
-        self._put(dst, _carry(self.t, self._get(dst) + self._get(src), 1,
-                              self._rounds(1)))
+        t, r = self.t, self._rounds(1)
+        self._run(("add", dst, src), lambda: self._put(
+            dst, _carry(t, self._get(dst) + self._get(src), 1, r)))
 
     def sub_reg(self, dst: Reg, src: Reg) -> None:
-        comp = _masks_of(self.t) - self._get(src)
-        self._put(dst, _carry(self.t, self._get(dst) + comp, 1,
-                              self._rounds(1)))
+        t, r = self.t, self._rounds(1)
+        self._run(("sub_reg", dst, src), lambda: self._put(
+            dst, _carry(t, self._get(dst) + (_masks_of(t) - self._get(src)),
+                        1, r)))
 
     def addsub(self, sum_out: Reg, diff_out: Reg, a: Reg, b: Reg) -> None:
-        x, y, r = self._get(a), self._get(b), self._rounds(1)
-        s = _carry(self.t, x + y, 1, r)
-        d = _carry(self.t, x + (_masks_of(self.t) - y), 1, r)
-        self._put(sum_out, s)
-        self._put(diff_out, d)
+        t, r = self.t, self._rounds(1)
 
-    def _delta_vec(self, a: int) -> torch.Tensor:
-        """Digits of (M_p - a) on the device (cached per a)."""
-        if a not in self._sub_cache:
+        def op():
+            x, y = self._get(a), self._get(b)
+            s = _carry(t, x + y, 1, r)
+            d = _carry(t, x + (_masks_of(t) - y), 1, r)
+            self._put(sum_out, s)
+            self._put(diff_out, d)
+
+        self._run(("addsub", sum_out, diff_out, a, b), op)
+
+    def _digits_vec(self, v: int) -> torch.Tensor:
+        """Digits of v mod M_p on the device (cached per v; a graph reads
+        it where it was at capture)."""
+        if v not in self._sub_cache:
             mp = (1 << self.p) - 1
-            self._sub_cache[a] = gl.from_numpy_u64(
-                dg.int_to_digits((mp - a) % mp, self.widths), self.device)
-        return self._sub_cache[a]
+            self._sub_cache[v] = gl.from_numpy_u64(
+                dg.int_to_digits(v % mp, self.widths), self.device)
+        return self._sub_cache[v]
 
-    def _add_vec(self, src: Reg, vec: torch.Tensor) -> None:
-        self._put(src, _carry(self.t, self._get(src) + vec, 1,
-                              self._rounds(1)))
+    def _add_vec(self, key, src: Reg, vec: torch.Tensor) -> None:
+        t, r = self.t, self._rounds(1)
+        self._run(key, lambda: self._put(
+            src, _carry(t, self._get(src) + vec, 1, r)))
 
     def sub(self, src: Reg, a: int) -> None:
-        self._add_vec(src, self._delta_vec(a))
+        mp = (1 << self.p) - 1
+        self._add_vec(("sub", src, a), src, self._digits_vec(mp - a % mp))
 
     def add_small(self, src: Reg, a: int) -> None:
-        self._add_vec(src, gl.from_numpy_u64(
-            dg.int_to_digits(a, self.widths), self.device))
+        self._add_vec(("add_small", src, a), src, self._digits_vec(a))
 
     def sync(self) -> None:
         if self.device.type == "cuda":

@@ -184,14 +184,30 @@ def test_factory_raises_on_uncovered_shapes():
     assert type(create_engine(9941, 2, device="cpu")) is TorchEngine
 
 
-def test_cli_refuses_what_is_not_ported():
-    """P-1 and ECM are not ported: the run stops before any engine (PRP
-    proofs and -llsafe are, tests/test_torch_proof.py)."""
+def test_cli_refuses_what_is_not_ported(monkeypatch):
+    """-tune is not ported: the run stops before any engine. P-1 and ECM
+    are (tests/test_torch_pm1.py, test_torch_ecm.py): app.run hands them
+    to their drivers, Edwards unless -montgomery, with its device."""
     from prmers_tpu.io.cli import parse_args
     from prmers_tpu_torch import app
-    for argv in (["-pm1", "-b1", "100"], ["-ecm", "-b1", "100"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
+    with pytest.raises(SystemExit, match="not yet ported"):
+        app.run(parse_args(["-tune"]), device="cpu")
+    seen = []
+
+    def driver(name):
+        def run(opts, log=print, device=None):
+            seen.append((name, opts.mode, device))
+            raise KeyboardInterrupt
+        return run
+    for name in ("run_pm1", "run_ecm", "run_ecm_edwards"):
+        monkeypatch.setattr(app, name, driver(name))
+    for argv in (["-pm1", "-b1", "100"], ["-ecm", "-b1", "100"],
+                 ["-ecm", "-b1", "100", "-montgomery"]):
+        with pytest.raises(KeyboardInterrupt):
             app.run(parse_args([str(P_EXP), *argv]), device="cpu")
+    assert seen == [("run_pm1", "pm1", "cpu"),
+                    ("run_ecm_edwards", "ecm", "cpu"),
+                    ("run_ecm", "ecm", "cpu")]
 
 
 @pytest.mark.parametrize("argv,env", [
@@ -258,16 +274,25 @@ def test_cli_writes_results_json_and_log(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv", [["-filemers", "m.mers"], ["-gui"]])
-def test_cli_refuses_filemers_and_gui(argv, tmp_path, monkeypatch):
-    """-filemers and -gui are not ported: the run stops with a message
-    before any engine is made, instead of running a PRP."""
+def test_cli_refuses_filemers_and_gui(argv, tmp_path, monkeypatch, capsys):
+    """-gui is not ported: the run stops with a message before any engine
+    is made, instead of running a PRP. -filemers is (through
+    io/interop.convert_mers_to_save, tests/test_torch_modes.py): it
+    converts and exits, so a missing .mers file ends the run with the
+    reference's "-filemers failed" and exit code 1, and no engine either."""
     made = []
     app = _stub_run(monkeypatch, made)
-    with pytest.raises(SystemExit) as exc:
-        app.main([str(P_EXP), "-noproof", "-save-dir", str(tmp_path),
-                  *argv])
-    assert "not yet ported to prmers_tpu_torch" in exc.value.code
-    assert argv[0] in exc.value.code and made == []
+    monkeypatch.chdir(tmp_path)
+    argv_all = [str(P_EXP), "-noproof", "-save-dir", str(tmp_path), *argv]
+    if argv[0] == "-filemers":
+        assert app.main(argv_all) == 1
+        assert "-filemers failed" in capsys.readouterr().out
+    else:
+        with pytest.raises(SystemExit) as exc:
+            app.main(argv_all)
+        assert "not yet ported to prmers_tpu_torch" in exc.value.code
+        assert argv[0] in exc.value.code
+    assert made == []
 
 
 @pytest.mark.parametrize("name,value", [("PRMERS_NO_PALLAS", "1"),

@@ -131,13 +131,29 @@ COPIES = {
     "core/proof.py": {"changed": {
         "ProofSet.__init__", "ProofSet.checkpoint",
         "ProofSet.checkpoint_engine", "ProofSet._write_shards"}},
+    "utils/primes.py": {},
+    "io/interop.py": {},
+    "io/p95.py": {},
+    "modes/memtest.py": {"changed": {"run_memtest"}},
+    "modes/bench.py": {"changed": {"_bench_one", "run_bench"}},
+    "modes/pm1.py": {"changed": {
+        "run_pm1_stage1", "run_pm1_stage2", "_load_stage1_x",
+        "run_pm1_stage2_lowmem", "run_pm1_stage2_ultralow",
+        "run_pm1_stage2_nk", "run_pm1_stage2_vtrace", "run_pm1"}},
+    "modes/ecm.py": {"changed": {"_backtrack_single", "_run_ecm_batch",
+                                 "run_ecm"}},
+    "modes/ecm_edwards.py": {"changed": {
+        "_backtrack_single_ed", "_run_edwards_batch", "run_ecm_edwards"}},
+    "engine/paged.py": {"changed": {"device_reg_budget"},
+                        "added": {"OVERHEAD_BYTES", "register_bytes",
+                                  "free_device_bytes"}},
 }
 
 
 def _definitions(path):
     """{name: ast dump} of a module's functions, methods, classes (without
-    their methods) and other top-level statements, imports and the module
-    docstring left out."""
+    their methods), assignments to one name and other top-level
+    statements, imports and the module docstring left out."""
     import ast
     with open(path) as f:
         tree = ast.parse(f.read())
@@ -156,6 +172,9 @@ def _definitions(path):
                     body=rest, decorator_list=node.decorator_list))
             elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
                 out[prefix + node.name] = ast.dump(node)
+            elif (isinstance(node, ast.Assign) and len(node.targets) == 1
+                  and isinstance(node.targets[0], ast.Name)):
+                out[prefix + node.targets[0].id] = ast.dump(node)
             elif not (prefix == "" and node is tree.body[0]
                       and isinstance(node, ast.Expr)):
                 src = ast.unparse(node)

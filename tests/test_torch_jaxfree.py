@@ -3,7 +3,9 @@
 prmers_tpu_torch (the mesh's parallel/ too) and running one CPU squaring
 through the four-step engine and one through the mesh engine leaves
 neither jax nor prmers_tpu in sys.modules, and so does one squaring
-through the any-size engine and one through the numpy oracle. The
+through the any-size engine and one through the numpy oracle, a P-1 of
+M541 and an Edwards ECM run of M37 (the modes, host paging, the interop
+files and the prime sieve among the modules imported). The
 machine with the CUDA card has no jax at all, and the port keeps its own
 copies of the host modules it needs."""
 
@@ -38,6 +40,22 @@ for eng in (TorchEngine(9941, 2, device="cpu"), NumpyEngine(9941, 2)):
     eng.set(0, 3)
     eng.square_mul(0, 3)
     assert eng.get_int(0) == 27
+for name in ("modes.pm1", "modes.ecm", "modes.ecm_edwards", "modes.memtest",
+             "modes.bench", "engine.paged", "io.interop", "io.p95",
+             "utils.primes", "app"):
+    assert "prmers_tpu_torch." + name in sys.modules, name
+import tempfile
+from prmers_tpu_torch.io.options import Options
+from prmers_tpu_torch.modes.ecm_edwards import run_ecm_edwards
+from prmers_tpu_torch.modes.pm1 import run_pm1
+d = tempfile.mkdtemp()
+r = run_pm1(Options(exponent=541, mode="pm1", b1=899, backend="jax",
+                    save_dir=d), log=lambda *a, **k: None, device="cpu")
+assert r.factor == 4312790327
+r = run_ecm_edwards(Options(exponent=37, mode="ecm", b1=20, b2=400,
+                            curves=6, curve_seed=3, save_dir=d),
+                    log=lambda *a, **k: None, device="cpu")
+assert r.factor == 223
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 print("JAXMODS", bad)
 ref = sorted(k for k in sys.modules

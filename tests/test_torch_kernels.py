@@ -650,12 +650,54 @@ def test_cuda_probes_match_plain():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("p", [127, 9941])
+def test_cuda_anysize_modes_graphs_match_eager(p, tmp_path, monkeypatch):
+    """On the card: a P-1 V-trace stage 2 and an Edwards ECM curve (stage
+    1 and 2) on the any-size engine with every op in CUDA graphs and
+    eager, and on the numpy oracle (exact integer digits): every register
+    of every engine the modes made equal at the end, and the same
+    result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from prmers_tpu_torch.engine.np_engine import NumpyEngine
+    from prmers_tpu_torch.engine.torch_engine import TorchEngine
+    from prmers_tpu_torch.io.options import Options
+    from prmers_tpu_torch.modes import ecm_edwards, pm1
+    mp = (1 << p) - 1
+    x1 = pow(3, 2 * p * 720720, mp)
+    runs = []
+    for graphs in (True, False, None):
+        made = []
+
+        def create(q, regs, device=None, graphs=graphs, **kw):
+            made.append(NumpyEngine(q, regs) if graphs is None else
+                        TorchEngine(q, regs, device="cuda", graphs=graphs))
+            return made[-1]
+        for mod in (pm1, ecm_edwards):
+            monkeypatch.setattr(mod, "create_engine", create)
+        d = str(tmp_path / str(graphs))
+        r = pm1.run_pm1_stage2_vtrace(
+            Options(exponent=p, mode="pm1", b1=100, b2=3000, save_dir=d),
+            x1, log=lambda *a, **k: None, device="cuda")
+        e = ecm_edwards.run_ecm_edwards(
+            Options(exponent=p, mode="ecm", b1=50, b2=500, curves=1,
+                    curve_seed=5, save_dir=d),
+            log=lambda *a, **k: None, device="cuda")
+        regs = [[eng.get_int(i) for i in range(eng.reg_count)]
+                for eng in made]
+        runs.append(((r.factor, r.res64), (e.factor, e.stage), regs))
+        if graphs:
+            assert all(len(eng._graphs) > 5 for eng in made)
+    assert runs[0] == runs[1] == runs[2]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("p", [127, 9941, 216091])
 def test_cuda_anysize_engine_graphs_match_eager(p):
     """On the card: the any-size engine (engine/torch_engine.py) with each
-    squaring a CUDA graph and eager, on the same op sequence (squarings
-    with a = 3 and 1, LL steps, a multiplicand and mul), digit for digit
-    and against big-int; n = 8, 512 and 10240 (radix 5)."""
+    op a CUDA graph and eager, on the same op sequence (squarings with a =
+    3 and 1, LL steps, a multiplicand and mul), digit for digit and
+    against big-int; n = 8, 512 and 10240 (radix 5)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import random
@@ -674,7 +716,7 @@ def test_cuda_anysize_engine_graphs_match_eager(p):
         e.set_multiplicand(2, 1)
         e.mul(0, 2, 3)
         e.square_mul_seq(0, a_vec)
-    assert len(engines[0]._graphs) == 3 and not engines[1]._graphs
+    assert len(engines[0]._graphs) == 5 and not engines[1]._graphs
     for a in a_vec:
         x = x * x * a % mp
     for _ in range(4):
