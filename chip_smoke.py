@@ -4,7 +4,8 @@
 Run from the repository root with no arguments: python3 chip_smoke.py
 (one card; `python3 chip_smoke.py --mesh-only` runs phases 1 and 6 alone,
 at every world size the machine's cards allow; `--tools-only` phases 1
-and 7; `--anysize-only` phases 1 and 8; `--modes-only` phases 1 and 9,
+and 7; `--anysize-only` phases 1 and 8; `--fft3161-only` phases 1 and 10;
+`--modes-only` phases 1 and 9,
 and with `--pm1-full` also M1362763's P-1 over its whole stage-2 range,
 timed; `python3 chip_smoke.py --mm31` runs phase 1 and the engine at
 MM31, p = 2^31 - 1, n = 5 * 2^25: two squarings of a dense value against
@@ -13,7 +14,7 @@ GMP, with the host table build's time and peak memory, then P-1 of MM31
 one gcd of 2^31-bit numbers) through the CLI's entry, which must find
 295257526626031).
 
-It drives seven paths of the port: the n = 2^23 path (K1, K2, K3 with
+It drives eight paths of the port: the n = 2^23 path (K1, K2, K3 with
 whole-row carries), the C = 8192 big-shape path of n = 2^25 and 2^26
 (K1 and K3 with T = 2 carry units per row, K5, K6 "fwd", K6b, K5), the
 chain path of n = 2^15 ... 2^19 (K9, the whole squaring chain in one
@@ -29,9 +30,11 @@ launches of K2 and K5 in the 5 x 2^b split form), and the mesh
 row-carry MeshEngine runs K1, K5, K6, K5, K3 per rank, the block-carry
 ShardedStep K4, K5, K6, K5, K4, K8, with all-to-alls between), the
 tools (prmers_tpu_torch/tools/: the pass profiler's unfolded r passes K4u
-and K5u, the microbenchmarks and the probes), and the any-size engine
+and K5u, the microbenchmarks and the probes), the any-size engine
 (engine/torch_engine.py: ops/ntt.py's transform in torch ops, no kernel of
-its own, for every plan the four-step kernels do not take).
+its own, for every plan the four-step kernels do not take), and the
+second arithmetic (engine/engine3161.py: fft3161 on K10-K12, one launch
+per transform stage).
 Phases; any failure raises and the script exits non-zero with no result:
   1. the card (nvidia-smi name and power limit) and the kernel build
      (one nvcc per prmers_tpu_torch/csrc/*.cu, all at once, timed);
@@ -192,6 +195,40 @@ Phases; any failure raises and the script exits non-zero with no result:
      per word beside its registers (tables, an op's temporaries) against
      engine/paged.OVERHEAD_BYTES, what the paging budget charges.
 
+ 10. the second arithmetic (fft3161, engine/engine3161.py: the paired
+     GF(M31^2) x GF(M61^2) NTT on K10 f3_fwd_stage, K11 f3_inv_stage and
+     K12 f3_pointwise, csrc/f3_ntt.cu): (a) each kernel against its plain
+     version (ops/ntt2.py) on random digits at n = 8, 288 (9 * 2^5), 3072
+     (3 * 2^10), 98304 (3 * 2^15) and 2^22 (p = 127, 11213, 100003,
+     3021377, 136279841), every forward stage from the digits, K12
+     squaring and times a multiplicand, every inverse stage to the CRT's
+     (lo, hi), exact (canonical words; tolerance none), with the host
+     table build's time; at 2^22 each launch timed (CUDA events behind a
+     device sleep, the better of two runs of 5) beside its plain version
+     and its bound (bytes: both
+     planes read and written once, the stage's twiddles, the digits and
+     weights or unweights and (lo, hi) at the ends, over 3.35 TB/s;
+     base-field products priced as the Goldilocks ones, 8 x 8 int8 limb
+     MACs for M61 and 4 x 4 for M31, over 1,979 TOP/s); (b) Engine3161
+     through create_engine(arith="fft3161") against GMP at those five
+     sizes (8 squarings with a = 3 and 1, set_multiplicand + mul x 3,
+     add, sub_reg, sub) and 64 squarings (a = 1, 3 in turn) at
+     136279841, each op a CUDA graph, the wrapper counts reset just
+     before and read just after (a replay counts what its capture
+     recorded; K10-K12 each > 0); (c) PRP iter/s of Engine3161 beside
+     the gl64 engine at p = 100003, 3021377 and 136279841 (n = 3072 vs
+     4096, 98304 vs 163840, 2^22 vs 2^23), in turns; (d), checked before
+     (a) so that no other process shares the card with the timings: the
+     reference goldens under -arith fft3161 through the CLI (started
+     beside phase 8's, or at the phase's start): M127 -ll and M1279 PRP
+     prime, M9941's proof hashes equal to phase 8's and the proof
+     verified, the M11213 res64 stream and final res64, M100003's res64
+     and res2048; (e) -tune capped at 756839 (the
+     ladder 127 ... 756839, both arithmetics, the one-rank mesh where it
+     takes the shape) into its own save dir, and the decide_arith
+     decision those rates give at each ladder p, with its reason; (f)
+     one -profile run (M9941) with its report.
+
 The last lines of standard output are the smoke's total seconds, the
 per-kernel JSON object (k8_local's launches from the s = 1 ranks' drive,
 its time at the s = 1 shape; k4u_pass and k5u_pass the mean of their
@@ -232,7 +269,10 @@ INT8_OPS_PER_S = 1.979e15
 OPS_PER_PRODUCT = 128   # 64 int8 MACs per mod-P product (limb planes)
 
 # (name in the JSON line, wrapper counter, the path whose counts it
-# reports); the main path's kernels are timed at n = 2^23, the big path's
+# reports); K10-K12 (the fft3161 path, phase 10) the mean of their
+# launches in one squaring at n = 2^22 (every forward stage, every
+# inverse stage, the square); the main path's kernels are timed at n =
+# 2^23, the big path's
 # at 2^25, K9 at 2^19 (per squaring), the block path's K4 and K7 at 2^23
 # (the block path's p = 136279841), K2 at L2 = 320 at n = 5 * 2^22, K5
 # at L2 = 320 at 5 * 2^23, and K5 at L2 = 128 at 2^26 (its launches from
@@ -262,6 +302,9 @@ ENTRIES = [
     ("probe_fields", "probe_fields", "tools"),
     ("probe_bitcast", "probe_bitcast", "tools"),
     ("probe_shapes", "probe_shapes", "tools"),
+    ("f3_fwd_stage", "f3_fwd_stage", "fft3161"),
+    ("f3_inv_stage", "f3_inv_stage", "fft3161"),
+    ("f3_pointwise", "f3_pointwise", "fft3161"),
 ]
 MESH_KERNELS = ("k1_p1c", "k3_p7c", "k4_axis0", "k5_axis1", "k6_fused_c",
                 "k8_local")
@@ -270,6 +313,43 @@ MESH_OFF = ("k2_fused_c", "k7_block_carry", "k9_chain")
 
 def log(*args):
     print(*args, flush=True)
+
+
+def timed(fn, reps):
+    """ms per call of fn, CUDA events around reps calls back to back."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def device_timed(fn, reps):
+    """ms per call of fn on the device: CUDA events around each call,
+    each pair queued behind a device sleep (~1 ms) so that the host
+    has enqueued the call before the device reaches the first event;
+    back-to-back calls would time the host's enqueue wherever it is
+    slower than the kernel."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def drive_values(p: int):
@@ -629,6 +709,35 @@ F2699 = ("5399", "307687", "1187561", "7570504839257", "1987104667810711")
 NO_PALLAS_K = 8         # squarings of the p = 136279841 check
 
 
+def expect_goldens(expect, r9941, r11213, r100003) -> None:
+    """The goldens phases 8 and 10 share, each run (rc, output, seconds,
+    result JSON): M9941 prime with the reference's proof hashes
+    (tests/test_proof.py) and the proof verified, M11213's res64 every
+    1000 iterations and final res64 1 (tests/test_prp_ll.py:127-149),
+    M100003's res64 and res2048 (:106-124)."""
+    rc, out, _dt, j = r9941[:4]
+    lines = [ln.strip() for ln in out.splitlines()
+             if ln.strip().startswith("proof [")]
+    expect("M9941 prime", rc == 0 and j["status"] == "P")
+    expect("M9941 proof hashes equal GOLDEN_9941", lines == GOLDEN_9941)
+    expect("M9941 proof verifies", "Verification result: SUCCESS" in out)
+    rc, out, _dt, j = r11213[:4]
+    seen = {}
+    for ln in out.splitlines():
+        if "Res64:" in ln and "Iter:" in ln:
+            it = int(ln.split("Iter:")[1].split("|")[0].strip())
+            seen[it] = ln.split("Res64:")[1].strip()
+    expect("M11213 res64 stream equals the golden's",
+           all(seen.get(k) == v for k, v in GOLDEN_11213.items()))
+    expect("M11213 final res64 0000000000000001",
+           rc == 0 and j["res64"] == "0000000000000001")
+    j = r100003[3]
+    expect("M100003 res64 1CF45E9503C71FD6",
+           j["status"] == "C" and j["res64"] == "1CF45E9503C71FD6")
+    expect("M100003 res2048 equals the golden's",
+           j["res2048"].lower() == RES2048_100003)
+
+
 def cli_run(root: str, tag: str, args, timeout=900, phase=8, env=None,
             fresh=True, result=True):
     """`python -m prmers_tpu_torch <args>` in a subprocess with its own
@@ -804,29 +913,9 @@ def anysize_drive(root: str, dev, card: str, beside=None) -> None:
            rc == 0 and j["status"] == "PRP")
     expect("M2699 cofactor with 4 known factors composite",
            rc2 == 1 and j2["status"] == "C")
-    rc, out, _d, j = short[4]
-    lines = [ln.strip() for ln in out.splitlines()
-             if ln.strip().startswith("proof [")]
-    expect("M9941 prime", rc == 0 and j["status"] == "P")
-    expect("M9941 proof hashes equal GOLDEN_9941", lines == GOLDEN_9941)
-    expect("M9941 proof verifies", "Verification result: SUCCESS" in out)
-    rc, out, _d, j = short[5]
-    seen = {}
-    for ln in out.splitlines():
-        if "Res64:" in ln and "Iter:" in ln:
-            it = int(ln.split("Iter:")[1].split("|")[0].strip())
-            seen[it] = ln.split("Res64:")[1].strip()
-    expect("M11213 res64 stream equals the golden's",
-           all(seen.get(k) == v for k, v in GOLDEN_11213.items()))
-    expect("M11213 final res64 0000000000000001",
-           rc == 0 and j["res64"] == "0000000000000001")
-    rc, _o, dt, j = r100003
-    expect("M100003 res64 1CF45E9503C71FD6",
-           j["status"] == "C" and j["res64"] == "1CF45E9503C71FD6")
-    expect("M100003 res2048 equals the golden's",
-           j["res2048"].lower() == RES2048_100003)
-    log(f"[8] M100003 PRP in {dt:.3f} s through the CLI, beside the other "
-        f"goldens ({card})")
+    expect_goldens(expect, short[4], short[5], r100003)
+    log(f"[8] M100003 PRP in {r100003[2]:.3f} s through the CLI, beside "
+        f"the other goldens ({card})")
 
     # the main exponent through the any-size engine (PRMERS_NO_PALLAS)
     os.environ["PRMERS_NO_PALLAS"] = "1"
@@ -1180,6 +1269,363 @@ def modes_drive(root: str, dev, card: str, chains=None,
     return counts
 
 
+# phase 10: the second arithmetic (fft3161): K10-K12 (csrc/f3_ntt.cu) and
+# Engine3161 (engine/engine3161.py), the reference goldens under -arith
+# fft3161, -tune and -profile
+F3_CHECK = (127, 11213, 100003, 3021377, P_MAIN)  # n = 8, 288, 3072,
+#                                                    98304, 2^22
+F3_A = (3, 1, 1, 3, 1, 3, 1, 1)     # the drive's squarings
+F3_CHAIN = 64                       # the a = 1, 3 chain at p = 136279841
+F3_RATES = ((100003, 512), (3021377, 256), (P_MAIN, 64))
+F3_TUNE_CAP = 756839
+F3_TUNE_LADDER = (127, 9941, 216091, 756839)
+F3_KERNELS = ("f3_fwd_stage", "f3_inv_stage", "f3_pointwise")
+# ops per base-field product in the JAX package's limb-plane pricing: a
+# 61 x 61-bit product 8 x 8 int8 limb MACs (as Goldilocks), 31 x 31 4 x 4
+F3_OPS_31, F3_OPS_61 = 32, 128
+
+
+def f3_widths(p: int):
+    from prmers_tpu_torch.core.plan import digit_widths
+    from prmers_tpu_torch.ops.ntt2 import transform_size_3161
+    return digit_widths(p, transform_size_3161(p))
+
+
+def f3_drive_values(p: int):
+    """GMP's side of phase 10's Engine3161 drive at p: (v, w, the digits
+    of x and y), for x = v after the F3_A chain, x = x w 3 + w, y = w - x,
+    x = x - 5 (square_mul_seq, set_multiplicand + mul, add, sub_reg,
+    sub)."""
+    from prmers_tpu_torch.utils import digits as dg
+    from prmers_tpu_torch.utils import gmp
+    mp = (1 << p) - 1
+    rnd = random.Random(p + 3161)
+    v, w = rnd.getrandbits(p - 1), rnd.getrandbits(p - 1)
+    x = v
+    for a in F3_A:
+        x = gmp.mersenne_mod(gmp.mul(x, x) * a, p)
+    x = (gmp.mersenne_mod(gmp.mul(x, w) * 3, p) + w) % mp
+    y = (w - x) % mp
+    x = (x - 5) % mp
+    widths = f3_widths(p)
+    return v, w, (dg.int_to_digits(x, widths), dg.int_to_digits(y, widths))
+
+
+def f3_chain_values():
+    """GMP's side of the F3_CHAIN squarings (a = 1, 3 in turn) at
+    p = 136279841: (v, the digits of the result)."""
+    from prmers_tpu_torch.utils import digits as dg
+    from prmers_tpu_torch.utils import gmp
+    p = P_MAIN
+    v = random.Random(p + 64).getrandbits(p - 1)
+    x = v
+    for a in (1, 3) * (F3_CHAIN // 2):
+        x = gmp.mersenne_mod(gmp.mul(x, x) * a, p)
+    return v, dg.int_to_digits(x, f3_widths(p))
+
+
+def f3_gmp_jobs():
+    """Phase 10's GMP work on two threads from the smoke's start (the
+    chain at 2^22 words takes ~1.5 s a squaring)."""
+    pool = ThreadPoolExecutor(max_workers=2)
+    jobs = {"chain": pool.submit(f3_chain_values)}
+    for p in F3_CHECK:
+        jobs[p] = pool.submit(f3_drive_values, p)
+    pool.shutdown(wait=False)
+    return jobs
+
+
+def fft3161_chains(root: str):
+    """Phase 10's goldens through the CLI under -arith fft3161, in two
+    chains of subprocesses: M100003 in one, the rest in the other."""
+    fft = ["-arith", "fft3161"]
+    pool = ThreadPoolExecutor(max_workers=2)
+    long_chain = pool.submit(lambda: [cli_run(
+        root, "f3-100003", ["100003", "-noproof", *fft], phase=10)])
+    short_chain = pool.submit(lambda: [
+        cli_run(root, "f3-127-ll", ["127", "-ll", *fft], phase=10),
+        cli_run(root, "f3-1279", ["1279", "-noproof", *fft], phase=10),
+        cli_run(root, "f3-9941", ["9941", "-proofverify", *fft], phase=10),
+        cli_run(root, "f3-11213", ["11213", "-noproof", *fft,
+                                   "-res64_display_interval", "1000"],
+                phase=10)])
+    pool.shutdown(wait=False)
+    return long_chain, short_chain
+
+
+def check_fft3161_chains(chains) -> None:
+    """Wait for fft3161_chains and hold them to the goldens (the same as
+    phase 8's on gl64); any mismatch raises."""
+    def expect(what, cond):
+        log(f"[10]   {what}: {cond}")
+        if not cond:
+            raise AssertionError(f"fft3161 golden failed: {what}")
+
+    t1 = time.perf_counter()
+    (r100003,), short = chains[0].result(), chains[1].result()
+    log(f"[10] waited {time.perf_counter() - t1:.3f} s for the CLI goldens")
+    for _rc, out, _dt, _j, _d in [r100003] + short:
+        expect("the run took Engine3161",
+               "using Engine3161" in out and
+               "Arithmetic path: fft3161 (forced by -arith)" in out)
+    rc, _o, _dt, j, _d = short[0]
+    expect("M127 -ll prime on fft3161", rc == 0 and j["status"] == "P")
+    rc, _o, _dt, j, _d = short[1]
+    expect("M1279 PRP prime on fft3161", rc == 0 and j["status"] == "P")
+    expect_goldens(expect, short[2], short[3], r100003)
+    log(f"[10] M100003 PRP on fft3161 in {r100003[2]:.3f} s through the "
+        f"CLI")
+
+
+def f3_bound(t, i: int, which: str) -> tuple:
+    """The least time for stage i of K10 ("fwd") or K11 ("inv"), or K12
+    ("sqr"): bytes (each plane (2, n) u32 + u64 read and written once,
+    the stage's twiddle rows 1..r-1, the digits and weights in the first
+    forward stage, the unweights and (lo, hi) in the last inverse one)
+    against the base-field products per word (F3_OPS_31/61 each)."""
+    n = t.n
+    plane = 24 * n                      # (2, n) u32 and (2, n) u64
+    if which == "sqr":
+        moved, prods = 2 * plane, 3
+    else:
+        st = t.stages[i]
+        moved = 2 * plane + 24 * (st.r - 1) * st.m
+        # the twiddle products (4 per complex product), radix 3's w3 one
+        prods = 4 * (st.r - 1) / st.r + (4 / 3 if st.r == 3 else 0)
+        if i == 0 and which == "fwd":
+            moved += 8 * n              # digits, and the weights (a plane)
+            prods += 2
+        if i == 0 and which == "inv":
+            moved += plane - 8 * n      # unweights in, (lo, hi) out
+            prods += 2.5                # the real part, the CRT's product
+    ops = n * prods * (F3_OPS_31 + F3_OPS_61)
+    ops_ms = ops / INT8_OPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def fft3161_drive(root: str, dev, card: str, chains=None, jobs=None):
+    """Phase 10 on the card; returns ({entry: max_abs_err}, {entry: (ms,
+    plain ms)}, {entry: (bound ms, by)}, the wrapper counts of the
+    Engine3161 drive). chains: the CLI goldens (fft3161_chains) if the
+    caller started them; jobs: the GMP work (f3_gmp_jobs)."""
+    import numpy as np
+    import torch
+
+    from prmers_tpu_torch.core import tune
+    from prmers_tpu_torch.engine import engine3161 as e3
+    from prmers_tpu_torch.engine.factory import create_engine
+    from prmers_tpu_torch.engine.policy import decide_arith
+    from prmers_tpu_torch.ops import kernels as tk
+    from prmers_tpu_torch.ops import ntt2
+
+    t0 = time.perf_counter()
+    if chains is None:
+        chains = fft3161_chains(root)
+    if jobs is None:
+        jobs = f3_gmp_jobs()
+    errs = {k: 0.0 for k in F3_KERNELS}
+    rows = {k: [] for k in F3_KERNELS}  # (ms, plain ms, bound ms, by)
+
+    def err(a, b) -> float:
+        if torch.equal(a, b):
+            return 0.0
+        a = a.long().cpu().numpy().view(np.uint64).reshape(-1)
+        b = b.long().cpu().numpy().view(np.uint64).reshape(-1)
+        bad = np.nonzero(a != b)[0][:4096]
+        return float(max(abs(int(a[i]) - int(b[i])) for i in bad))
+
+    def record(name, what, got, want):
+        torch.cuda.synchronize()
+        e = max(err(g, w) for g, w in zip(got, want))
+        errs[name] = max(errs[name], e)
+        if e != 0.0:
+            raise AssertionError(f"{name} {what} disagrees with its plain "
+                                 f"version (max_abs_err {e})")
+
+    def timing(name, i, which, kern, plain, reps):
+        # the better of two runs: one host stall past the device sleep
+        # (PR 15's first call read one launch at 3.3 ms, the rest < 0.13)
+        # would otherwise dominate the mean
+        k = min(device_timed(kern, reps), device_timed(kern, reps))
+        pl = timed(plain, 2)
+        rows[name].append((k, pl) + f3_bound(t, i, which))
+
+    # (d) first: the goldens run on this card in other processes, and the
+    # times below must not share it with them
+    check_fft3161_chains(chains)
+
+    # (a) K10-K12 against their plain versions, exact (canonical words and
+    # the CRT's (lo, hi)); timed at 2^22 words
+    for p in F3_CHECK:
+        t1 = time.perf_counter()
+        t = e3.get_tables(p, None, dev)
+        torch.cuda.synchronize()
+        n, radices = t.n, [s.r for s in t.stages]
+        log(f"[10] p={p} n={n} radices {radices}: tables (numpy host "
+            f"build, to the card) in {time.perf_counter() - t1:.3f} s")
+        rng = np.random.default_rng(p)
+        d = torch.from_numpy(rng.integers(0, 1 << 62, n, dtype=np.int64))
+        d = d.to(dev) & t.masks
+        x31 = torch.zeros((2, n), dtype=torch.int32, device=dev)
+        x61 = torch.zeros((2, n), dtype=torch.int64, device=dev)
+        timed_here = p == P_MAIN
+        for i in range(len(t.stages)):
+            di = d if i == 0 else None
+            want = ntt2.fwd_stage_plain(t, i, x31, x61, di)
+            if timed_here:
+                s31, s61 = x31.clone(), x61.clone()
+                timing("f3_fwd_stage", i, "fwd",
+                       lambda: tk.f3_fwd_stage(t, i, s31, s61, di),
+                       lambda: ntt2.fwd_stage_plain(t, i, x31, x61, di), 5)
+            tk.f3_fwd_stage(t, i, x31, x61, di)
+            record("f3_fwd_stage", f"n={n} stage {i}", (x31, x61), want)
+        m31, m61 = x31.clone(), x61.clone()
+        for m in ((m31, m61), (None, None)):
+            want = ntt2.pointwise_plain(x31, x61, *m)
+            if timed_here and m[0] is None:
+                s31, s61 = x31.clone(), x61.clone()
+                timing("f3_pointwise", 0, "sqr",
+                       lambda: tk.f3_pointwise(t, s31, s61),
+                       lambda: ntt2.pointwise_plain(x31, x61), 5)
+            tk.f3_pointwise(t, x31, x61, *m)
+            record("f3_pointwise", f"n={n}", (x31, x61), want)
+        lo = torch.empty(n, dtype=torch.int64, device=dev)
+        hi = torch.empty_like(lo)
+        for i in range(len(t.stages) - 1, -1, -1):
+            out = (lo, hi) if i == 0 else ()
+            want = ntt2.inv_stage_plain(t, i, x31, x61)
+            if timed_here:
+                s31, s61 = x31.clone(), x61.clone()
+                so = tuple(torch.empty_like(lo) for _ in out)
+                timing("f3_inv_stage", i, "inv",
+                       lambda: tk.f3_inv_stage(t, i, s31, s61, *so),
+                       lambda: ntt2.inv_stage_plain(t, i, x31, x61), 5)
+            tk.f3_inv_stage(t, i, x31, x61, *out)
+            record("f3_inv_stage", f"n={n} stage {i}",
+                   out if i == 0 else (x31, x61), want)
+        log(f"[10]   n={n}: K10 x {len(radices)}, K12 sqr and mul, K11 x "
+            f"{len(radices)} to (lo, hi) equal their plain versions")
+    ms, bounds = {}, {}
+    for name in F3_KERNELS:
+        r = rows[name]
+        for i, (k, pl, b, by) in enumerate(r):
+            log(f"[10] {name} n=2^22 launch {i}: kernel {k:.6f} ms, plain "
+                f"{pl:.6f} ms, bound {b:.6f} ms ({by}) ({card})")
+        ms[name] = (sum(x[0] for x in r) / len(r),
+                    sum(x[1] for x in r) / len(r))
+        bounds[name] = (sum(x[2] for x in r) / len(r),
+                        max(r, key=lambda x: x[2])[3])
+        log(f"[10] {name} n=2^22 mean of {len(r)} launches: kernel "
+            f"{ms[name][0]:.6f} ms, plain {ms[name][1]:.6f} ms, bound "
+            f"{bounds[name][0]:.6f} ms ({card})")
+    torch.cuda.empty_cache()
+
+    # (b) Engine3161 through create_engine against GMP at each size, then
+    # the F3_CHAIN squarings at 2^22; wrapper counts reset just before and
+    # read just after (a graph's replays count what its capture recorded)
+    tk.reset_calls()
+    for p in F3_CHECK:
+        eng = create_engine(p, 6, device=dev, arith="fft3161")
+        if type(eng) is not e3.Engine3161:
+            raise AssertionError(f"arith fft3161 gave {type(eng).__name__}")
+        t1 = time.perf_counter()
+        v, w, want = jobs[p].result()
+        wait = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        eng.set(0, v)
+        eng.set(1, w)
+        eng.square_mul_seq(0, F3_A)
+        eng.set_multiplicand(2, 1)
+        eng.mul(0, 2, 3)
+        eng.add(0, 1)
+        eng.sub_reg(1, 0)
+        eng.sub(0, 5)
+        eng.sync()
+        dt = time.perf_counter() - t1
+        ok = (np.array_equal(eng.get_digits(0), want[0]),
+              np.array_equal(eng.get_digits(1), want[1]))
+        log(f"[10] Engine3161 p={p} (n={eng.get_size()}): {len(F3_A)} "
+            f"squarings with a = 3, 1, mul x 3, add, sub_reg, sub in "
+            f"{dt:.3f} s (GMP waited {wait:.3f} s): equal to GMP {ok}")
+        if not all(ok):
+            raise AssertionError(f"Engine3161 disagrees with GMP at p={p}")
+        del eng
+    eng = create_engine(P_MAIN, 2, device=dev, arith="fft3161")
+    v, want = jobs["chain"].result()
+    eng.set(0, v)
+    t1 = time.perf_counter()
+    eng.square_mul_seq(0, (1, 3) * (F3_CHAIN // 2))
+    eng.sync()
+    dt = time.perf_counter() - t1
+    ok = np.array_equal(eng.get_digits(0), want)
+    log(f"[10] Engine3161 p={P_MAIN} (n=2^22): {F3_CHAIN} squarings, a = "
+        f"1, 3 in turn, in {dt:.3f} s (graphs captured on the way): equal "
+        f"to GMP {ok}")
+    if not ok:
+        raise AssertionError("Engine3161 disagrees with GMP at 2^22")
+    del eng
+    counts = dict(tk.calls)
+    log(f"[10] Engine3161 drive wrapper calls {counts}")
+    for name in F3_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the fft3161 "
+                                 "path")
+    torch.cuda.empty_cache()
+
+    # (c) iter/s against gl64 at the same p, in turns
+    for p, iters in F3_RATES:
+        got = {"fft3161": [], "gl64": []}
+        names = {}
+        for arith in ("fft3161", "gl64", "gl64", "fft3161"):
+            eng = create_engine(p, 2, device=dev, arith=arith)
+            names[arith] = f"{type(eng).__name__} n={eng.get_size()}"
+            got[arith].append(tune.measure_ips(eng, iters=iters))
+            del eng
+            torch.cuda.empty_cache()
+        log(f"[10] PRP @ p={p}: fft3161 ({names['fft3161']}) "
+            f"{sum(got['fft3161']) / 2:.6f} iter/s (runs "
+            f"{got['fft3161'][0]:.6f}, {got['fft3161'][1]:.6f}), gl64 "
+            f"({names['gl64']}) {sum(got['gl64']) / 2:.6f} iter/s (runs "
+            f"{got['gl64'][0]:.6f}, {got['gl64'][1]:.6f}); {iters} "
+            f"squarings a run ({card})")
+
+    # (e) -tune capped at F3_TUNE_CAP in its own save dir and the
+    # decisions it then gives, (f) one -profile run
+    rc, out, dt, _j, d = cli_run(root, "f3-tune", [str(F3_TUNE_CAP),
+                                                   "-tune"],
+                                 phase=10, result=False)
+    for ln in out.splitlines():
+        if ln.startswith("tune:"):
+            log(f"[10]   {ln}")
+    data = tune.load(d)
+    log(f"[10] -tune (rc={rc}, {dt:.3f} s) wrote {tune.tune_path(d)}: "
+        f"{json.dumps(data, sort_keys=True)} ({card})")
+    measured = {(p, a) for ln in out.splitlines() if ln.startswith("tune:")
+                for p, a in [(int(ln.split("p=")[1].split()[0]),
+                              ln.split()[2])]}
+    want = {(p, a) for p in F3_TUNE_LADDER for a in ("gl64", "fft3161")}
+    if rc != 0 or not want <= measured:
+        raise AssertionError(f"-tune measured {sorted(measured)}")
+    for p in F3_TUNE_LADDER:
+        dec = decide_arith(p, "prp", d)
+        log(f"[10] decide_arith({p}, prp) on these rates: {dec.arith} "
+            f"({dec.reason}; n_gl64={dec.n_gl64} {dec.ips_gl64:.3f} "
+            f"iter/s, n_3161={dec.n_3161} {dec.ips_3161:.3f} iter/s)")
+    rc, out, dt, j, _d = cli_run(root, "f3-profile", ["9941", "-profile",
+                                                      "-noproof"], phase=10)
+    report = [ln for ln in out.splitlines() if ln.startswith("[profile]")]
+    for ln in report:
+        log(f"[10]   {ln}")
+    if rc != 0 or j["status"] != "P" or \
+            not any(ln.startswith("[profile] engine p=9941") for ln in
+                    report):
+        raise AssertionError("-profile printed no report")
+    log(f"[10] phase 10 in {time.perf_counter() - t0:.3f} s")
+    return errs, ms, bounds, counts
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1247,6 +1693,10 @@ def main(argv) -> int:
         anysize_drive(root, dev, card)
         print(card)
         return 0
+    if "--fft3161-only" in argv:
+        fft3161_drive(root, dev, card)
+        print(card)
+        return 0
     if "--modes-only" in argv:
         modes_drive(root, dev, card, full="--pm1-full" in argv)
         print(card)
@@ -1265,6 +1715,7 @@ def main(argv) -> int:
     log(f"[1] HAVE_GMP {gmp.HAVE_GMP}")
     if not gmp.HAVE_GMP:
         raise RuntimeError("libgmp is needed for the big-int checks")
+    f3_jobs = f3_gmp_jobs()
     pool = ThreadPoolExecutor(max_workers=4)
     expected = {p: pool.submit(drive_values, p) for p in (
         P_R5_BIG, P_BIG, P_R5, P_MAIN, P_CHAIN, P_R5_SMALL, P_GOLDEN)}
@@ -1582,39 +2033,7 @@ def main(argv) -> int:
             log(f"[4] PRP {sum(v) / 2:.6f} iter/s @ p={p} through {label} "
                 f"(runs {v[0]:.6f}, {v[1]:.6f}; {card})")
 
-    def timed(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
-
     ms = {}
-
-    def device_timed(fn, reps):
-        """ms per call of fn on the device: CUDA events around each call,
-        each pair queued behind a device sleep (~1 ms) so that the host
-        has enqueued the call before the device reaches the first event;
-        back-to-back calls would time the host's enqueue wherever it is
-        slower than the kernel."""
-        fn()
-        torch.cuda.synchronize()
-        pairs = []
-        for _ in range(reps):
-            torch.cuda._sleep(2_000_000)
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            pairs.append((e0, e1))
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
     def compare(entry, at, what, kern, plain, reps, phase=4):
         p0 = timed(plain, 3)
@@ -2062,14 +2481,25 @@ def main(argv) -> int:
 
     mark(8)
     # ---- 8: the any-size engine and the reference goldens ------------------
-    chains9 = []
-    anysize_drive(root, dev, card,
-                  beside=lambda: chains9.append(modes_chains(root)))
+    chains9, chains10 = [], []
+
+    def beside():
+        chains9.append(modes_chains(root))
+        chains10.append(fft3161_chains(root))
+    anysize_drive(root, dev, card, beside=beside)
     cli_finish(5, "K9 with its proof (-proofverify)", proof_job)
 
     # ---- 9: the modes ------------------------------------------------------
     mark(9)
     counts["modes"] = modes_drive(root, dev, card, chains=chains9[0])
+
+    # ---- 10: the second arithmetic (fft3161) --------------------------------
+    mark(10)
+    errs10, ms10, bounds10, counts["fft3161"] = fft3161_drive(
+        root, dev, card, chains=chains10[0], jobs=f3_jobs)
+    errs.update(errs10)
+    ms.update(ms10)
+    bounds.update(bounds10)
 
     sources = {**tk.SOURCES, **pr.SOURCES}
     replaces = {**tk.REPLACES, **pr.REPLACES}
@@ -2081,7 +2511,7 @@ def main(argv) -> int:
                 "bound_ms": bounds[entry][0], "bound_by": bounds[entry][1],
                 # torch._int_mm on the int8 dot cases b and e, the only
                 # ones a library call computes; no PyTorch call computes
-                # a Goldilocks product or this carry
+                # a Goldilocks product, this carry or a GF(q^2) stage
                 "library_ms": (sum(int_mm.values())
                                if entry == "probe_shapes" else None)}
                for entry, name, path in ENTRIES]

@@ -24,13 +24,18 @@ memtest, 1 otherwise, 2 with nothing to do, 0 after a worktodo loop. Rank
 results.txt), writes it to `<save_dir>/<p>_<mode>_result.json` and tees
 its log to `<save_dir>/prmers.log` (LogTee).
 
-Not ported yet, and stopped with a message saying so before any engine is
-made, rather than run under a flag that asked otherwise: -tune and
--profile (ROADMAP queue 1 item 4; python -m prmers_tpu_torch.profile
-profiles the kernels), the second arithmetic (-arith fft3161, its -pfa*
-aliases, PRMERS_ARITH=fft3161; item 7) and -gui (the web GUI; item 9).
-The "Arithmetic path" line of _log_arith_decision waits for
-engine/policy.py (item 4).
+-tune measures both arithmetics over the reference's exponent ladder (up
+to the exponent given, if any) and records the rates in the port's tune
+file (core/tune.run_tune, -save-dir), which engine/policy.decide_arith
+then reads; -arith fft3161 (the -pfa* aliases, PRMERS_ARITH=fft3161)
+runs the second arithmetic, engine/engine3161.Engine3161, which may take
+an exponent past MAX_EXPONENT (:73-78); every run with an exponent logs
+its "Arithmetic path" line (_log_arith_decision, :38-57); -profile wraps
+each engine create_engine makes (core/profile) and logs their op counts
+and calibrated ms/op when the run ends (:81-89). Not ported yet, and
+stopped with a message saying so before any engine is made, rather than
+run under a flag that asked otherwise: -gui (the web GUI; ROADMAP queue
+1 item 9).
 
 Under torchrun (or the JAX package's PRMERS_COORDINATOR variables) each
 process joins the group first (parallel/dist.init_from_env, as :291
@@ -48,8 +53,11 @@ import hashlib
 import os
 import time
 
+from .core.profile import report_all, set_profiling
 from .core.proof import ProofSet, best_power
+from .core.tune import run_tune
 from .engine.factory import create_engine
+from .engine.policy import decide_arith
 from .io import interop, json_out
 from .io.cli import parse_args
 from .io.options import Options
@@ -119,28 +127,54 @@ def _refuse_unported(opts) -> None:
     """Stop, before any engine, a run that asks for what is not ported."""
     if opts.gui:
         raise SystemExit("-gui is not yet ported to prmers_tpu_torch")
-    if opts.mode == "tune":
-        raise SystemExit("-tune is not yet ported to prmers_tpu_torch")
-    if "fft3161" in (opts.arith, os.environ.get("PRMERS_ARITH")):
-        raise SystemExit("the fft3161 arithmetic (-arith fft3161, -pfa*, "
-                         "PRMERS_ARITH) is not yet ported to "
-                         "prmers_tpu_torch (Goldilocks only)")
-    if opts.profile:
-        raise SystemExit("-profile is not yet ported to prmers_tpu_torch; "
-                         "python -m prmers_tpu_torch.profile <p> profiles "
-                         "the kernels")
+
+
+def _log_arith_decision(opts, log) -> None:
+    """The "Arithmetic path" line (prmers_tpu/core/app.py:38-57, without
+    the GUI card): the forced arithmetic, or decide_arith's choice and
+    reason from the tune records in -save-dir."""
+    if opts.exponent <= 0 or opts.mode in ("bench", "tune", "memtest"):
+        return
+    try:
+        wl = {"prp": "prp", "ll": "ll", "llsafe": "ll", "llsafe2": "ll",
+              "pm1": "pm1_s1", "ecm": "ecm"}.get(opts.mode, "generic")
+        d = decide_arith(opts.exponent, wl, opts.save_dir) \
+            if opts.arith == "auto" else None
+        arith = opts.arith if opts.arith != "auto" else d.arith
+        reason = "forced by -arith" if opts.arith != "auto" else d.reason
+        log(f"Arithmetic path: {arith} ({reason})" +
+            (f" | n_gl64={d.n_gl64} n_3161={d.n_3161} "
+             f"ratio={d.ratio:.2f}" if d else ""))
+    except Exception:   # telemetry must never block a run
+        pass
 
 
 def run(opts, device=None, log=print):
     """One workload (prmers_tpu/core/app.py:run_once); returns (result,
-    json_line), the line empty for -bench and -memtest."""
+    json_line), the line empty for -bench, -memtest and -tune."""
     _refuse_unported(opts)
     if opts.save_dir:
         os.makedirs(opts.save_dir, exist_ok=True)
-    if opts.exponent > MAX_EXPONENT:
+    if opts.exponent > MAX_EXPONENT and opts.arith != "fft3161":
+        # forced fft3161 may exceed this (its 3-smooth capacity table
+        # extends further); the default gl64 families cannot
         raise SystemExit(
             f"Exponent {opts.exponent} out of range: the largest "
             f"supported transform (5*2^26) caps at {MAX_EXPONENT}")
+    set_profiling(bool(opts.profile))
+    _log_arith_decision(opts, log)
+    try:
+        return _run(opts, device, log)
+    finally:
+        if opts.profile:
+            report_all(log)
+            set_profiling(False)
+
+
+def _run(opts, device, log):
+    """run's dispatch by mode (prmers_tpu/core/app.py:_run_once_inner)."""
+    if opts.mode == "tune":
+        return run_tune(opts, log=log, device=device), ""
     if opts.mode == "pm1":
         r = run_pm1(opts, log=log, device=device)
         factors = (str(r.factor),) if r.factor else ()

@@ -32,13 +32,20 @@ PRMERS_NO_PALLAS sends every p to the any-size engine (:40, :73), on any
 number of ranks. PRMERS_SHARDED_IMPL=xla, the reference's XLA mesh engine
 (:74, :180), is not ported and raises NotImplementedError.
 
-The arithmetic (`arith=`, or PRMERS_ARITH, as factory.py:135 reads them)
-is Goldilocks: "auto" and "gl64" give the engines above, and "fft3161",
-the paired GF(M31^2) x GF(M61^2) NTT of the JAX package's Engine3161, is
-not ported and raises NotImplementedError. "auto" needs no tune record to
-decide, since without one the JAX's policy picks gl64 too
-(policy.py:170-186), so `workload=` (what the JAX's policy weighs) is
-taken for the callers' sake and changes nothing.
+The arithmetic (`arith=`, or PRMERS_ARITH, as factory.py:131-150 read
+them): "gl64" gives the Goldilocks engines above; "fft3161" the paired
+GF(M31^2) x GF(M61^2) NTT, engine/engine3161.Engine3161 (its numpy oracle
+for "numpy", else on the device, on any backend, and never paged, as
+factory.py:143-150); "auto" asks engine/policy.decide_arith(p, workload),
+unless the backend is "numpy" or "sharded" (gl64-only surfaces). The
+policy decides from the port's tune records (core/tune.py,
+prmers_torch_tune.json in the working directory); with none it answers
+gl64, so every route is then what it was before the policy. The same
+records route one card to MeshEngine on a group of one rank where -tune
+measured it more than 2% faster than FourStepEngine at the size and its
+registers fit the card (_mesh_beats_fourstep, the reference's
+_mesh_beats_pallas at :87-115). create_engine ends in
+core/profile.maybe_wrap (:118-128), a ProfiledEngine under -profile.
 
 The four-step engine's pipeline is the JAX package's default unless the
 caller passes one, or the environment names one with the JAX package's
@@ -67,15 +74,20 @@ from __future__ import annotations
 import os
 import sys
 
+import numpy as np
+
 from .. import torchconf
 from ..core.plan import cached_plan
+from ..core.profile import maybe_wrap
 from ..ops.fourstep import Pipeline
 from ..parallel import dist
-from ..parallel.mesh_engine import MeshEngine
+from ..parallel.mesh_engine import MeshEngine, mesh_eligible
 from .api import Engine
+from .engine3161 import Engine3161
 from .fourstep_engine import FourStepEngine, covers
 from .np_engine import NumpyEngine
 from .paged import PagedEngine, device_reg_budget
+from .policy import decide_arith
 from .torch_engine import ROW_MODE_MIN_N, TorchEngine, TorchRowEngine
 
 BACKENDS = ("auto", "pallas", "sharded", "jax", "numpy")
@@ -92,19 +104,50 @@ def pipeline_from_env() -> Pipeline:
                     chain=not env.get("PRMERS_NO_CHAIN"))
 
 
+def _mesh_beats_fourstep(p: int, n: int, reg_count: int, device) -> bool:
+    """Record-driven one-card routing (factory.py:87-115): MeshEngine on a
+    group of one rank in place of FourStepEngine where the tune records
+    measured it more than 2% faster at n, its registers fit the card (it
+    has no paging) and it takes the shape. No record, no switch."""
+    if os.environ.get("PRMERS_NO_MESH_SINGLE") or \
+            os.environ.get("PRMERS_NO_ROWCARRY"):
+        return False
+    from ..core import tune
+    mesh_rate = tune.lookup(n, "MeshEngine")
+    if not mesh_rate or mesh_rate <= tune.lookup(n, "FourStepEngine") * 1.02:
+        return False
+    if reg_count > device_reg_budget(n, device=torchconf.device(device),
+                                     backend="pallas"):
+        return False
+    return mesh_eligible(p, 1)
+
+
 def create_engine(p: int, reg_count: int, device=None,
                   pipe: Pipeline | None = None,
                   backend: str | None = None, arith: str | None = None,
                   workload: str = "generic") -> Engine:
+    return maybe_wrap(_create_engine(p, reg_count, device=device, pipe=pipe,
+                                     backend=backend, arith=arith,
+                                     workload=workload))
+
+
+def _create_engine(p: int, reg_count: int, device=None,
+                   pipe: Pipeline | None = None,
+                   backend: str | None = None, arith: str | None = None,
+                   workload: str = "generic") -> Engine:
     b = backend or os.environ.get("PRMERS_BACKEND") or "auto"
     if b not in BACKENDS:
         raise ValueError(f"unknown backend {b!r}")
     a = arith or os.environ.get("PRMERS_ARITH") or "auto"
     if a not in ARITHS:
         raise ValueError(f"unknown arithmetic {a!r}")
+    if a == "auto":
+        a = "gl64" if b in ("numpy", "sharded") else \
+            decide_arith(p, workload).arith
     if a == "fft3161":
-        raise NotImplementedError("the 'fft3161' engine is not ported to "
-                                  "prmers_tpu_torch")
+        if b == "numpy":
+            return Engine3161(p, reg_count, xp=np)
+        return Engine3161(p, reg_count, device=device)
     for name in UNPORTED_SWITCHES:
         if os.environ.get(name):
             raise NotImplementedError(
@@ -128,6 +171,9 @@ def create_engine(p: int, reg_count: int, device=None,
         else:
             pipe = pipeline_from_env() if pipe is None else pipe
             b = "pallas" if covers(plan, pipe) else "jax"
+            if b == "pallas" and _mesh_beats_fourstep(p, plan.n, reg_count,
+                                                      device):
+                b = "sharded"
     if b in ("pallas", "jax"):
         # more registers than the card holds spill to the host through the
         # LRU paging wrapper (factory.py:158-176)
@@ -140,8 +186,8 @@ def create_engine(p: int, reg_count: int, device=None,
                   f"{' -> host-paged LRU' if reg_count > budget else ''}",
                   file=sys.stderr)
         if reg_count > budget:
-            inner = create_engine(p, budget, device=device, pipe=pipe,
-                                  backend=b, arith="gl64")
+            inner = _create_engine(p, budget, device=device, pipe=pipe,
+                                   backend=b, arith="gl64")
             return PagedEngine(inner, reg_count)
     if b == "jax":
         cls = TorchRowEngine if plan.n >= ROW_MODE_MIN_N else TorchEngine

@@ -24,7 +24,8 @@ set_multiplicand, mul, add, sub_reg, addsub, sub, add_small) in a CUDA
 graph at its first call, keyed by (op, registers, multiplier), and
 replays it after (a squaring is hundreds of small launches, an add tens);
 an engine's graphs share one memory pool (its first graph's), so each
-pins no temporaries of its own. graphs=False keeps every op eager.
+pins no temporaries of its own (CudaGraphs, which engine/engine3161.py
+shares). graphs=False keeps every op eager.
 get_raw gives canonical values, so checkpoints cross with JaxEngine in
 both directions; like JaxEngine it flags no register spectral in them
 (its spectral layout is the register layout) and refuses one flagged so
@@ -44,6 +45,7 @@ from .. import torchconf
 from ..core.plan import Plan, cached_plan
 from ..ops import carry as carry_ops
 from ..ops import gl64 as gl
+from ..ops import kernels as tk
 from ..ops import ntt
 from ..utils import digits as dg
 from .api import Engine, Reg
@@ -115,7 +117,47 @@ def _mul(F, t, x, m, a, rounds):
     return _carry(t, y, a, rounds)
 
 
-class TorchEngine(Engine):
+class CudaGraphs:
+    """An engine's ops through CUDA graphs: the engine sets `graphs` (take
+    them at all), `_graphs` (key -> (graph, the kernel launches it
+    replays)) and `_pool` (None)."""
+
+    def _run(self, key, fn) -> None:
+        """fn(), through a CUDA graph where this engine takes them: the
+        first call runs fn eagerly (the warm-up, and this call's result),
+        then captures it; later calls replay the capture. Every capture
+        after the first goes into the first one's memory pool: each
+        graph's result lands in a register allocated outside the pool and
+        the graphs replay one after another on one stream, so a capture
+        may reuse the temporaries of those before it. The pool lives as
+        long as the engine's graphs do. The kernel wrappers count their
+        launches (ops/kernels.calls): a capture launches nothing and each
+        replay launches what it recorded, so the capture's counts move to
+        the replays."""
+        if not self.graphs:
+            fn()
+            return
+        hit = self._graphs.get(key)
+        if hit is not None:
+            hit[0].replay()
+            for name, k in hit[1]:
+                tk.calls[name] += k
+            return
+        fn()
+        before = dict(tk.calls)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=self._pool):
+            fn()
+        launched = [(name, k - before[name]) for name, k in tk.calls.items()
+                    if k != before[name]]
+        for name, k in launched:
+            tk.calls[name] -= k
+        if self._pool is None:
+            self._pool = g.pool()
+        self._graphs[key] = (g, launched)
+
+
+class TorchEngine(CudaGraphs, Engine):
     def __init__(self, p: int, reg_count: int, plan: Plan | None = None,
                  device=None, graphs: bool | None = None):
         super().__init__(p, reg_count)
@@ -152,30 +194,6 @@ class TorchEngine(Engine):
         ntt.py:197-203, max_word * 9, for a <= 9)."""
         return carry_ops.absorb_rounds(self.plan.max_word * max(int(a), 9),
                                        self._wmin)
-
-    def _run(self, key, fn) -> None:
-        """fn(), through a CUDA graph where this engine takes them: the
-        first call runs fn eagerly (the warm-up, and this call's result),
-        then captures it; later calls replay the capture. Every capture
-        after the first goes into the first one's memory pool: each
-        graph's result lands in a register allocated outside the pool and
-        the graphs replay one after another on one stream, so a capture
-        may reuse the temporaries of those before it. The pool lives as
-        long as the engine's graphs do."""
-        if not self.graphs:
-            fn()
-            return
-        g = self._graphs.get(key)
-        if g is not None:
-            g.replay()
-            return
-        fn()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, pool=self._pool):
-            fn()
-        if self._pool is None:
-            self._pool = g.pool()
-        self._graphs[key] = g
 
     def get_size(self) -> int:
         return self.plan.n

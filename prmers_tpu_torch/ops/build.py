@@ -58,6 +58,12 @@ SIGNATURES = {
     "prmers_k7_block_carry": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "prmers_k4u_pass": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _U64, _P,
                         _I, _P, _P, _U32, _I, _I, _I, _I, _I, _P],
+    # the fft3161 transform (ops/kernels.py: K10-K12)
+    "prmers_f3_fwd_stage": [_P] * 6 + [_I] * 4 + [_P, _U32, _U32, _U64,
+                                                   _U64, _I, _I, _P],
+    "prmers_f3_inv_stage": [_P] * 6 + [_I] * 4 + [_P, _P, _U64, _U32, _U32,
+                                                   _U64, _U64, _I, _I, _P],
+    "prmers_f3_pointwise": [_P] * 4 + [_I, _P],
     # the probes (ops/probes.py)
     "prmers_probe_reps": [_I, _P, _P, _I, _I, _LL, _P],
     "prmers_probe_bitcast": [_P, _P, _I, _I, _P],

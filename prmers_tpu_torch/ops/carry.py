@@ -126,7 +126,16 @@ def carry_full(y: torch.Tensor, widths: torch.Tensor,
     lo = d + torch.roll(cl, 1)
     d = lo & masks
     c = (lo >> widths) + (torch.roll(ch, 1) << (32 - widths))
+    return settle(c, d, widths, masks,
+                  None if rounds is None else rounds - 1)
 
+
+def settle(c: torch.Tensor, d: torch.Tensor, widths: torch.Tensor,
+           masks: torch.Tensor, rounds: int | None = None) -> torch.Tensor:
+    """The rest of carry_full from digits d < 2^width and each digit's
+    out-carry c (not yet moved to the next digit, 0 <= c < 2^63): rounds
+    more absorb rounds (None: while any carry exceeds 1), then the
+    lookahead. widths and masks int64."""
     def inject(c, d):
         t = d + torch.roll(c, 1)
         return t >> widths, t & masks
@@ -135,7 +144,7 @@ def carry_full(y: torch.Tensor, widths: torch.Tensor,
         while bool((c > 1).any()):
             c, d = inject(c, d)
     else:
-        for _ in range(rounds - 1):
+        for _ in range(rounds):
             c, d = inject(c, d)
 
     s = d + torch.roll(c, 1)           # <= mask + 1

@@ -50,6 +50,15 @@ mode "fwd"; K3 two; the others one).
                                                 DFT (matrix or shift
                                                 butterflies), [x post],
                                                 [double, canon]
+  K10 f3_fwd_stage          csrc/f3_ntt.cu      the second arithmetic
+                            (f3_ntt.cuh)        (fft3161): one DIF stage
+                                                of both planes [the first
+                                                with norm(d) x weights]
+  K11 f3_inv_stage          csrc/f3_ntt.cu      one DIT stage [the last
+                                                with x unweights, the CRT
+                                                to (lo, hi)]
+  K12 f3_pointwise          csrc/f3_ntt.cu      the spectrum squared, or
+                                                times a multiplicand
 
 A row-carry step runs K1, the C-transform span `fused_mid` and K3;
 `fused_mid` picks K2, or K5 + K6 + K5, or K5 + K6 "fwd" + K6b + K5, exactly
@@ -86,6 +95,14 @@ run csrc/r2_split.cuh's 5 x 2^b split on the split tables instead
 the tests). K9 never runs there (fourstep.chain_ok asks for a
 power-of-two L2, as the JAX does).
 
+K10-K12 are engine/engine3161.py's: a squaring is the forward stages,
+K12, the inverse stages and ntt2.carry (torch ops). They take the
+ntt2.DevTables3161 of a plan and the (2, n) planes (M31 int32, M61 int64),
+in place, and their plain versions are ntt2.fwd_stage_plain,
+inv_stage_plain and pointwise_plain. The JAX package has no Pallas kernel
+there (its fft3161 path is XLA ops), so they replace no pallas_call: each
+stands for a function of prmers_tpu/ops/ntt2.py (REPLACES).
+
 On the mesh (parallel/sharded_kernels.py) every wrapper runs on a rank's
 shard view of the tables (DevTables.from_host with R2_VIEW: K1, K3, K4 on
 (R1, R2/s, C); with R1_VIEW: K5, K6, K6b, K8 on (R1/s, R2, C)), whose
@@ -103,10 +120,12 @@ from . import build
 from . import carry as carry_ops
 from . import fourstep as tfs
 from . import gl64 as gl
+from . import ntt2
 
 KERNELS = ("k1_p1c", "k2_fused_c", "k3_p7c", "k5_axis1", "k6_fused_c",
            "k6b_fused_c_invh", "k9_chain", "k4_axis0", "k7_block_carry",
-           "k8_local", "k4u_pass", "k5u_pass")
+           "k8_local", "k4u_pass", "k5u_pass", "f3_fwd_stage",
+           "f3_inv_stage", "f3_pointwise")
 SOURCES = {
     # K1 and K5 at a power-of-two length: the shift butterflies' header
     # (k1_p1c.cu and k5_axis1.cu are their entry points)
@@ -132,6 +151,10 @@ SOURCES = {
     "k2_fused_c[r5]": "prmers_tpu_torch/csrc/fused_c_row.cuh",
     # at a radix-5 L2 the split's header runs all of K5's launches
     "k5_axis1[r5]": "prmers_tpu_torch/csrc/r2_split.cuh",
+    # K10-K12: the bodies are f3_ntt.cuh's, f3_ntt.cu the launches
+    "f3_fwd_stage": "prmers_tpu_torch/csrc/f3_ntt.cu",
+    "f3_inv_stage": "prmers_tpu_torch/csrc/f3_ntt.cu",
+    "f3_pointwise": "prmers_tpu_torch/csrc/f3_ntt.cu",
 }
 REPLACES = {
     "k1_p1c": "prmers_tpu/ops/pallas/kernels.py:512",
@@ -149,6 +172,12 @@ REPLACES = {
     # (:365) and _axis1_pass's (:452)
     "k4u_pass": "prmers_tpu/ops/pallas/kernels.py:365",
     "k5u_pass": "prmers_tpu/ops/pallas/kernels.py:452",
+    # no pallas_call: the XLA functions of the fft3161 path they stand for
+    # (plane_fwd and forward_3161; plane_inv and inverse_3161; Fq2Ops.sqr
+    # and mul on the spectrum)
+    "f3_fwd_stage": "prmers_tpu/ops/ntt2.py:264",
+    "f3_inv_stage": "prmers_tpu/ops/ntt2.py:291",
+    "f3_pointwise": "prmers_tpu/core/field2.py:243",
 }
 calls = {name: 0 for name in KERNELS}
 
@@ -1666,3 +1695,109 @@ def inverse_r(t: DevTables, z: torch.Tensor,
 def inverse_r_plain(t: DevTables, z: torch.Tensor,
                     shift: bool = False) -> torch.Tensor:
     return _run_passes(axis_pass_plain, t, z, R_PASSES[2:], None, shift)
+
+
+# ---------------------------------------------------------------------------
+# K10-K12: the fft3161 transform (csrc/f3_ntt.cu on f3_ntt.cuh)
+# ---------------------------------------------------------------------------
+
+def _f3_consts(inverse: bool) -> list:
+    """w3 (root_unity(3) or its inverse) of each plane and the radix-4
+    sign (ntt2._w4_is_i(q) == inverse), the reference's root family."""
+    w31 = ntt2._w3_pair(ntt2.M31, inverse)
+    w61 = ntt2._w3_pair(ntt2.M61, inverse)
+    return [w31[0], w31[1], w61[0], w61[1],
+            int(ntt2._w4_is_i(ntt2.M31) == inverse),
+            int(ntt2._w4_is_i(ntt2.M61) == inverse)]
+
+
+def _f3_check(t, x31, x61, words=()) -> None:
+    """Planes (2, n) (M31 int32, M61 int64) and words (n,) int64, all
+    contiguous on the tables' device."""
+    n = t.n
+    for x, dtype, shape in [(x31, torch.int32, (2, n)),
+                            (x61, torch.int64, (2, n))] + \
+            [(w, torch.int64, (n,)) for w in words]:
+        if x.dtype != dtype or not x.is_contiguous() or \
+                x.device != t.device or tuple(x.shape) != shape:
+            raise ValueError(
+                f"fft3161 operand must be contiguous {dtype} {shape} on "
+                f"{t.device} (got {x.dtype} {tuple(x.shape)} on {x.device})")
+
+
+def f3_fwd_args(t, i: int, x31, x61, d=None) -> list:
+    """The C arguments of K10 (prmers_f3_fwd_stage, but the stream)."""
+    st = t.stages[i]
+    first = d is not None
+    return [_ptr(x31), _ptr(x61), _ptr(st.tw31), _ptr(st.tw61),
+            _ptr(t.w31) if first else None, _ptr(t.w61) if first else None,
+            st.r, st.m, st.B, t.n, _ptr(d)] + _f3_consts(False)
+
+
+def f3_inv_args(t, i: int, x31, x61, lo=None, hi=None) -> list:
+    """The C arguments of K11 (prmers_f3_inv_stage, but the stream)."""
+    st = t.stages[i]
+    last = lo is not None
+    return [_ptr(x31), _ptr(x61), _ptr(st.twi31), _ptr(st.twi61),
+            _ptr(t.uw31) if last else None, _ptr(t.uw61) if last else None,
+            st.r, st.m, st.B, t.n, _ptr(lo), _ptr(hi),
+            ntt2.field2.Q31_INV_MOD_Q61] + _f3_consts(True)
+
+
+def f3_fwd_stage(t, i: int, x31: torch.Tensor, x61: torch.Tensor,
+                 d: torch.Tensor | None = None) -> None:
+    """K10: forward stage i of both planes, in place (ntt2.plane_fwd's
+    stage, :264-289); stage 0 takes the digits d (n,) instead of the
+    planes and folds norm(d) x weights (forward_3161, :320-332)."""
+    if (i == 0) != (d is not None):
+        raise ValueError("the first forward stage, and only it, takes d")
+    _f3_check(t, x31, x61, () if d is None else (d,))
+    if _on_cpu(x61):
+        y31, y61 = ntt2.fwd_stage_plain(t, i, x31, x61, d)
+        x31.copy_(y31)
+        x61.copy_(y61)
+        return
+    build.check(build.lib().prmers_f3_fwd_stage(
+        *f3_fwd_args(t, i, x31, x61, d), _stream()), "f3_fwd_stage")
+    calls["f3_fwd_stage"] += 1
+
+
+def f3_inv_stage(t, i: int, x31: torch.Tensor, x61: torch.Tensor,
+                 lo: torch.Tensor | None = None,
+                 hi: torch.Tensor | None = None) -> None:
+    """K11: inverse stage i of both planes, in place (ntt2.plane_inv's
+    stage, :291-317); stage 0, the last, writes inverse_3161's exact
+    coefficients (lo, hi) (n,) (:334-356) instead of the planes."""
+    if (i == 0) != (lo is not None) or (lo is None) != (hi is None):
+        raise ValueError("the last inverse stage, and only it, takes lo "
+                         "and hi")
+    _f3_check(t, x31, x61, () if lo is None else (lo, hi))
+    if _on_cpu(x61):
+        y = ntt2.inv_stage_plain(t, i, x31, x61)
+        for dst, src in zip((lo, hi) if i == 0 else (x31, x61), y):
+            dst.copy_(src)
+        return
+    build.check(build.lib().prmers_f3_inv_stage(
+        *f3_inv_args(t, i, x31, x61, lo, hi), _stream()), "f3_inv_stage")
+    calls["f3_inv_stage"] += 1
+
+
+def f3_pointwise(t, x31: torch.Tensor, x61: torch.Tensor,
+                 m31: torch.Tensor | None = None,
+                 m61: torch.Tensor | None = None) -> None:
+    """K12: the planes squared (Fq2Ops.sqr), or times a multiplicand's
+    planes (m31, m61; Fq2Ops.mul), in place."""
+    if (m31 is None) != (m61 is None):
+        raise ValueError("a multiplicand has both planes")
+    _f3_check(t, x31, x61)
+    if m31 is not None:
+        _f3_check(t, m31, m61)
+    if _on_cpu(x61):
+        y31, y61 = ntt2.pointwise_plain(x31, x61, m31, m61)
+        x31.copy_(y31)
+        x61.copy_(y61)
+        return
+    build.check(build.lib().prmers_f3_pointwise(
+        _ptr(x31), _ptr(x61), _ptr(m31), _ptr(m61), t.n, _stream()),
+        "f3_pointwise")
+    calls["f3_pointwise"] += 1

@@ -305,10 +305,12 @@ def test_backends_and_no_pallas(clean_env):
 
 
 def test_factory_still_refuses(clean_env):
-    """PRMERS_SHARDED_IMPL=xla and "fft3161" still raise; "pallas" raises
-    for a plan the four-step engine does not cover."""
-    with pytest.raises(NotImplementedError, match="fft3161"):
-        factory.create_engine(9941, 2, device="cpu", arith="fft3161")
+    """PRMERS_SHARDED_IMPL=xla still raises; "pallas" raises for a plan
+    the four-step engine does not cover. "fft3161", once refused here,
+    gives Engine3161 (tests/test_torch_engine3161.py)."""
+    from prmers_tpu_torch.engine.engine3161 import Engine3161
+    e = factory.create_engine(9941, 2, device="cpu", arith="fft3161")
+    assert type(e) is Engine3161 and e.get_size() == 256
     with pytest.raises(NotImplementedError):
         factory.create_engine(9941, 2, device="cpu", backend="pallas")
     clean_env.setenv("PRMERS_SHARDED_IMPL", "xla")

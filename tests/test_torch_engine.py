@@ -185,13 +185,18 @@ def test_factory_raises_on_uncovered_shapes():
 
 
 def test_cli_refuses_what_is_not_ported(monkeypatch):
-    """-tune is not ported: the run stops before any engine. P-1 and ECM
-    are (tests/test_torch_pm1.py, test_torch_ecm.py): app.run hands them
-    to their drivers, Edwards unless -montgomery, with its device."""
+    """What this test once saw refused is ported now. -tune: app.run hands
+    it to core/tune.run_tune with its device (tests/test_torch_policy.py
+    runs a small one). P-1 and ECM (tests/test_torch_pm1.py,
+    test_torch_ecm.py): app.run hands them to their drivers, Edwards
+    unless -montgomery, with its device."""
     from prmers_tpu.io.cli import parse_args
     from prmers_tpu_torch import app
-    with pytest.raises(SystemExit, match="not yet ported"):
-        app.run(parse_args(["-tune"]), device="cpu")
+    seen = []
+    monkeypatch.setattr(app, "run_tune", lambda opts, log=print,
+                        device=None: seen.append((opts.mode, device)) or {})
+    assert app.run(parse_args(["-tune"]), device="cpu") == ({}, "")
+    assert seen == [("tune", "cpu")]
     seen = []
 
     def driver(name):
@@ -217,18 +222,37 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
     ([], {"PRMERS_ARITH": "fft3161"}),
     (["-profile"], {}),
 ])
-def test_cli_refuses_fft3161_and_profile(argv, env, monkeypatch):
-    """The second arithmetic and -profile are not ported: the run stops
-    with a message (a non-zero exit) instead of running Goldilocks
-    unprofiled."""
-    from prmers_tpu_torch import app
+def test_cli_refuses_fft3161_and_profile(argv, env, monkeypatch, tmp_path,
+                                        capsys):
+    """The second arithmetic and -profile, once refused, are ported: the
+    run's engine (create_engine as the app calls it, on the CPU; the
+    driver stubbed) is Engine3161 for -arith fft3161, its -pfa3 and -pfa9
+    aliases and PRMERS_ARITH=fft3161, and for -profile a ProfiledEngine
+    around the kernel engine, whose report ends the run."""
+    from prmers_tpu_torch.core.profile import ProfiledEngine
+    from prmers_tpu_torch.engine import factory
+    from prmers_tpu_torch.engine.engine3161 import Engine3161
+    made = []
+    app = _stub_run(monkeypatch, made)
+
+    def engine(*a, **k):
+        made.append(factory.create_engine(*a, **dict(k, device="cpu")))
+        return made[-1]
+    monkeypatch.setattr(app, "create_engine", engine)
     monkeypatch.delenv("PRMERS_ARITH", raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit) as exc:
-        app.main([str(P_EXP), "-noproof", *argv])
-    assert isinstance(exc.value.code, str)
-    assert "not yet ported to prmers_tpu_torch" in exc.value.code
+    assert app.main([str(P_EXP), "-noproof", "-save-dir", str(tmp_path),
+                     *argv]) == 0
+    out = capsys.readouterr().out
+    (eng,) = made
+    if argv == ["-profile"]:
+        assert type(eng) is ProfiledEngine
+        assert type(eng.inner) is FourStepEngine
+        assert f"[profile] engine p={P_EXP} n={N} (FourStepEngine)" in out
+    else:
+        assert type(eng) is Engine3161
+        assert "Arithmetic path: fft3161 (" in out
 
 
 def _stub_run(monkeypatch, made):
@@ -268,7 +292,8 @@ def test_cli_writes_results_json_and_log(tmp_path, monkeypatch, capsys):
         assert res.read_text().splitlines() == [line] * run
         assert (d / f"{P_EXP}_prp_result.json").read_text() == line
         log = (d / "prmers.log").read_text().splitlines()
-        assert len(log) == 2 * run
+        assert len(log) == 3 * run
+        assert "] Arithmetic path: gl64 (" in log[-3]
         assert log[-2].endswith("] run line") and log[-1].endswith(line)
     assert len(made) == 2
 
@@ -320,7 +345,8 @@ def test_create_engine_refuses_xla_switches(name, value, monkeypatch):
 
 def test_create_engine_takes_arith_and_workload(monkeypatch):
     """The reference's keywords: "auto" and "gl64" (any workload) give
-    the default engine; "fft3161", by argument or PRMERS_ARITH, raises."""
+    the default engine; "fft3161", by argument or PRMERS_ARITH, gives
+    Engine3161 (engine/engine3161.py); another name raises."""
     from prmers_tpu_torch.engine.factory import create_engine
     monkeypatch.delenv("PRMERS_ARITH", raising=False)
     base = create_engine(756839, 2, device="cpu")
@@ -329,13 +355,13 @@ def test_create_engine_takes_arith_and_workload(monkeypatch):
         e = create_engine(756839, 2, device="cpu", **kw)
         assert type(e) is type(base) and e.t.fp.shape == base.t.fp.shape
         assert e.t.fp.pipe == base.t.fp.pipe
-    with pytest.raises(NotImplementedError, match="fft3161"):
-        create_engine(756839, 2, device="cpu", arith="fft3161")
+    from prmers_tpu_torch.engine.engine3161 import Engine3161
+    e = create_engine(756839, 2, device="cpu", arith="fft3161")
+    assert type(e) is Engine3161 and e.get_size() == 24576
     with pytest.raises(ValueError):
         create_engine(756839, 2, device="cpu", arith="m31")
     monkeypatch.setenv("PRMERS_ARITH", "fft3161")
-    with pytest.raises(NotImplementedError, match="fft3161"):
-        create_engine(756839, 2, device="cpu")
+    assert type(create_engine(756839, 2, device="cpu")) is Engine3161
 
 
 def test_default_device_is_cuda():

@@ -147,6 +147,10 @@ COPIES = {
     "engine/paged.py": {"changed": {"device_reg_budget"},
                         "added": {"OVERHEAD_BYTES", "register_bytes",
                                   "free_device_bytes"}},
+    "engine/policy.py": {"changed": {"_GL64_ENGINES", "decide_arith"}},
+    "core/tune.py": {"changed": {"TUNE_FILE", "run_tune"}},
+    "core/profile.py": {"changed": {"ProfiledEngine", "ProfiledEngine._OPS"},
+                        "added": {"ProfiledEngine.addsub"}},
 }
 
 

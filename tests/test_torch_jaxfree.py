@@ -3,7 +3,9 @@
 prmers_tpu_torch (the mesh's parallel/ too) and running one CPU squaring
 through the four-step engine and one through the mesh engine leaves
 neither jax nor prmers_tpu in sys.modules, and so does one squaring
-through the any-size engine and one through the numpy oracle, a P-1 of
+through the any-size engine, one through the numpy oracle and one
+through the fft3161 engine (Engine3161 on the CPU; the policy, tune and
+profile modules among those imported), a P-1 of
 M541 and an Edwards ECM run of M37 (the modes, host paging, the interop
 files and the prime sieve among the modules imported). The
 machine with the CUDA card has no jax at all, and the port keeps its own
@@ -40,9 +42,16 @@ for eng in (TorchEngine(9941, 2, device="cpu"), NumpyEngine(9941, 2)):
     eng.set(0, 3)
     eng.square_mul(0, 3)
     assert eng.get_int(0) == 27
+from prmers_tpu_torch.engine.engine3161 import Engine3161
+e = Engine3161(11213, 2, device="cpu")
+e.set(0, 3)
+e.square_mul(0, 3)
+assert e.get_int(0) == 27
 for name in ("modes.pm1", "modes.ecm", "modes.ecm_edwards", "modes.memtest",
              "modes.bench", "engine.paged", "io.interop", "io.p95",
-             "utils.primes", "app"):
+             "utils.primes", "app", "core.field2", "ops.ntt2",
+             "engine.engine3161", "engine.policy", "core.tune",
+             "core.profile"):
     assert "prmers_tpu_torch." + name in sys.modules, name
 import tempfile
 from prmers_tpu_torch.io.options import Options

@@ -728,3 +728,91 @@ def test_cuda_anysize_engine_graphs_match_eager(p):
         assert np.array_equal(engines[0].get_digits(r),
                               engines[1].get_digits(r)), r
     assert engines[0].get_int(0) == x and engines[0].get_int(1) == y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [127, 1279, 9941, 11213, 100003, 756839,
+                               3021377])
+def test_cuda_f3_stages_match_plain(p):
+    """On the card: K10-K12 (the fft3161 transform, csrc/f3_ntt.cu)
+    against their plain versions (ops/ntt2.py) on the same inputs, stage
+    by stage, word for word (both canonical): n = 8 (radices 2, 4), 32,
+    256 (4^4), 288 (3, 3, 2, 4, 4), 3072 (3 then 4s), 24576, 98304 (3, 2
+    then 4s); the first forward stage from digits, K12 squaring and
+    times a multiplicand, the last inverse stage to the CRT's (lo, hi)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from prmers_tpu_torch.engine.engine3161 import get_tables
+    from prmers_tpu_torch.ops import ntt2
+    t = get_tables(p, None, "cuda")
+    n = t.n
+    rng = np.random.default_rng(p)
+    d = torch.from_numpy(rng.integers(0, 1 << 62, n, dtype=np.int64)).cuda()
+    d &= t.masks
+    x31 = torch.zeros((2, n), dtype=torch.int32, device="cuda")
+    x61 = torch.zeros((2, n), dtype=torch.int64, device="cuda")
+    for i in range(len(t.stages)):
+        want = ntt2.fwd_stage_plain(t, i, x31, x61, d if i == 0 else None)
+        tk.f3_fwd_stage(t, i, x31, x61, d if i == 0 else None)
+        torch.cuda.synchronize()
+        assert torch.equal(x31, want[0]) and torch.equal(x61, want[1]), i
+    m31, m61 = x31.clone(), x61.clone()
+    for m in ((m31, m61), (None, None)):
+        want = ntt2.pointwise_plain(x31, x61, *m)
+        tk.f3_pointwise(t, x31, x61, *m)
+        torch.cuda.synchronize()
+        assert torch.equal(x31, want[0]) and torch.equal(x61, want[1])
+    lo = torch.empty(n, dtype=torch.int64, device="cuda")
+    hi = torch.empty_like(lo)
+    for i in range(len(t.stages) - 1, -1, -1):
+        want = ntt2.inv_stage_plain(t, i, x31, x61)
+        tk.f3_inv_stage(t, i, x31, x61, *((lo, hi) if i == 0 else ()))
+        torch.cuda.synchronize()
+        got = (lo, hi) if i == 0 else (x31, x61)
+        assert torch.equal(got[0], want[0]) and \
+            torch.equal(got[1], want[1]), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [127, 11213, 100003])
+def test_cuda_engine3161_graphs_match_eager(p):
+    """On the card: Engine3161 with each op a CUDA graph and eager, on the
+    same op sequence (squarings with a = 3 and 1, LL steps, a multiplicand
+    and mul, add, sub_reg, sub, add_small), digit for digit and against
+    big-int."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import random
+    from prmers_tpu_torch.engine.engine3161 import Engine3161
+    mp = (1 << p) - 1
+    rnd = random.Random(p)
+    x, y = rnd.randrange(mp), rnd.randrange(mp)
+    a_vec = [3, 1, 1, 3] * 5
+    engines = [Engine3161(p, 3, device="cuda", graphs=g)
+               for g in (True, False)]
+    for e in engines:
+        e.set_int(0, x)
+        e.set_int(1, y)
+        e.square_mul_seq(0, a_vec)
+        e.square_sub2_seq(1, 4)
+        e.set_multiplicand(2, 1)
+        e.mul(0, 2, 3)
+        e.add(0, 1)
+        e.sub_reg(1, 0)
+        e.sub(0, 5)
+        e.add_small(1, 7)
+        e.square_mul_seq(0, a_vec)
+    assert len(engines[0]._graphs) == 10 and not engines[1]._graphs
+    for a in a_vec:
+        x = x * x * a % mp
+    for _ in range(4):
+        y = (y * y - 2) % mp
+    x = (x * y * 3 + y) % mp
+    y = (y - x + 7) % mp
+    x = (x - 5) % mp
+    for a in a_vec:
+        x = x * x * a % mp
+    for r in (0, 1):
+        assert np.array_equal(engines[0].get_digits(r),
+                              engines[1].get_digits(r)), r
+    assert engines[0].get_int(0) == x and engines[0].get_int(1) == y

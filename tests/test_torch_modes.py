@@ -167,15 +167,32 @@ def test_filemers(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv", [["-tune"], ["127", "-profile"],
                                   ["127", "-gui"],
                                   ["127", "-arith", "fft3161"]])
-def test_unported_stop_before_any_engine(argv, tmp_path, monkeypatch):
-    """-tune, -profile, -gui and fft3161 stop with "not yet ported" before
-    any engine is made."""
-    made = []
-    monkeypatch.setattr(tapp, "create_engine",
-                        lambda *a, **k: made.append(a))
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tapp.main(argv + ["-save-dir", str(tmp_path)])
-    assert made == []
+def test_unported_stop_before_any_engine(argv, tmp_path, monkeypatch,
+                                        on_cpu):
+    """-gui stops with "not yet ported" before any engine is made. The
+    rest, once stopped here too, run: -tune with no exponent goes to
+    core/tune.run_tune (stubbed: the whole ladder is the card's work) and
+    makes no engine here; -profile runs M127 on a ProfiledEngine; -arith
+    fft3161 runs M127 on Engine3161."""
+    from prmers_tpu_torch.core.profile import ProfiledEngine
+    from prmers_tpu_torch.engine import factory
+    from prmers_tpu_torch.engine.engine3161 import Engine3161
+    made, tuned = [], []
+    monkeypatch.setattr(tapp, "create_engine", lambda *a, **k: made.append(
+        factory.create_engine(*a, **k)) or made[-1])
+    monkeypatch.setattr(tapp, "run_tune", lambda opts, log=print,
+                        device=None: tuned.append(opts.exponent) or {})
+    argv = argv + ["-save-dir", str(tmp_path)]
+    if "-gui" in argv:
+        with pytest.raises(SystemExit, match="not yet ported"):
+            tapp.main(argv)
+        assert made == []
+        return
+    assert tapp.main(argv) == 0
+    want = {"-tune": [], "-profile": [ProfiledEngine],
+            "fft3161": [Engine3161]}[argv[-3]]
+    assert [type(e) for e in made] == want
+    assert tuned == ([0] if argv[0] == "-tune" else [])
 
 
 def test_cli_parse_of_modes_equal():
