@@ -7,8 +7,13 @@ at every world size the machine's cards allow; `--tools-only` phases 1
 and 7; `--anysize-only` phases 1 and 8; `--fft3161-only` phases 1 and 10;
 `--modes-only` phases 1 and 9,
 and with `--pm1-full` also M1362763's P-1 over its whole stage-2 range,
-timed; `python3 chip_smoke.py --mm31` runs phase 1 and the engine at
-MM31, p = 2^31 - 1, n = 5 * 2^25: two squarings of a dense value against
+timed; `--ecm-goldens` (alone, or after `--modes-only`'s phase 9) the
+reference's slow ECM goldens, M701 (Edwards) and M67 (both families), on
+the batched path, then each once on the classic loop and M701 under
+-arith fft3161, each timed; `--ecm-kernel-plan` 16 curves of ECM stage 1
+as one batch against 16 classic curves at M756839 (n = 2^15), where the
+classic loop runs FourStepEngine's kernels, timed; `python3
+chip_smoke.py --mm31` runs phase 1 and the engine at MM31, p = 2^31 - 1, n = 5 * 2^25: two squarings of a dense value against
 GMP, with the host table build's time and peak memory, then P-1 of MM31
 (-b1 100 -b2 5000 -pm1-ultralowmem -nogcd-stage1, ~7,400 squarings and
 one gcd of 2^31-bit numbers) through the CLI's entry, which must find
@@ -193,7 +198,25 @@ Phases; any failure raises and the script exits non-zero with no result:
      engine's; memtest at p = 136279841 (0 errors); -bench over (9941,
      756839) with its PRMERS_SCORE line; and each engine's device bytes
      per word beside its registers (tables, an op's temporaries) against
-     engine/paged.OVERHEAD_BYTES, what the paging budget charges.
+     engine/paged.OVERHEAD_BYTES, what the paging budget charges. The
+     CLI chains above run their ECM goldens under PRMERS_ECM_NO_BATCH=1
+     (the reference's numpy runs were the classic loop); a third chain
+     runs the validation matrix's quick profile
+     (tools/validation_matrix.py: numpy/gl64, jax/gl64 on the card,
+     numpy/fft3161 and pallas/gl64 where the four-step engine takes the
+     plan, which no quick case's is), which must exit 0: every column
+     agrees on every case. After the chains,
+     in this process: batched ECM (engine/batch.py) at M37 in both
+     families against the classic loop (PRMERS_ECM_NO_BATCH=1): the same
+     factor, for Montgomery also the same curve and stage, and the
+     batched line logged; the rate, 16 curves of stage 1 (B1 = 40, no
+     factor: every curve runs to its end) as 16 lanes of one batch
+     against 16 classic curves, in curves per second, with each run's
+     peak device bytes and kernel wrapper counts, at M9941 (n = 512) and
+     at M544139 (n = 2^15, where the classic loop runs the kernel
+     engine, whose kernels it must launch); the CUDA launches of one eager
+     batched squaring beside a single lane's; -gui on M127 on a free port, whose
+     /api/state must answer while the run makes its engine.
 
  10. the second arithmetic (fft3161, engine/engine3161.py: the paired
      GF(M31^2) x GF(M61^2) NTT on K10 f3_fwd_stage, K11 f3_inv_stage and
@@ -602,6 +625,11 @@ def tools_drive(dev, card):
         f"{microbench_fields.ratios(per_el)} ({card})")
     log(f"[7] torch._int_mm on cases b, e: {int_mm} ms; bitcast order "
         f"{order} {col} ({card})")
+    dots = {e.what.split()[0]: e.ms for e in timed7
+            if e.kernel == "probe_shapes" and e.what.split()[0] in int_mm}
+    log(f"[7] probe_shapes on the same cases b, e: {dots} ms, sum "
+        f"{sum(dots.values()):.6f} against torch._int_mm's "
+        f"{sum(int_mm.values()):.6f} ({card})")
     log(f"[7] phase 7 in {time.perf_counter() - t1:.3f} s")
     return timed7, calls, int_mm
 
@@ -765,6 +793,40 @@ def cli_run(root: str, tag: str, args, timeout=900, phase=8, env=None,
     return r.returncode, r.stdout + r.stderr, dt, json.loads(tail), d
 
 
+def launches(eng, phase) -> str:
+    """The CUDA kernels of one eager squaring of eng (graphs=False), after
+    one warm-up, as torch.profiler sees them: their count, how many are
+    GEMMs (gl64's limb fold is a float64 torch.mm) and how many copies or
+    sets; each kernel's name and count go to a line of their own. "not
+    measured" where the profiler sees no device."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    eng.set(0, 3)
+    eng.square_mul(0)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.square_mul(0)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    except (RuntimeError, AttributeError) as e:
+        log(f"[{phase}] torch.profiler: {e}")
+        names = []
+    if not names:
+        return "not measured"
+    by = collections.Counter(names)
+    log(f"[{phase}] the kernels of one eager squaring of "
+        f"{type(eng).__name__} at n={eng.plan.n}: "
+        f"{sorted((k, n[:60]) for n, k in by.items())}")
+    gemm = sum(k for n, k in by.items() if "gemm" in n.lower())
+    mem = sum(k for n, k in by.items() if n.startswith(("Memcpy", "Memset")))
+    return f"{len(names)} ({gemm} GEMMs, {mem} copies or sets)"
+
+
 def anysize_drive(root: str, dev, card: str, beside=None) -> None:
     """Phase 8: the any-size engine on the card. Table builds and iter/s
     (CUDA graphs against eager, in turns) with the launches of one eager
@@ -807,26 +869,6 @@ def anysize_drive(root: str, dev, card: str, beside=None) -> None:
         torch.cuda.synchronize()
         return iters / (time.perf_counter() - t1)
 
-    def launches(p):
-        """CUDA kernels of one eager squaring (torch.profiler; "not
-        measured" where the profiler sees no device)."""
-        from torch.profiler import ProfilerActivity, profile
-        eng = te.TorchEngine(p, 2, device=dev, graphs=False)
-        eng.set(0, 3)
-        eng.square_mul(0)
-        torch.cuda.synchronize()
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                eng.square_mul(0)
-                torch.cuda.synchronize()
-            k = sum(1 for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        except (RuntimeError, AttributeError) as e:
-            log(f"[8] torch.profiler: {e}")
-            k = 0
-        return k if k else "not measured"
-
     for p, iters in ANY_RATES:
         tables(cached_plan(p))
         got = {True: [], False: []}
@@ -836,7 +878,8 @@ def anysize_drive(root: str, dev, card: str, beside=None) -> None:
             f"{sum(got[True]) / 2:.3f} iter/s (runs {got[True][0]:.3f}, "
             f"{got[True][1]:.3f}), eager {sum(got[False]) / 2:.3f} iter/s "
             f"(runs {got[False][0]:.3f}, {got[False][1]:.3f}); "
-            f"{launches(p)} CUDA launches per eager squaring ({card})")
+            f"{launches(te.TorchEngine(p, 2, device=dev, graphs=False), 8)}"
+            f" CUDA launches per eager squaring ({card})")
 
     # the widest plan only the any-size engine takes, through create_engine
     p = P_ANY_WIDE
@@ -984,6 +1027,36 @@ SAVE_541_SHA256 = \
 BENCH_LADDER = [9941, 756839]
 MODES_KERNELS = ("k9_chain", "k1_p1c", "k2_fused_c", "k3_p7c")
 ECM_K9_B1 = 50
+# batched ECM (engine/batch.py): the reference's test_batched_matches_
+# classic settings (tests/test_ecm.py:62, tests/test_ecm_edwards.py:123),
+# each run batched (backend auto) and under PRMERS_ECM_NO_BATCH=1
+ECM_M37 = {
+    "montgomery": ["37", "-ecm", "-b1", "20", "-b2", "400", "-K", "4",
+                   "-curve-seed", "3", "-montgomery"],
+    "edwards": ["37", "-ecm", "-b1", "20", "-b2", "400", "-K", "6",
+                "-curve-seed", "3"]}
+# the rate: K curves of stage 1 on M9941 (prime, so every curve runs to
+# its end) as K lanes against K classic curves; B1 = 40 (a 53-bit ladder)
+# keeps the classic run near 20 s on an H100 (B1 = 100 took 46 s)
+ECM_RATE_P, ECM_RATE_K, ECM_RATE_B1 = 9941, 16, 40
+# --ecm-kernel-plan: the same at the smallest plan the kernel engine takes
+# (n = 2^15, M756839 prime), where the classic loop runs FourStepEngine's
+# kernels and the batch the any-size engine's torch ops
+ECM_KERNEL_P = P_GOLDEN
+# --ecm-goldens: the reference's slow goldens (tests/test_ecm_edwards.py:
+# 92-121, tests/test_ecm.py:54-60), seed 1: (name, argv, factor, stage
+# or 0 for any; the reference holds Edwards to the factor alone, and its
+# batch, every lane's stage 1 first, finds M67's on curve 1 in stage 1)
+ECM_SLOW_GOLDENS = [
+    ("M701 Edwards", ["701", "-ecm", "-b1", "6000", "-b2", "33333", "-K",
+                      "8", "-curve-seed", "1"], 68453816366333403527, 0),
+    ("M67 Edwards", ["67", "-ecm", "-b1", "2000", "-b2", "50000", "-K",
+                     "12", "-curve-seed", "1"], 193707721, 0),
+    ("M67 Montgomery", ["67", "-ecm", "-b1", "2000", "-b2", "50000", "-K",
+                        "12", "-curve-seed", "1", "-montgomery"], 193707721,
+     2),
+]
+NO_BATCH = {"PRMERS_ECM_NO_BATCH": "1"}
 
 
 def pm1_found(out: str) -> tuple:
@@ -1012,7 +1085,9 @@ def modes_chains(root: str):
     subprocesses: P-1 (M541 with its resume files, the .mers of its
     stage-1 residue through -filemers, M367 on V-trace and ultralowmem,
     M367 paged onto 4 device slots) and ECM (M29 and M37, Edwards and
-    Montgomery) with the worktodo loop. Returns the running futures."""
+    Montgomery, on the classic loop) with the worktodo loop; and a third,
+    the validation matrix's quick profile. Returns the running
+    futures."""
     from prmers_tpu_torch.core.plan import cached_plan
     from prmers_tpu_torch.io import interop
     from prmers_tpu_torch.utils import digits as dg
@@ -1038,7 +1113,8 @@ def modes_chains(root: str):
         return out
 
     def ecm_chain():
-        out = [cli_run(root, f"ecm-{i}", argv, phase=9)
+        out = [cli_run(root, f"ecm-{i}", argv, phase=9,
+                       env={"PRMERS_ECM_NO_BATCH": "1"})
                for i, (argv, _want) in enumerate(ECM_GOLDENS)]
         d = os.path.join(root, "build", "smoke_any", "worktodo")
         shutil.rmtree(d, ignore_errors=True)
@@ -1052,8 +1128,23 @@ def modes_chains(root: str):
                            fresh=False))
         return out
 
-    pool = ThreadPoolExecutor(max_workers=2)
-    chains = (pool.submit(pm1_chain), pool.submit(ecm_chain))
+    def matrix_chain():
+        d = os.path.join(root, "build", "smoke_any", "matrix")
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        tsv = os.path.join(d, "quick.tsv")
+        t1 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "prmers_tpu_torch.tools.validation_matrix",
+                            "quick", tsv], cwd=d, capture_output=True,
+                           text=True, timeout=900,
+                           env=dict(os.environ, PYTHONPATH=root))
+        return r.returncode, r.stdout + r.stderr, \
+            time.perf_counter() - t1, tsv
+
+    pool = ThreadPoolExecutor(max_workers=3)
+    chains = (pool.submit(pm1_chain), pool.submit(ecm_chain),
+              pool.submit(matrix_chain))
     pool.shutdown(wait=False)
     return chains
 
@@ -1068,6 +1159,7 @@ def check_chains(chains) -> None:
 
     t1 = time.perf_counter()
     pm1_out, ecm_out = chains[0].result(), chains[1].result()
+    matrix = chains[2].result()
     log(f"[9] waited {time.perf_counter() - t1:.3f} s for the CLI chains")
     rc, out, _dt, j, _d = pm1_out["541"]
     expect("M541 -pm1 -b1 899: stage-1 factor 4312790327",
@@ -1106,6 +1198,75 @@ def check_chains(chains) -> None:
            [(541, "F"), (9941, "P")] and left == "" and
            os.path.exists(os.path.join(d, "541_pm1_result.json")) and
            os.path.exists(os.path.join(d, "9941_prp_result.json")))
+    check_matrix(*matrix, expect)
+
+
+def check_matrix(rc, out, dt, tsv, expect) -> None:
+    """The validation matrix's quick profile (tools/validation_matrix.py,
+    run by modes_chains): exit code 0, every case's numpy/gl64, jax/gl64
+    (the card; ECM batched) and numpy/fft3161 outcomes agree and none
+    raised; the pallas column (the four-step engine) agrees where it ran,
+    and its skips of the plans it does not take are logged."""
+    log(f"[9] validation matrix quick: rc={rc} in {dt:.3f} s; "
+        f"{out.strip().splitlines()[-1] if out.strip() else ''}")
+    for ln in out.splitlines():
+        if "skipped" in ln:
+            log(f"[9]   matrix {ln}")
+    if not os.path.exists(tsv):
+        raise AssertionError(f"phase 9 failed: the matrix wrote no TSV:\n"
+                             f"{out[-3000:]}")
+    with open(tsv) as f:
+        rows = [ln.rstrip("\n").split("\t") for ln in f][1:]
+    cases = {}
+    for case, col, outcome, sec in rows:
+        log(f"[9]   matrix {case} {col}: {outcome} in {sec} s")
+        cases.setdefault(case, {})[col] = outcome
+    expect("matrix quick: exit code 0, the cases prp, llsafe, pm1_s1, "
+           "ecm_edwards", rc == 0 and
+           sorted(cases) == ["ecm_edwards", "llsafe", "pm1_s1", "prp"])
+    for case, cols in sorted(cases.items()):
+        want = {"numpy/gl64", "jax/gl64"} | (
+            set() if case.startswith("ecm") else {"numpy/fft3161"})
+        outcomes = set(cols.values())
+        expect(f"matrix {case}: {', '.join(sorted(cols))} agree: "
+               f"{sorted(outcomes)}", want <= set(cols)
+               and len(outcomes) == 1 and
+               not outcomes.pop().startswith("ERROR"))
+
+
+def app_main_here(root: str, card: str, tag: str, args, env=None,
+                  phase="9"):
+    """app.main(args) in this process, with `env` set around it and its
+    own save dir (build/smoke_modes/<tag>); returns (rc, log, result,
+    seconds)."""
+    import contextlib
+    import io
+
+    from prmers_tpu_torch import app
+    d = os.path.join(root, "build", "smoke_modes", tag)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    buf = io.StringIO()
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    t1 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = app.main(args + ["-save-dir", d, "-results",
+                                  os.path.join(d, "results.txt")])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = buf.getvalue()
+    dt = time.perf_counter() - t1
+    j = json.loads(out.strip().splitlines()[-1])
+    log(f"[{phase}] app.main {' '.join(args)}"
+        f"{''.join(f' {k}={v}' for k, v in (env or {}).items())}: rc={rc} "
+        f"in {dt:.3f} s: factors {j.get('factors')} ({card})")
+    return rc, out, j, dt
 
 
 def modes_drive(root: str, dev, card: str, chains=None,
@@ -1119,12 +1280,12 @@ def modes_drive(root: str, dev, card: str, chains=None,
     one Edwards curve's stage 1 at p = 544139 on FourStepEngine against
     the any-size engine, memtest at p = 136279841, the -bench ladder over
     two exponents, and the bytes each engine holds beside its registers
-    against engine/paged.OVERHEAD_BYTES. With `full`, M1362763's P-1 over
-    the whole stage-2 range, timed. Returns the wrapper counts of the
-    kernel-engine P-1 runs."""
-    import contextlib
+    against engine/paged.OVERHEAD_BYTES; after the chains (and the
+    validation matrix) batched ECM (ecm_batch_drive) and -gui
+    (gui_drive). With `full`, M1362763's P-1 over the whole stage-2
+    range, timed. Returns the wrapper counts of the kernel-engine P-1
+    runs."""
     import gc
-    import io
 
     import torch
 
@@ -1147,31 +1308,15 @@ def modes_drive(root: str, dev, card: str, chains=None,
         if not cond:
             raise AssertionError(f"phase 9 failed: {what}")
 
-    def main_here(tag, args):
-        """app.main(args) in this process; returns (rc, log, result)."""
-        d = os.path.join(root, "build", "smoke_modes", tag)
-        shutil.rmtree(d, ignore_errors=True)
-        os.makedirs(d)
-        buf = io.StringIO()
-        t1 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = app.main(args + ["-save-dir", d, "-results",
-                                  os.path.join(d, "results.txt")])
-        out = buf.getvalue()
-        dt = time.perf_counter() - t1
-        j = json.loads(out.strip().splitlines()[-1])
-        log(f"[9] app.main {' '.join(args)}: rc={rc} in {dt:.3f} s: "
-            f"factors {j.get('factors')} ({card})")
-        return rc, out, j, dt
-
     # P-1 on the kernel engine (K9; K1-K3), through the CLI's entry here
     tk.reset_calls()
-    rc, out, j, _dt = main_here("pm1-k9", [str(P_PM1_K9), "-pm1", "-b1", "3",
-                                           "-b2", "7"])
+    rc, out, j, _dt = app_main_here(root, card, "pm1-k9",
+                                    [str(P_PM1_K9), "-pm1", "-b1", "3",
+                                     "-b2", "7"])
     expect(f"M{P_PM1_K9} P-1 (3, 7): {PM1_K9_FACTOR} in both stages",
            rc == 0 and pm1_found(out) == (PM1_K9_FACTOR, PM1_K9_FACTOR))
-    rc, out, j, dt = main_here("pm1-1362763",
-                               M1362763 + ["-b2start", "6900000"])
+    rc, out, j, dt = app_main_here(root, card, "pm1-1362763",
+                                   M1362763 + ["-b2start", "6900000"])
     expect(f"M1362763 P-1 -b2start 6900000, known factors divided out: "
            f"{M1362763_FACTOR}", rc == 0 and j.get("factors") ==
            [str(M1362763_FACTOR)])
@@ -1181,7 +1326,8 @@ def modes_drive(root: str, dev, card: str, chains=None,
         if counts[name] <= 0:
             raise AssertionError(f"{name} was not launched by P-1")
     if full:
-        rc, out, j, dt = main_here("pm1-1362763-full", M1362763)
+        rc, out, j, dt = app_main_here(root, card, "pm1-1362763-full",
+                                       M1362763)
         expect(f"M1362763 P-1 over all of (29, 6910159] in {dt:.3f} s "
                f"({card}): {M1362763_FACTOR}", rc == 0 and
                j.get("factors") == [str(M1362763_FACTOR)])
@@ -1265,8 +1411,204 @@ def modes_drive(root: str, dev, card: str, chains=None,
     torch.cuda.empty_cache()
 
     check_chains(chains)
+    ecm_batch_drive(root, dev, card, expect)
+    gui_drive(root, card, expect)
     log(f"[9] phase 9 in {time.perf_counter() - t0:.3f} s")
     return counts
+
+
+def ecm_batch_drive(root: str, dev, card: str, expect) -> None:
+    """Batched ECM (engine/batch.BatchTorchEngine under modes/ecm.py's and
+    ecm_edwards.py's batched drivers) in this process through app.main:
+    M37 in both families batched (the reference's log line) and under
+    PRMERS_ECM_NO_BATCH=1, the same factor in both and for Montgomery the
+    same curve and stage; then the rate at p = ECM_RATE_P (ecm_rate); and
+    the CUDA launches of one eager batched squaring beside a single-lane
+    one."""
+    import torch
+
+    from prmers_tpu_torch.engine import torch_engine as te
+    from prmers_tpu_torch.engine.batch import BatchTorchEngine
+
+    def run(tag, argv, env=None):
+        return app_main_here(root, card, tag, argv, env=env)
+
+    for family, argv in ECM_M37.items():
+        rc, out, j, dt = run(f"ecm37-{family}", argv)
+        said = [ln for ln in out.splitlines() if "batched: " in ln]
+        got = ecm_found(out)
+        rc_c, out_c, j_c, dt_c = run(f"ecm37-{family}-classic", argv,
+                                     NO_BATCH)
+        want = ecm_found(out_c)
+        log(f"[9] M37 {family}: batched {got} in {dt:.3f} s, classic "
+            f"{want} in {dt_c:.3f} s; {said} ({card})")
+        same = got is not None and want is not None and (
+            got == want if family == "montgomery" else got[0] == want[0])
+        expect(f"M37 {family} batched against classic: "
+               f"{'factor, curve, stage' if family == 'montgomery' else 'factor'}"
+               f" equal, the batched line logged", rc == 0 and rc_c == 0
+               and same and len(said) == 1 and got[0] == 223
+               and not any("batched" in ln for ln in out_c.splitlines()))
+
+    ecm_rate(root, card, ECM_RATE_P, expect, "9")
+
+    b = BatchTorchEngine(ECM_RATE_P, 2, ECM_RATE_K, device=dev,
+                         graphs=False)
+    one = te.TorchEngine(ECM_RATE_P, 2, device=dev, graphs=False)
+    log(f"[9] CUDA launches of one eager squaring at n=512: "
+        f"{launches(b, 9)} batched (B={ECM_RATE_K}), {launches(one, 9)} "
+        f"single ({card})")
+    del b, one
+    te._TABLES_CACHE.clear()
+    torch.cuda.empty_cache()
+
+
+def ecm_rate(root: str, card: str, p: int, expect, phase: str) -> None:
+    """ECM_RATE_K curves of stage 1 (B1 = ECM_RATE_B1) on M_p, prime, so
+    every curve runs to its end, through app.main in both families: one
+    batch (the batched line logged) against as many classic curves
+    (PRMERS_ECM_NO_BATCH=1), in curves per second, with each run's peak
+    device bytes and kernel wrapper counts (reset just before, read just
+    after): the classic loop must launch the kernel engine's kernels
+    where it takes the plan, and nothing else any."""
+    import torch
+
+    from prmers_tpu_torch.core.plan import cached_plan
+    from prmers_tpu_torch.engine import fourstep_engine as fse
+    from prmers_tpu_torch.engine import torch_engine as te
+    from prmers_tpu_torch.ops import kernels as tk
+
+    n = cached_plan(p).n
+    kernels = fse.covers(cached_plan(p))
+    for family in ("montgomery", "edwards"):
+        argv = [str(p), "-ecm", "-b1", str(ECM_RATE_B1), "-b2", "0", "-K",
+                str(ECM_RATE_K), "-curve-seed", "1"] + (
+            ["-montgomery"] if family == "montgomery" else [])
+        rates = {}
+        for batched in (True, False):
+            te._TABLES_CACHE.clear()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            tk.reset_calls()
+            form = "batched" if batched else "classic"
+            rc, out, j, dt = app_main_here(
+                root, card, f"ecm-rate-{p}-{family}-{form}", argv,
+                env=None if batched else NO_BATCH, phase=phase)
+            peak = torch.cuda.max_memory_allocated() - base
+            calls = {k: v for k, v in tk.calls.items() if v}
+            said = [ln for ln in out.splitlines() if "batched: " in ln]
+            rates[batched] = ECM_RATE_K / dt
+            log(f"[{phase}] M{p} (n={n}) {family} stage 1 (B1={ECM_RATE_B1}, "
+                f"K={ECM_RATE_K}) {form}: {rates[batched]:.3f} curves/s in "
+                f"{dt:.3f} s, peak {peak} device bytes, kernel wrapper calls "
+                f"{calls} ({card})")
+            expect(f"M{p} {family} {form}: no factor, the batched line only "
+                   "where batched, kernels launched only by the classic "
+                   "loop on the kernel engine",
+                   rc == 1 and j["status"] == "NF" and
+                   len(said) == (1 if batched else 0) and
+                   (not batched or f"{ECM_RATE_K} curves per dispatch x 1 "
+                    "batches" in said[0]) and
+                   (sum(calls.get(k, 0) for k in MODES_KERNELS) > 0
+                    if kernels and not batched else not calls))
+        log(f"[{phase}] batched/classic curves per second, {family}: "
+            f"{rates[True] / rates[False]:.3f} at B={ECM_RATE_K}, n={n} "
+            f"({card})")
+
+
+def ecm_kernel_plan(root: str, card: str) -> None:
+    """--ecm-kernel-plan: ecm_rate at ECM_KERNEL_P (n = 2^15), where the
+    classic loop runs FourStepEngine's kernels and the batch the any-size
+    engine's torch ops."""
+    t0 = time.perf_counter()
+
+    def expect(what, cond):
+        log(f"[9k]   {what}: {cond}")
+        if not cond:
+            raise AssertionError(f"--ecm-kernel-plan failed: {what}")
+
+    ecm_rate(root, card, ECM_KERNEL_P, expect, "9k")
+    log(f"[9k] --ecm-kernel-plan in {time.perf_counter() - t0:.3f} s")
+
+
+def gui_drive(root: str, card: str, expect) -> None:
+    """-gui on M127 through app.main on a free port: /api/state, asked
+    while the run makes its engine, answers with the exponent and the
+    arithmetic; the run ends rc 0 and the server is down after."""
+    import urllib.request
+
+    from prmers_tpu_torch import app
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}/api/state"
+    states = []
+    real = app.create_engine
+
+    def probe(*a, **k):
+        with urllib.request.urlopen(url, timeout=10) as r:
+            states.append(json.loads(r.read()))
+        return real(*a, **k)
+    app.create_engine = probe
+    try:
+        rc, out, j, dt = app_main_here(root, card, "gui-127",
+                                       ["127", "-gui", "-gui-port",
+                                        str(port)])
+    finally:
+        app.create_engine = real
+    try:
+        urllib.request.urlopen(url, timeout=5)
+        down = False
+    except OSError:
+        down = True
+    log(f"[9] -gui M127: /api/state during the run {states}")
+    expect(f"-gui on M127 (port {port}): rc 0, /api/state answered during "
+           "the run, the server down after", rc == 0 and j["status"] == "P"
+           and len(states) == 1 and states[0]["exponent"] == 127 and
+           states[0]["backend"] == "gl64" and down and
+           f"web GUI on http://localhost:{port}" in out)
+
+
+def ecm_goldens(root: str, dev, card: str) -> None:
+    """--ecm-goldens: the reference's slow ECM goldens (ECM_SLOW_GOLDENS)
+    on the batched path through app.main, each timed and held to its
+    factor (and stage); then each once on the classic loop
+    (PRMERS_ECM_NO_BATCH=1, the any-size engine) and M701 under -arith
+    fft3161, timed, with the same factor."""
+    t0 = time.perf_counter()
+
+    def expect(what, cond):
+        log(f"[9g]   {what}: {cond}")
+        if not cond:
+            raise AssertionError(f"--ecm-goldens failed: {what}")
+
+    def found(out):
+        return [ln for ln in out.splitlines() if "batched: " in ln]
+
+    for name, argv, factor, stage in ECM_SLOW_GOLDENS:
+        tag = name.replace(" ", "-")
+        rc, out, j, dt = app_main_here(root, card, tag, argv, phase="9g")
+        got = ecm_found(out)
+        log(f"[9g] {name} batched: (factor, curve, stage) {got} in "
+            f"{dt:.3f} s; {found(out)} ({card})")
+        expect(f"{name} batched: {factor}"
+               f"{f' in stage {stage}' if stage else ''}", rc == 0 and
+               got is not None and got[0] == factor and
+               (not stage or got[2] == stage) and len(found(out)) == 1)
+    for name, argv, factor, stage in ECM_SLOW_GOLDENS:
+        tag = name.replace(" ", "-")
+        forms = [("classic", argv, NO_BATCH)]
+        if name.startswith("M701"):
+            forms.append(("fft3161", argv + ["-arith", "fft3161"], None))
+        for form, args, env in forms:
+            rc, out, j, dt = app_main_here(root, card, f"{tag}-{form}",
+                                           args, env=env, phase="9g")
+            got = ecm_found(out)
+            log(f"[9g] {name} {form} loop: (factor, curve, stage) {got} in "
+                f"{dt:.3f} s ({card})")
+            expect(f"{name} {form} loop: {factor}", rc == 0 and
+                   got is not None and got[0] == factor and not found(out))
+    log(f"[9g] --ecm-goldens in {time.perf_counter() - t0:.3f} s")
 
 
 # phase 10: the second arithmetic (fft3161): K10-K12 (csrc/f3_ntt.cu) and
@@ -1699,6 +2041,12 @@ def main(argv) -> int:
         return 0
     if "--modes-only" in argv:
         modes_drive(root, dev, card, full="--pm1-full" in argv)
+    if "--ecm-goldens" in argv:
+        ecm_goldens(root, dev, card)
+    if "--ecm-kernel-plan" in argv:
+        ecm_kernel_plan(root, card)
+    if any(a in argv for a in ("--modes-only", "--ecm-goldens",
+                               "--ecm-kernel-plan")):
         print(card)
         return 0
     if "--mesh-only" in argv:

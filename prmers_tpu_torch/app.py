@@ -32,10 +32,11 @@ runs the second arithmetic, engine/engine3161.Engine3161, which may take
 an exponent past MAX_EXPONENT (:73-78); every run with an exponent logs
 its "Arithmetic path" line (_log_arith_decision, :38-57); -profile wraps
 each engine create_engine makes (core/profile) and logs their op counts
-and calibrated ms/op when the run ends (:81-89). Not ported yet, and
-stopped with a message saying so before any engine is made, rather than
-run under a flag that asked otherwise: -gui (the web GUI; ROADMAP queue
-1 item 9).
+and calibrated ms/op when the run ends (:81-89). -gui starts the web GUI
+(ui/webgui, the JAX package's, on -gui-port) on rank 0 for the whole of
+run_app, as :241-246 do: the Arithmetic path line gives it the
+arithmetic, the transform size and the reason, and the worktodo loop the
+exponent and mode of each entry.
 
 Under torchrun (or the JAX package's PRMERS_COORDINATOR variables) each
 process joins the group first (parallel/dist.init_from_env, as :291
@@ -71,6 +72,7 @@ from .modes.memtest import run_memtest
 from .modes.pm1 import run_pm1
 from .modes.prp_ll import run_prp_or_ll
 from .parallel import dist
+from .ui.webgui import WebGui
 
 
 class LogTee:
@@ -123,16 +125,10 @@ def _merge_worktodo(opts: Options, entry) -> Options:
     return opts
 
 
-def _refuse_unported(opts) -> None:
-    """Stop, before any engine, a run that asks for what is not ported."""
-    if opts.gui:
-        raise SystemExit("-gui is not yet ported to prmers_tpu_torch")
-
-
-def _log_arith_decision(opts, log) -> None:
-    """The "Arithmetic path" line (prmers_tpu/core/app.py:38-57, without
-    the GUI card): the forced arithmetic, or decide_arith's choice and
-    reason from the tune records in -save-dir."""
+def _log_arith_decision(opts, log, gui=None) -> None:
+    """The "Arithmetic path" line (prmers_tpu/core/app.py:38-57): the
+    forced arithmetic, or decide_arith's choice and reason from the tune
+    records in -save-dir; the GUI's backend card gets the same."""
     if opts.exponent <= 0 or opts.mode in ("bench", "tune", "memtest"):
         return
     try:
@@ -142,17 +138,20 @@ def _log_arith_decision(opts, log) -> None:
             if opts.arith == "auto" else None
         arith = opts.arith if opts.arith != "auto" else d.arith
         reason = "forced by -arith" if opts.arith != "auto" else d.reason
+        n = d.n_3161 if (d and arith == "fft3161") else (
+            d.n_gl64 if d else 0)
         log(f"Arithmetic path: {arith} ({reason})" +
             (f" | n_gl64={d.n_gl64} n_3161={d.n_3161} "
              f"ratio={d.ratio:.2f}" if d else ""))
+        if gui is not None:
+            gui.set_backend_info(arith, n, reason)
     except Exception:   # telemetry must never block a run
         pass
 
 
-def run(opts, device=None, log=print):
+def run(opts, device=None, log=print, gui=None):
     """One workload (prmers_tpu/core/app.py:run_once); returns (result,
     json_line), the line empty for -bench, -memtest and -tune."""
-    _refuse_unported(opts)
     if opts.save_dir:
         os.makedirs(opts.save_dir, exist_ok=True)
     if opts.exponent > MAX_EXPONENT and opts.arith != "fft3161":
@@ -162,7 +161,7 @@ def run(opts, device=None, log=print):
             f"Exponent {opts.exponent} out of range: the largest "
             f"supported transform (5*2^26) caps at {MAX_EXPONENT}")
     set_profiling(bool(opts.profile))
-    _log_arith_decision(opts, log)
+    _log_arith_decision(opts, log, gui)
     try:
         return _run(opts, device, log)
     finally:
@@ -283,12 +282,29 @@ def run_app(opts, log=print, device=None) -> int:
             return 1
         log(f"GMP ECM file written to: {out}")
         return 0
+    gui = None
+    if opts.gui and dist.is_primary():
+        gui = WebGui(opts)
+        gui.start()
+        log(f"web GUI on http://localhost:{opts.gui_port}")
+    try:
+        return _run_app(opts, log, device, gui)
+    finally:
+        if gui:
+            gui.stop()
+
+
+def _run_app(opts, log, device, gui) -> int:
+    """run_app's worktodo loop or one run, with the GUI (or None) up."""
     wt = Worktodo(opts.worktodo_path)
     entry = wt.first_entry()
     if entry is not None and opts.exponent == 0:
         while entry is not None:
             _merge_worktodo(opts, entry)
-            _r, j = run(opts, device=device, log=log)
+            if gui:
+                gui.set_state(status="running", exponent=opts.exponent,
+                              mode=opts.mode)
+            _r, j = run(opts, device=device, log=log, gui=gui)
             _record(opts, j, log)
             if dist.is_primary():
                 wt.remove_first_processed()
@@ -298,7 +314,7 @@ def run_app(opts, log=print, device=None) -> int:
     if opts.exponent == 0 and opts.mode not in ("bench", "tune", "memtest"):
         log("nothing to do: no exponent and no worktodo entries")
         return 2
-    r, j = run(opts, device=device, log=log)
+    r, j = run(opts, device=device, log=log, gui=gui)
     _record(opts, j, log)
     if opts.mode in ("bench", "tune", "memtest"):
         errs = getattr(r, "errors", 0) + getattr(r, "roundtrip_errors", 0)

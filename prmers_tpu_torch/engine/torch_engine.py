@@ -88,7 +88,8 @@ def get_tables(plan: Plan, device: torch.device,
 
 
 # ---------------------------------------------------------------------------
-# The ops (jax_engine.py:37-101 and :273-334), each returning new tensors
+# The ops' carry (jax_engine.py:37-101 and :273-334); TorchEngine's methods
+# hold the transform
 # ---------------------------------------------------------------------------
 
 def _masks_of(t):
@@ -99,22 +100,6 @@ def _masks_of(t):
 
 def _carry(t, y, a, rounds):
     return carry_ops.carry_full(y, t.widths, t.masks, a, rounds=rounds)
-
-
-def _fwd(F, t, x):
-    return ntt.forward(F, t, F.lift(x))
-
-
-def _square(F, t, x, a, rounds):
-    s = _fwd(F, t, x)
-    y = F.lower(ntt.inverse(F, t, F.sqr(s)))
-    return _carry(t, y, a, rounds)
-
-
-def _mul(F, t, x, m, a, rounds):
-    s = _fwd(F, t, x)
-    y = F.lower(ntt.inverse(F, t, F.mul(s, F.lift(m.reshape(t.C, t.R)))))
-    return _carry(t, y, a, rounds)
 
 
 class CudaGraphs:
@@ -189,6 +174,27 @@ class TorchEngine(CudaGraphs, Engine):
     def _put(self, r: Reg, v: torch.Tensor) -> None:
         self.regs[r].copy_(v)
 
+    # -- the transform (BatchTorchEngine runs it on each lane) -------------
+    def _fwd(self, x: torch.Tensor):
+        """Digits -> the spectrum, (C, R) limbs."""
+        return ntt.forward(self.F, self.t, self.F.lift(x))
+
+    def _inv(self, s):
+        """The spectrum -> the unnormalized convolution, (n,) limbs."""
+        return ntt.inverse(self.F, self.t, s)
+
+    def _square(self, x: torch.Tensor, a: int, rounds: int) -> torch.Tensor:
+        F = self.F
+        y = F.lower(self._inv(F.sqr(self._fwd(x))))
+        return _carry(self.t, y, a, rounds)
+
+    def _mul(self, x: torch.Tensor, m: torch.Tensor, a: int,
+             rounds: int) -> torch.Tensor:
+        F, t = self.F, self.t
+        m = F.lift(m.reshape(m.shape[:-1] + (t.C, t.R)))
+        y = F.lower(self._inv(F.mul(self._fwd(x), m)))
+        return _carry(t, y, a, rounds)
+
     def _rounds(self, a: int) -> int:
         """Absorb rounds for a convolution times a (the bound of
         ntt.py:197-203, max_word * 9, for a <= 9)."""
@@ -212,35 +218,37 @@ class TorchEngine(CudaGraphs, Engine):
 
     def square_mul(self, src: Reg, a: int = 1) -> None:
         a = int(a)
-        F, t, r = self.F, self.t, self._rounds(a)
+        r = self._rounds(a)
         self._run(("sqr", src, a), lambda: self._put(
-            src, _square(F, t, self._get(src), a, r)))
+            src, self._square(self._get(src), a, r)))
 
     def square_mul_seq(self, src: Reg, a_vec: Sequence[int]) -> None:
         for a in a_vec:
             self.square_mul(src, a)
 
     def square_sub2_seq(self, src: Reg, count: int) -> None:
-        F, t, r = self.F, self.t, self._rounds(1)
+        t, r = self.t, self._rounds(1)
         delta = self._digits_vec((1 << self.p) - 3)
 
         def step():
-            x = _square(F, t, self._get(src), 1, r)
+            x = self._square(self._get(src), 1, r)
             self._put(src, _carry(t, x + delta, 1, r))
 
         for _ in range(count):
             self._run(("sub2", src), step)
 
     def set_multiplicand(self, dst: Reg, src: Reg) -> None:
-        F, t, n = self.F, self.t, self.plan.n
-        self._run(("fwd", dst, src), lambda: self._put(
-            dst, F.lower(_fwd(F, t, self._get(src))).reshape(n)))
+        def op():
+            x = self._get(src)
+            self._put(dst, self.F.lower(self._fwd(x)).reshape(x.shape))
+
+        self._run(("fwd", dst, src), op)
 
     def mul(self, dst: Reg, src: Reg, a: int = 1) -> None:
         a = int(a)
-        F, t, r = self.F, self.t, self._rounds(a)
+        r = self._rounds(a)
         self._run(("mul", dst, src, a), lambda: self._put(
-            dst, _mul(F, t, self._get(dst), self._get(src), a, r)))
+            dst, self._mul(self._get(dst), self._get(src), a, r)))
 
     def add(self, dst: Reg, src: Reg) -> None:
         t, r = self.t, self._rounds(1)

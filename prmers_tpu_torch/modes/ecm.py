@@ -19,10 +19,10 @@ x([mD]S) = x([j]S), i.e. f | X_m Z_j - X_j Z_m; the product of these
 cross-terms over primes in (B1, B2] goes to a gcd.
 
 Port: a copy of prmers_tpu/modes/ecm.py. Its changes: `device=` runs
-from run_ecm (and _backtrack_single) into create_engine, as in P-1; and
-_run_ecm_batch, whose BatchJaxEngine is not yet ported, logs where the
-reference would batch that the classic per-curve loop runs, and returns
-False (the reference's PRMERS_ECM_NO_BATCH path).
+from run_ecm (and _backtrack_single) into create_engine, as in P-1, and
+from run_ecm into _run_ecm_batch, which runs its lanes on
+engine/batch.BatchTorchEngine (the reference's BatchJaxEngine) and hands
+`device=` to the per-lane backtrack.
 """
 
 from __future__ import annotations
@@ -416,21 +416,154 @@ def _backtrack_single(opts: Options, x0: int, a24: int, n: int,
 
 
 def _run_ecm_batch(opts: Options, log, n: int, K: int, family: str,
-                   seed0: int, result: EcmResult, record) -> bool:
-    """SPMD curve batching (the JAX package's BatchJaxEngine, K curves as
-    lanes of one batched register file) is not yet ported: where the
-    reference would batch, say so and return False, which the caller
-    takes as "run the classic per-curve loop" (the reference's
-    PRMERS_ECM_NO_BATCH path)."""
+                   seed0: int, result: EcmResult, record,
+                   device=None) -> bool:
+    """SPMD curve batching: the whole stage-1 ladder and stage-2 BSGS
+    schedule is curve-independent, so K curves run as lanes of ONE
+    batched register file (TPU-first redesign of the reference's
+    sequential per-curve loop, src/modes/RunEcm.cpp:185). Host-divergent
+    events (gcd hits, backtracks, resume export, Prime95 handoff) are
+    resolved per lane. Returns False when batching is not worthwhile
+    (the caller falls back to the classic loop)."""
     if os.environ.get("PRMERS_ECM_NO_BATCH"):
         return False
     if opts.backend not in ("auto", "jax"):
         return False
     if getattr(opts, "arith", "auto") not in ("auto", "gl64"):
         return False
-    log("ECM: batched curves are not yet ported to prmers_tpu_torch; "
-        "running the classic per-curve loop")
-    return False
+    p = opts.exponent
+    D = _stage2_D(opts)
+    n_babies = len([j for j in range(1, D // 2 + 1)
+                    if math.gcd(j, D) == 1])
+    regs = ECM_BASE_REGS + 2 * n_babies + 2
+    from ..core.plan import cached_plan
+    n_words = cached_plan(p).n
+    budget = int(os.environ.get("PRMERS_ECM_BATCH_MEM", str(1 << 28)))
+    lanes = min(K, max(1, budget // max(regs * n_words * 8, 1)),
+                int(os.environ.get("PRMERS_ECM_BATCH_LANES", "64")))
+    if lanes < 2:
+        return False
+    from ..engine.batch import BatchTorchEngine
+    eng = BatchTorchEngine(p, regs, lanes, device=device)
+    m = MontOps(eng)
+    k1 = pr.build_e(opts.b1)
+    log(f"ECM batched: {lanes} curves per dispatch x "
+        f"{(K + lanes - 1) // lanes} batches")
+    c0 = 0
+    while c0 < K:
+        B = min(lanes, K - c0)
+        # (curve_idx, sigma, x0, a24) per live lane; construction
+        # factors are recorded immediately and the lane reused for a
+        # harmless duplicate of lane 0
+        lane_info: list = []
+        for li in range(lanes):
+            c = c0 + min(li, B - 1)
+            alive = li < B
+            try:
+                sigma, x0, a24 = _make_curve(family, seed0, c, opts, n)
+            except _FactorFound as f:
+                if alive and f.f and record(f.f, 0, 0, c):
+                    return True
+                sigma, x0, a24 = 0, 2, 3          # placeholder curve
+                alive = False
+            lane_info.append([c, sigma, x0, a24, alive])
+            eng.set_int(RA24, a24, li)
+            eng.set_int(RX0, x0, li)
+        m.ladder(k1)
+        want_s2 = False
+        for li, (c, sigma, x0, a24, alive) in enumerate(lane_info):
+            if not alive:
+                continue
+            g = gmp.gcd(eng.get_int(ZA, li) % n, n)
+            if g == n:
+                log(f"ECM curve {c}: gcd == N, backtracking stage 1")
+                g = _backtrack_single(opts, x0, a24, n, log,
+                                      device=device)
+            if 1 < g < n:
+                log(f"ECM curve {c} (sigma={sigma}) stage 1 factor {g}")
+                lane_info[li][4] = False
+                if record(g, 1, sigma, c):
+                    return True
+                continue
+            if g != 1:
+                lane_info[li][4] = False
+                continue
+            if opts.resume_save:
+                try:
+                    from ..io import interop
+                    za = eng.get_int(ZA, li) % n
+                    x_aff = gmp.mulmod(eng.get_int(XA, li) % n,
+                                       _inv_or_factor(za, n), n)
+                    if family == "suyama":
+                        interop.write_ecm_resume_ecm(
+                            opts.resume_save, opts.b1, p, x_aff,
+                            sigma=sigma)
+                    else:
+                        interop.write_ecm_resume_ecm(
+                            opts.resume_save, opts.b1, p, x_aff,
+                            a=(4 * a24 - 2) % n)
+                except _FactorFound:
+                    pass
+            want_s2 = True
+        if want_s2 and opts.b2 > opts.b1 and not (
+                getattr(opts, "p95_path", "")
+                and getattr(opts, "p95_stage2", True)):
+            _stage2_run(eng, m, opts, n, log)
+            for li, (c, sigma, x0, a24, alive) in enumerate(lane_info):
+                if not alive:
+                    continue
+                g = gmp.gcd(eng.get_int(RACC, li) % n, n)
+                if 1 < g < n:
+                    log(f"ECM curve {c} (sigma={sigma}) stage 2 "
+                        f"factor {g}")
+                    if record(g, 2, sigma, c):
+                        return True
+                else:
+                    log(f"ECM curve {c} (sigma={sigma}): no factor")
+        elif want_s2 and opts.b2 > opts.b1:
+            # external Prime95 stage 2, one handoff per live lane
+            from ..io import interop, p95
+            import tempfile
+            for li, (c, sigma, x0, a24, alive) in enumerate(lane_info):
+                if not alive:
+                    continue
+                try:
+                    za = eng.get_int(ZA, li) % n
+                    x_aff = gmp.mulmod(eng.get_int(XA, li) % n,
+                                       _inv_or_factor(za, n), n)
+                except _FactorFound as f:
+                    if f.f and record(f.f, 1, sigma, c):
+                        return True
+                    continue
+                with tempfile.TemporaryDirectory() as td:
+                    src = os.path.join(td, f"resume_p{p}_c{c}.save")
+                    if family == "suyama":
+                        interop.write_ecm_resume_ecm(src, opts.b1, p,
+                                                     x_aff, sigma=sigma)
+                    else:
+                        interop.write_ecm_resume_ecm(
+                            src, opts.b1, p, x_aff, a=(4 * a24 - 2) % n)
+                    rr = p95.run_ecm_stage2(
+                        opts.p95_path, p, opts.b2, src, curve_idx=c,
+                        known_factors=tuple(
+                            int(f) for f in opts.known_factors),
+                        log=log)
+                if rr.success:
+                    g = 0 if rr.known_factor else rr.factor
+                    if 1 < g < n:
+                        log(f"ECM curve {c} (sigma={sigma}) stage 2 "
+                            f"factor {g} (Prime95)")
+                        if record(g, 2, sigma, c):
+                            return True
+                else:
+                    log(f"[ECM] Prime95 Stage2 error: {rr.error}")
+        else:
+            for c, sigma, _x, _a, alive in lane_info:
+                if alive:
+                    log(f"ECM curve {c} (sigma={sigma}): no factor")
+        c0 += B
+    return True
+
 
 def run_ecm(opts: Options, log=print, device=None) -> EcmResult:
     """K curves of Montgomery ECM on M_p with deterministic sigma seeds."""
@@ -463,7 +596,7 @@ def run_ecm(opts: Options, log=print, device=None) -> EcmResult:
     if opts.sigma:
         family = "suyama"          # forced sigma implies the Suyama map
     if K > 1 and _run_ecm_batch(opts, log, n, K, family, seed0,
-                                result, record):
+                                result, record, device=device):
         result.elapsed = time.monotonic() - t0
         if not result.factor:
             log("[ECM] No factor found")

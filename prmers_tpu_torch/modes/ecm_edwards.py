@@ -30,8 +30,8 @@ works exactly like Montgomery x-coordinates).
 
 Port: a copy of prmers_tpu/modes/ecm_edwards.py. Its changes, as in
 ecm.py: `device=` runs from run_ecm_edwards (and _backtrack_single_ed)
-into create_engine; _run_edwards_batch logs that batched curves are not
-yet ported and returns False, so the classic per-curve loop runs.
+into create_engine, and into _run_edwards_batch, whose lanes run on
+engine/batch.BatchTorchEngine (the reference's BatchJaxEngine).
 """
 
 from __future__ import annotations
@@ -692,10 +692,14 @@ class BatchEdOps(EdOps):
 
 
 def _run_edwards_batch(opts: Options, log, n: int, K: int,
-                       result: EcmResult, record) -> bool:
-    """SPMD curve batching for the twisted-Edwards driver (ecm.py's
-    _run_ecm_batch): not yet ported. Where the reference would batch, say
-    so and return False, so the classic per-curve loop runs."""
+                       result: EcmResult, record,
+                       device=None) -> bool:
+    """SPMD curve batching for the twisted-Edwards driver (same design
+    as ecm._run_ecm_batch): one batched register file runs every curve's
+    identical dbl/add schedule; divergent host events resolve per lane.
+    An invariant failure anywhere aborts batching (the classic loop's
+    per-curve replay machinery takes over). Returns False when batching
+    is not applicable."""
     import os
     if os.environ.get("PRMERS_ECM_NO_BATCH"):
         return False
@@ -705,9 +709,111 @@ def _run_edwards_batch(opts: Options, log, n: int, K: int,
         return False
     if getattr(opts, "invariant_error_iter", 0):
         return False                # injection exercises the classic path
-    log("ECM-Edwards: batched curves are not yet ported to "
-        "prmers_tpu_torch; running the classic per-curve loop")
-    return False
+    p = opts.exponent
+    from .ecm import _stage2_D
+    D = _stage2_D(opts)
+    n_babies = len([j for j in range(1, D // 2 + 1)
+                    if math.gcd(j, D) == 1])
+    regs = ED_BASE_REGS + 2 * n_babies + 2
+    from ..core.plan import cached_plan
+    n_words = cached_plan(p).n
+    budget = int(os.environ.get("PRMERS_ECM_BATCH_MEM", str(1 << 28)))
+    lanes = min(K, max(1, budget // max(regs * n_words * 8, 1)),
+                int(os.environ.get("PRMERS_ECM_BATCH_LANES", "64")))
+    if lanes < 2:
+        return False
+    from ..engine.batch import BatchTorchEngine
+    eng = BatchTorchEngine(p, regs, lanes, device=device)
+    seed0 = opts.curve_seed or 0x5EED
+    check_every = getattr(opts, "ecm_check_interval", 0) or 0
+    torsion = getattr(opts, "torsion", 0)
+    use_t16 = torsion == 16
+    use_iv163 = torsion == 163
+    k1 = pr.build_e(opts.b1)
+    log(f"ECM-Edwards batched: {lanes} curves per dispatch x "
+        f"{(K + lanes - 1) // lanes} batches")
+    c0 = 0
+    while c0 < K:
+        B = min(lanes, K - c0)
+        lane_info = []
+        for li in range(lanes):
+            c = c0 + min(li, B - 1)
+            seed = splitmix64(seed0 + c)
+            alive = li < B
+            try:
+                if use_t16:
+                    x0, y0, d = torsion16_curve(seed, n)
+                elif use_iv163:
+                    x0, y0, d = family_iv163_curve(seed, n)
+                else:
+                    x0, y0, d = edwards_curve(seed, n)
+            except _FactorFound as f:
+                if alive and f.f and record(f.f, 0, seed, c):
+                    return True
+                x0, y0, d = 0, 1, 1           # neutral placeholder
+                alive = False
+            lane_info.append([c, seed, x0, y0, d, alive])
+        ops = BatchEdOps(eng, n, [i[4] for i in lane_info],
+                         a_sign=1 if use_t16 else -1)
+        pts = [(i[2], i[3]) for i in lane_info]
+        ops.set_affine_lanes(pts)
+        ops.prep_quad_host_lanes(BQ0, pts)
+        live = [i[5] for i in lane_info]
+        since = 0
+        for i in range(k1.bit_length() - 2, -1, -1):
+            ops.dbl()
+            if (k1 >> i) & 1:
+                ops.add_quad(BQ0)
+            since += 1
+            if check_every and since >= check_every:
+                if not ops.invariant_ok_lanes(live):
+                    log("ECM-Edwards batched: invariant check FAILED — "
+                        "falling back to the per-curve loop")
+                    return False
+                since = 0
+        if check_every and not ops.invariant_ok_lanes(live):
+            log("ECM-Edwards batched: final invariant check FAILED — "
+                "falling back to the per-curve loop")
+            return False
+        want_s2 = False
+        for li, (c, seed, x0, y0, d, alive) in enumerate(lane_info):
+            if not alive:
+                continue
+            g = gmp.gcd(eng.get_int(EX, li) % n, n)
+            if g == n:
+                log(f"ECM-Edwards curve {c}: gcd == N, backtracking "
+                    "stage 1")
+                g = _backtrack_single_ed(opts, n, x0, y0, d,
+                                         1 if use_t16 else -1,
+                                         device=device)
+                lane_info[li][5] = False
+            if 1 < g < n:
+                log(f"ECM-Edwards curve {c} stage 1 factor {g}")
+                if record(g, 1, seed, c):
+                    return True
+                lane_info[li][5] = False      # this curve is done
+                continue
+            if lane_info[li][5]:
+                want_s2 = True
+        if want_s2 and opts.b2 > opts.b1:
+            _stage2_run(ops, opts, n, log)
+            for li, (c, seed, x0, y0, d, alive) in enumerate(lane_info):
+                if not alive:
+                    continue
+                g = gmp.gcd(eng.get_int(RACC, li) % n, n)
+                if 1 < g < n:
+                    log(f"ECM-Edwards curve {c} stage 2 factor {g}")
+                    if record(g, 2, seed, c):
+                        return True
+                    continue
+                log(f"ECM-Edwards curve {c}: no factor")
+        else:
+            for c, seed, _x, _y, _d, alive in lane_info:
+                if alive:
+                    log(f"ECM-Edwards curve {c}: no factor")
+        c0 += B
+    return True
+
 
 def _backtrack_single_ed(opts: Options, n: int, x0: int, y0: int,
                          d: int, a_sign: int, device=None) -> int:
@@ -748,7 +854,8 @@ def run_ecm_edwards(opts: Options, log=print,
                 "(-ecm-continue-after-factor keeps the remaining curves)")
         return not keep_going
 
-    if K > 1 and _run_edwards_batch(opts, log, n, K, result, record):
+    if K > 1 and _run_edwards_batch(opts, log, n, K, result, record,
+                                    device=device):
         result.elapsed = time.monotonic() - t0
         if not result.factor:
             log("[ECM] No factor found")

@@ -43,24 +43,26 @@ _M32 = 0xFFFFFFFF
 
 
 def _prefix_scan(g: torch.Tensor, p: torch.Tensor):
-    """Inclusive scan of (g, p) under (earlier a, later b) ->
-    (g_b | (p_b & g_a), p_b & p_a), for g and p never both set (a digit
-    that generates a carry does not propagate one): G[j] is g at the last
-    position <= j that does not propagate (False if none), and P[j] is
-    whether every position <= j propagates. The last such position is a
-    running maximum, taken within rows of up to 1024 digits and then
-    across the rows' last values: torch's cummax along one long row runs
-    in a single thread block."""
-    n = g.shape[0]
+    """Inclusive scan along the last axis of (g, p) under (earlier a,
+    later b) -> (g_b | (p_b & g_a), p_b & p_a), for g and p never both set
+    (a digit that generates a carry does not propagate one): G[..., j] is g
+    at the last position <= j that does not propagate (False if none), and
+    P[..., j] is whether every position <= j propagates. The last such
+    position is a running maximum, taken within rows of up to 1024 digits
+    and then across the rows' last values: torch's cummax along one long
+    row runs in a single thread block. Leading axes are independent
+    vectors (the lanes of the batched engine)."""
+    lead, n = g.shape[:-1], g.shape[-1]
     idx = torch.arange(n, device=g.device)
-    last = torch.cummax(torch.where(p, -1, idx).reshape(-1, math.gcd(n, 1024)),
-                        1).values
-    if last.shape[0] > 1:
-        rows = torch.cummax(last[:, -1], 0).values
-        last[1:] = torch.maximum(last[1:], rows[:-1, None])
-    last = last.reshape(n)
+    last = torch.cummax(torch.where(p, -1, idx).reshape(
+        lead + (-1, math.gcd(n, 1024))), -1).values
+    if last.shape[-2] > 1:
+        rows = torch.cummax(last[..., -1], -1).values
+        last[..., 1:, :] = torch.maximum(last[..., 1:, :],
+                                         rows[..., :-1, None])
+    last = last.reshape(lead + (n,))
     P = last < 0
-    G = g[last.clamp(min=0)] & ~P
+    G = torch.gather(g, -1, last.clamp(min=0)) & ~P
     return G, P
 
 
@@ -102,7 +104,7 @@ def carry_full(y: torch.Tensor, widths: torch.Tensor,
                rounds: int | None = None) -> torch.Tensor:
     """Exact normalization of y (n,) int64 (u64 bit patterns) times a:
     digits d[j] < 2^widths[j] with the value (sum y_j 2^(q_j)) * a mod
-    M_p. a < 2^16, as the reference requires, so every intermediate fits
+    M_p; y (..., n) normalizes each vector along its last axis. a < 2^16, as the reference requires, so every intermediate fits
     64 bits. rounds: the absorb rounds (absorb_rounds of a bound on y * a)
     in place of the loop while any carry exceeds 1."""
     if not 0 < a < (1 << 16):
@@ -123,9 +125,9 @@ def carry_full(y: torch.Tensor, widths: torch.Tensor,
         ch = ch * a + (lo >> 32)
         d = t & masks
     # the first round, s = d + roll(c): ch * 2^32 >> w is ch << (32 - w)
-    lo = d + torch.roll(cl, 1)
+    lo = d + torch.roll(cl, 1, -1)
     d = lo & masks
-    c = (lo >> widths) + (torch.roll(ch, 1) << (32 - widths))
+    c = (lo >> widths) + (torch.roll(ch, 1, -1) << (32 - widths))
     return settle(c, d, widths, masks,
                   None if rounds is None else rounds - 1)
 
@@ -137,7 +139,7 @@ def settle(c: torch.Tensor, d: torch.Tensor, widths: torch.Tensor,
     more absorb rounds (None: while any carry exceeds 1), then the
     lookahead. widths and masks int64."""
     def inject(c, d):
-        t = d + torch.roll(c, 1)
+        t = d + torch.roll(c, 1, -1)
         return t >> widths, t & masks
 
     if rounds is None:
@@ -147,11 +149,11 @@ def settle(c: torch.Tensor, d: torch.Tensor, widths: torch.Tensor,
         for _ in range(rounds):
             c, d = inject(c, d)
 
-    s = d + torch.roll(c, 1)           # <= mask + 1
+    s = d + torch.roll(c, 1, -1)       # <= mask + 1
     g = s > masks                      # generates an out-carry
     p = s == masks                     # propagates an in-carry
     G, Pr = _prefix_scan(g, p)
-    x0 = G[-1]                         # cyclic fixed point (total G)
-    cin = torch.roll(G, 1) | (torch.roll(Pr, 1) & x0)
-    cin[0] = x0
+    x0 = G[..., -1:]                   # cyclic fixed point (total G)
+    cin = torch.roll(G, 1, -1) | (torch.roll(Pr, 1, -1) & x0)
+    cin[..., :1] = x0
     return (s + cin.to(torch.int64)) & masks

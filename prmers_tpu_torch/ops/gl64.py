@@ -222,7 +222,8 @@ _CARRY_TO = [[0, 0, 0, -1], [1, 0, 0, 0], [0, 1, 0, 1], [0, 0, 1, 0]]
 class Limbs:
     """A tensor of field values as (4, *shape) float64 limbs with a bound on
     every limb's magnitude. It takes the reshapes, indexing and .T that
-    ops/ntt.py applies to its arrays, on the logical shape."""
+    ops/ntt.py applies to its arrays, and the swapaxes of the batched
+    engine's lane forms (engine/batch.py), on the logical shape."""
 
     def __init__(self, d: torch.Tensor, bound: int):
         self.d = d
@@ -245,6 +246,10 @@ class Limbs:
     def T(self):
         assert self.d.dim() == 3, "Limbs.T is the transpose of a matrix"
         return Limbs(self.d.transpose(1, 2), self.bound)
+
+    def swapaxes(self, a: int, b: int):
+        nd = self.d.dim() - 1
+        return Limbs(self.d.transpose(a % nd + 1, b % nd + 1), self.bound)
 
 
 class _LimbNamespace:

@@ -17,6 +17,10 @@ and printing one JSON line:
                      cases a-n, each computed by a kernel (probe_shapes)
   probe_bitcast      tools/probe_bitcast.py: the byte order of u32 -> int8
 
+and tools/validation_matrix.py's twin, `validation_matrix`, which runs no
+kernel of its own: every mode on every backend and arithmetic, outcomes
+compared (PRMERS_PLATFORM=cpu runs its CPU columns without a card).
+
 Every tool needs a card and raises without one. A kernel's time is taken
 by CUDA events around each launch queued behind a device sleep (device
 time, not the host's enqueue), beside its bound: the larger of its bytes

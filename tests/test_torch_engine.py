@@ -300,24 +300,39 @@ def test_cli_writes_results_json_and_log(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv", [["-filemers", "m.mers"], ["-gui"]])
 def test_cli_refuses_filemers_and_gui(argv, tmp_path, monkeypatch, capsys):
-    """-gui is not ported: the run stops with a message before any engine
-    is made, instead of running a PRP. -filemers is (through
-    io/interop.convert_mers_to_save, tests/test_torch_modes.py): it
-    converts and exits, so a missing .mers file ends the run with the
-    reference's "-filemers failed" and exit code 1, and no engine either."""
-    made = []
+    """-filemers converts and exits (through io/interop.convert_mers_to_save,
+    tests/test_torch_modes.py), so a missing .mers file ends the run with
+    the reference's "-filemers failed" and exit code 1, and no engine.
+    -gui, no longer refused, runs the (stubbed) PRP with the web GUI up on
+    its -gui-port: the GUI's line is logged, /api/state answers during the
+    run with the exponent, and the server is down after it."""
+    import socket
+    import urllib.request
+    made, states = [], []
     app = _stub_run(monkeypatch, made)
     monkeypatch.chdir(tmp_path)
     argv_all = [str(P_EXP), "-noproof", "-save-dir", str(tmp_path), *argv]
     if argv[0] == "-filemers":
         assert app.main(argv_all) == 1
         assert "-filemers failed" in capsys.readouterr().out
-    else:
-        with pytest.raises(SystemExit) as exc:
-            app.main(argv_all)
-        assert "not yet ported to prmers_tpu_torch" in exc.value.code
-        assert argv[0] in exc.value.code
-    assert made == []
+        assert made == []
+        return
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    url = f"http://127.0.0.1:{port}/api/state"
+    prp_run = app.run_prp_or_ll
+
+    def run_with_gui(opts, **kw):
+        with urllib.request.urlopen(url, timeout=10) as r:
+            states.append(json.loads(r.read()))
+        return prp_run(opts, **kw)
+    monkeypatch.setattr(app, "run_prp_or_ll", run_with_gui)
+    assert app.main(argv_all + ["-gui-port", str(port)]) == 0
+    assert f"web GUI on http://localhost:{port}" in capsys.readouterr().out
+    assert len(made) == 1 and [s["exponent"] for s in states] == [P_EXP]
+    with pytest.raises(OSError):
+        urllib.request.urlopen(url, timeout=10)
 
 
 @pytest.mark.parametrize("name,value", [("PRMERS_NO_PALLAS", "1"),

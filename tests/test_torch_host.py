@@ -132,6 +132,7 @@ COPIES = {
         "ProofSet.__init__", "ProofSet.checkpoint",
         "ProofSet.checkpoint_engine", "ProofSet._write_shards"}},
     "utils/primes.py": {},
+    "ui/webgui.py": {},
     "io/interop.py": {},
     "io/p95.py": {},
     "modes/memtest.py": {"changed": {"run_memtest"}},
@@ -206,3 +207,25 @@ def test_copies_are_the_originals(rel):
     with open(os.path.join(root, "prmers_tpu_torch", rel)) as f:
         head = f.read(4000)
     assert ("Port: a copy of prmers_tpu/" + rel in head) == bool(spec)
+
+
+def test_matrix_cases_and_fingerprint_are_the_originals():
+    """The port's validation matrix (prmers_tpu_torch/tools/
+    validation_matrix.py) runs the reference's cases
+    (tools/validation_matrix.py) and compares by its fingerprint: both
+    definitions equal the originals', and the cases of both profiles are
+    the same values."""
+    import importlib.util
+    import os
+    from prmers_tpu_torch.tools import validation_matrix as tvm
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ref_path = os.path.join(root, "tools", "validation_matrix.py")
+    a = _definitions(ref_path)
+    b = _definitions(tvm.__file__)
+    for name in ("cases", "fingerprint"):
+        assert a[name] == b[name], name
+    spec = importlib.util.spec_from_file_location("_ref_matrix", ref_path)
+    jvm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jvm)
+    for profile in ("quick", "standard"):
+        assert list(tvm.cases(profile)) == list(jvm.cases(profile))

@@ -6,8 +6,10 @@ neither jax nor prmers_tpu in sys.modules, and so does one squaring
 through the any-size engine, one through the numpy oracle and one
 through the fft3161 engine (Engine3161 on the CPU; the policy, tune and
 profile modules among those imported), a P-1 of
-M541 and an Edwards ECM run of M37 (the modes, host paging, the interop
-files and the prime sieve among the modules imported). The
+M541 and an Edwards ECM run of M37 on its curve-batched engine (the
+modes, host paging, the interop files, the prime sieve, the batched
+engine, the web GUI and the validation matrix among the modules
+imported). The
 machine with the CUDA card has no jax at all, and the port keeps its own
 copies of the host modules it needs."""
 
@@ -51,7 +53,8 @@ for name in ("modes.pm1", "modes.ecm", "modes.ecm_edwards", "modes.memtest",
              "modes.bench", "engine.paged", "io.interop", "io.p95",
              "utils.primes", "app", "core.field2", "ops.ntt2",
              "engine.engine3161", "engine.policy", "core.tune",
-             "core.profile"):
+             "core.profile", "engine.batch", "ui.webgui",
+             "tools.validation_matrix"):
     assert "prmers_tpu_torch." + name in sys.modules, name
 import tempfile
 from prmers_tpu_torch.io.options import Options
@@ -61,10 +64,13 @@ d = tempfile.mkdtemp()
 r = run_pm1(Options(exponent=541, mode="pm1", b1=899, backend="jax",
                     save_dir=d), log=lambda *a, **k: None, device="cpu")
 assert r.factor == 4312790327
+said = []
 r = run_ecm_edwards(Options(exponent=37, mode="ecm", b1=20, b2=400,
                             curves=6, curve_seed=3, save_dir=d),
-                    log=lambda *a, **k: None, device="cpu")
+                    log=lambda *a, **k: said.append(str(a[0])),
+                    device="cpu")
 assert r.factor == 223
+assert "ECM-Edwards batched: 6 curves per dispatch x 1 batches" in said
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 print("JAXMODS", bad)
 ref = sorted(k for k in sys.modules

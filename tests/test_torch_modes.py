@@ -164,29 +164,56 @@ def test_filemers(tmp_path, monkeypatch):
     assert os.path.getsize(want) > 100
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get_state(port: int) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/state",
+                                timeout=10) as r:
+        return json.loads(r.read())
+
+
 @pytest.mark.parametrize("argv", [["-tune"], ["127", "-profile"],
                                   ["127", "-gui"],
                                   ["127", "-arith", "fft3161"]])
 def test_unported_stop_before_any_engine(argv, tmp_path, monkeypatch,
                                         on_cpu):
-    """-gui stops with "not yet ported" before any engine is made. The
-    rest, once stopped here too, run: -tune with no exponent goes to
-    core/tune.run_tune (stubbed: the whole ladder is the card's work) and
-    makes no engine here; -profile runs M127 on a ProfiledEngine; -arith
-    fft3161 runs M127 on Engine3161."""
+    """Flags once stopped here before any engine, now each run: -gui runs
+    M127 with the web GUI on a free port, whose /api/state answers during
+    the run (asked when the engine is made) with the exponent and the
+    Arithmetic path's choice, and is down once the run ends; -tune with
+    no exponent goes to core/tune.run_tune (stubbed: the whole ladder is
+    the card's work) and makes no engine here; -profile runs M127 on a
+    ProfiledEngine; -arith fft3161 runs M127 on Engine3161."""
     from prmers_tpu_torch.core.profile import ProfiledEngine
     from prmers_tpu_torch.engine import factory
     from prmers_tpu_torch.engine.engine3161 import Engine3161
-    made, tuned = [], []
-    monkeypatch.setattr(tapp, "create_engine", lambda *a, **k: made.append(
-        factory.create_engine(*a, **k)) or made[-1])
+    from prmers_tpu_torch.engine.torch_engine import TorchEngine
+    made, tuned, states = [], [], []
+    port = _free_port()
+
+    def engine(*a, **k):
+        if "-gui" in argv:
+            states.append(_get_state(port))
+        made.append(factory.create_engine(*a, **k))
+        return made[-1]
+    monkeypatch.setattr(tapp, "create_engine", engine)
     monkeypatch.setattr(tapp, "run_tune", lambda opts, log=print,
                         device=None: tuned.append(opts.exponent) or {})
     argv = argv + ["-save-dir", str(tmp_path)]
     if "-gui" in argv:
-        with pytest.raises(SystemExit, match="not yet ported"):
-            tapp.main(argv)
-        assert made == []
+        assert tapp.main(argv + ["-gui-port", str(port)]) == 0
+        assert [type(e) for e in made] == [TorchEngine]
+        assert len(states) == 1 and states[0]["exponent"] == 127
+        assert states[0]["backend"] == "gl64"
+        assert states[0]["transform_size"] == 8
+        with pytest.raises(OSError):
+            _get_state(port)
         return
     assert tapp.main(argv) == 0
     want = {"-tune": [], "-profile": [ProfiledEngine],
