@@ -104,8 +104,9 @@ Phases; any failure raises and the script exits non-zero with no result:
      output written once) over 3.35 TB/s and its mod-P products, 64 int8
      MACs = 128 int8 operations each in the JAX package's limb-plane form,
      over 1,979 TOP/s. No PyTorch call computes a Goldilocks product, so
-     library_ms is null but for probe_shapes, whose int8 dot cases b and
-     e torch._int_mm computes (phase 7);
+     library_ms is null but for probe_shapes, each of whose cases has a
+     one-call twin (torch._int_mm for the int8 dots b, e and n, a copy,
+     concatenation, slice, sum or add for the others; phase 7);
   5. the PRP/LL driver in this process on the CLI's engine (K9), stopped
      (its Ctrl-C path) 20000 squarings before the end, leaves a
      checkpoint; then `python -m prmers_tpu_torch 756839 -proofverify`
@@ -579,8 +580,8 @@ def tools_drive(dev, card):
     136279841, the microbenchmarks, the probes), the wrapper counts of
     their run (reset just before, read just after; each > 0), then every
     timed launch held against its plain version; returns (the checked
-    Timed, the counts, torch._int_mm's ms on the shape probe's dot cases
-    b and e)."""
+    Timed, the counts, the ms of each shape case's one-call PyTorch twin:
+    torch._int_mm on the dots b, e and n)."""
     import torch
     from prmers_tpu_torch import tools
     from prmers_tpu_torch.ops import kernels as tk
@@ -591,14 +592,27 @@ def tools_drive(dev, card):
     t1 = time.perf_counter()
     tk.reset_calls()
     pr.reset_calls()
-    _t, passes = profile_passes.measure(P_MAIN, reps=10)
-    _t, axis, moves = profile_passes.measure_axis(reps=10)
-    mm = microbench.matmul_rates(dev)
-    mb, rates = microbench.measure()
-    mf, per_el = microbench_fields.measure()
-    ps, int_mm = probe_shapes.measure()
-    pb, order, col = probe_bitcast.measure()
-    torch.cuda.synchronize()
+    secs = {}
+
+    def run(name, fn):
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name] = round(time.perf_counter() - t, 3)
+        return r
+
+    t7, passes = run("passes", lambda: profile_passes.measure(P_MAIN,
+                                                              reps=10))
+    s8b = profile_passes.s8_bytes(t7)
+    del t7
+    _t, axis, moves = run("axis", lambda: profile_passes.measure_axis(
+        reps=10))
+    mm = run("matmul", lambda: microbench.matmul_rates(dev))
+    mb, rates = run("microbench", microbench.measure)
+    mf, per_el = run("fields", microbench_fields.measure)
+    ps, library = run("shapes", probe_shapes.measure)
+    pb, order, col = run("bitcast", probe_bitcast.measure)
+    log(f"[7] seconds by tool: {secs}")
     calls = {**tk.calls, **pr.calls}
     log(f"[7] tools' run in {time.perf_counter() - t1:.3f} s; wrapper calls "
         f"{calls}")
@@ -607,7 +621,10 @@ def tools_drive(dev, card):
                if calls[k] <= 0]
     if missing:
         raise AssertionError(f"not launched in phase 7: {missing}")
+    t = time.perf_counter()
     timed7 = tools.check(passes + axis + mb + mf + ps + [pb])
+    log(f"[7] the plain versions and checks in "
+        f"{time.perf_counter() - t:.3f} s")
     for r in moves:
         log(f"[7]   move-only body {r['what']}: {r['ms']:.6f} ms, bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}) ({card})")
@@ -623,15 +640,22 @@ def tools_drive(dev, card):
             f"rep and element, {r['rate_G_per_s']} G/s ({card})")
     log(f"[7] fft3161 word vs two gl64 words: "
         f"{microbench_fields.ratios(per_el)} ({card})")
-    log(f"[7] torch._int_mm on cases b, e: {int_mm} ms; bitcast order "
-        f"{order} {col} ({card})")
-    dots = {e.what.split()[0]: e.ms for e in timed7
-            if e.kernel == "probe_shapes" and e.what.split()[0] in int_mm}
-    log(f"[7] probe_shapes on the same cases b, e: {dots} ms, sum "
-        f"{sum(dots.values()):.6f} against torch._int_mm's "
-        f"{sum(int_mm.values()):.6f} ({card})")
+    log(f"[7] bitcast order {order} {col} ({card})")
+    log(f"[7] K4u/K5u matrix form's int8 tables, bytes: {s8b} ({card})")
+    for e in timed7:
+        if e.kernel == "probe_shapes":
+            case = e.what.split()[0]
+            lib = "torch._int_mm" if case in "ben" else "one-call twin"
+            log(f"[7] probe_shapes {case}: kernel {e.ms:.6f} ms, {lib} "
+                f"{library[case]:.6f} ms, bound {e.bound_ms:.6f} ms "
+                f"({e.bound_by}) ({card})")
+    slow = [c for c in "be" if library[c] < min(
+        e.ms for e in timed7 if e.kernel == "probe_shapes"
+        and e.what.startswith(c + " "))]
+    log(f"[7] dots b and e slower than torch._int_mm: {slow or 'none'} "
+        f"({card})")
     log(f"[7] phase 7 in {time.perf_counter() - t1:.3f} s")
-    return timed7, calls, int_mm
+    return timed7, calls, library
 
 
 def mm31(dev, card) -> None:
@@ -2026,9 +2050,9 @@ def main(argv) -> int:
         print(card)
         return 0
     if "--tools-only" in argv:
-        timed7, calls, _int_mm = tools_drive(dev, card)
+        timed7, calls, library = tools_drive(dev, card)
         print(json.dumps({"tools": [e.row() for e in timed7],
-                          "calls": calls}))
+                          "calls": calls, "library_ms": library}))
         print(card)
         return 0
     if "--anysize-only" in argv:
@@ -2808,7 +2832,7 @@ def main(argv) -> int:
 
     mark(7)
     # ---- 7: the tools: the pass profiler, microbenchmarks, probes ---------
-    timed7, counts["tools"], int_mm = tools_drive(dev, card)
+    timed7, counts["tools"], library7 = tools_drive(dev, card)
 
     def fold(entry, sel, how):
         """A row from phase 7's Timed: mean (or sum) of the selected."""
@@ -2857,10 +2881,11 @@ def main(argv) -> int:
                 "launches": counts[path][name], "max_abs_err": errs[entry],
                 "ms": ms[entry][0], "plain_ms": ms[entry][1],
                 "bound_ms": bounds[entry][0], "bound_by": bounds[entry][1],
-                # torch._int_mm on the int8 dot cases b and e, the only
-                # ones a library call computes; no PyTorch call computes
-                # a Goldilocks product, this carry or a GF(q^2) stage
-                "library_ms": (sum(int_mm.values())
+                # the shape cases' one-call twins, summed as their kernels'
+                # ms are (torch._int_mm for the dots, n's product alone);
+                # no PyTorch call computes a Goldilocks product, this
+                # carry or a GF(q^2) stage
+                "library_ms": (sum(library7.values())
                                if entry == "probe_shapes" else None)}
                for entry, name, path in ENTRIES]
     log(f"[smoke] total {time.perf_counter() - t_start:.3f} s")

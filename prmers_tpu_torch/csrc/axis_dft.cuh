@@ -1,9 +1,10 @@
 // The view, modes and arguments of the length-L axis DFT down one axis of
 // the (R1, R2, C) register, shared by axis_fft.cuh (the register-pass
 // shift butterflies of K1, K2's two r2 launches, K3a, both K4 launches,
-// K5 and K9's four axis phases), r2_split.cuh (the radix-5 r2 DFT) and
-// k4u_pass.cu (the unfolded passes), with K1's prologue
-// (ax_k1_inject_halve).
+// K5, K9's four axis phases and the shift form of K4u / K5u), r2_split.cuh
+// (the radix-5 r2 DFT) and k4u_pass.cu (the unfolded passes' int8 matrix
+// form), with K1's prologue (ax_k1_inject_halve) and the unfolded passes'
+// prologue and epilogue (ax_pass_pre, ax_pass_post).
 //
 // The array is viewed as (O, L, S, C): element (o, j, s, c) at
 // ((o*L + j)*S + s)*C + c, the transform runs over j. A block (or one of
@@ -25,8 +26,10 @@ enum AxisMode {
                  // last launch, K5)
     AX_K3A = 3,  // the r1 inverse per s, then wrap double, canon,
                  // optional x a
-    AX_K4F = 4   // block-carry inject (when co is given) + wrap halve,
+    AX_K4F = 4,  // block-carry inject (when co is given) + wrap halve,
                  // then K1's transform
+    AX_K4UF = 5, // K4u / K5u forward: ax_pass_pre, the DIF, ax_pass_post
+    AX_K4UI = 6  // K4u / K5u inverse: the same around the inverse DIT
 };
 
 struct AxisArgs {
@@ -55,6 +58,18 @@ struct AxisArgs {
     // (L, S); K2C: t_r_inv (O, L); K3A: k3_rs (L, S))
     const u64* cs;
     const u64* rs;
+    // K4u / K5u (AX_K4UF, AX_K4UI and k4u_pass.cu's matrix form): pre and
+    // post, full (as x) or one word per row (o, j, s) (pre_bcast,
+    // post_bcast), or null; the scalar carry cin spread over the kk widths
+    // at wt into digits 0 ... kk-1 of row 0 (kk = 0: none); the wrap
+    // residues er (per row) and ec (C,), or null; canon: double where
+    // wrapped, then reduce to [0, P) (without it, halve where wrapped
+    // first)
+    const u64* pre;
+    const u64* post;
+    int pre_bcast, post_bcast;
+    u64 cin;
+    int canon;
 };
 
 // Internal linkage: several .cu files instantiate the same modes.
@@ -79,6 +94,42 @@ __device__ __forceinline__ u64 ax_k1_inject_halve(const AxisArgs& g, int j,
         v += part;
     }
     if (g.er[f] + g.ec[c] >= g.n) v = gl_halve(v);
+    return v;
+}
+
+// K4u / K5u's prologue of element (o, j, s, c), in _pass_kernel's order
+// (prmers_tpu/ops/pallas/kernels.py:130-226): halve where the weight
+// wraps (not with canon), the carry's parts into digits 0 ... kk-1 of row
+// 0 (the digits are canonical and the parts below 2^w, so the add cannot
+// wrap), x pre.
+__device__ __forceinline__ u64 ax_pass_pre(const AxisArgs& g, int o, int j,
+                                           int s, int c, u64 v) {
+    const size_t row = (size_t)(o * g.L + j) * g.S + s;
+    if (!g.canon && g.er != nullptr && g.er[row] + g.ec[c] >= g.n)
+        v = gl_halve(v);
+    if (g.kk > 0 && row == 0 && c < g.kk) {
+        int q = 0;
+        for (int i = 0; i < c; ++i) q += (int)g.wt[i];
+        u32 part = q < 64 ? (u32)(g.cin >> q) : 0u;
+        if (c < g.kk - 1) part &= (1u << g.wt[c]) - 1u;
+        v += part;
+    }
+    if (g.pre != nullptr)
+        v = gl_mul(v, g.pre[g.pre_bcast ? row : row * g.C + c]);
+    return v;
+}
+
+// Its epilogue of output (o, k, s, c): x post, then with canon the double
+// where the row's weight wraps and the reduction to [0, P).
+__device__ __forceinline__ u64 ax_pass_post(const AxisArgs& g, int o, int k,
+                                            int s, int c, u64 v) {
+    const size_t row = (size_t)(o * g.L + k) * g.S + s;
+    if (g.post != nullptr)
+        v = gl_mul(v, g.post[g.post_bcast ? row : row * g.C + c]);
+    if (g.canon) {
+        if (g.er != nullptr && g.er[row] + g.ec[c] >= g.n) v = gl_double(v);
+        v = gl_canon(v);
+    }
     return v;
 }
 

@@ -1,6 +1,7 @@
 // The length-L axis DFT (L = 2^LL, 1 <= L <= 128) of K1, of K2's two r2
 // launches, of the two K5 passes at a power-of-two L2, of K3's first
-// launch (K3a) and of both K4 launches, as register-pass shift butterflies
+// launch (K3a), of both K4 launches and of the shift form of K4u / K5u
+// (the unfolded passes, k4u_pass.cu), as register-pass shift butterflies
 // with at most two products per digit.
 //
 // Replaces, on those launches, axis_dft.cuh's dense tile (L full mod-P
@@ -22,6 +23,10 @@
 //   AX_K3A  the inverse DIT; * k3_rs[k, s]; double where er + ec >= n;
 //           canon; optionally * a, canon           (k3_mats[s] = diag(
 //           (K3a; K4 inverse with no * a)           k3_rs[:, s]) DFT_L1^-1)
+//   AX_K4UF ax_pass_pre (halve where wrapped, the scalar carry's parts, *
+//           pre); the DIF; ax_pass_post (* post; with canon the double
+//           and the reduction), L <= 64
+//   AX_K4UI the same around the inverse DIT
 // The DIF is radix 2 in place: a + b and (a - b) w_2m^jj at half-size m,
 // jj = j mod m; it leaves frequency bitrev(k) at position k, the DIF order
 // of fourstep.dft_matrix, so no permutation is needed. The inverse is the
@@ -161,12 +166,14 @@ __device__ __forceinline__ u64 axf_k4_inject_halve(const AxisArgs& g, int j,
     return v;
 }
 
-// The prologue of element (j, s, c) at idx: K1's and K4F's carry parts,
-// halve and x k1_cs[j, s]; K2C's x mi; K2A and K3A none. AXF_MOVE reads the
-// same table words and adds them.
+// The prologue of element (o, j, s, c) at idx: K1's and K4F's carry parts,
+// halve and x k1_cs[j, s]; K2C's x mi; K4u / K5u's ax_pass_pre; K2A and
+// K3A none. AXF_MOVE reads the same table words and adds them.
 template <int MODE, int PART>
-__device__ __forceinline__ u64 axf_pre(const AxisArgs& g, u64 v, int j,
-                                       int s, int c, size_t idx) {
+__device__ __forceinline__ u64 axf_pre(const AxisArgs& g, u64 v, int o,
+                                       int j, int s, int c, size_t idx) {
+    if (MODE == AX_K4UF || MODE == AX_K4UI)
+        return ax_pass_pre(g, o, j, s, c, v);
     if (MODE == AX_K2A || MODE == AX_K3A) return v;
     const u64 f = MODE == AX_K2C ? g.tab[idx] : g.cs[j * g.S + s];
     if (PART == AXF_MOVE) return gl_add(v, f);
@@ -178,10 +185,13 @@ __device__ __forceinline__ u64 axf_pre(const AxisArgs& g, u64 v, int j,
 // The epilogue of output (o, k, s, c) at idx: x k1_rs[k, s] (K1, K4F), x mf
 // (K2A), x t_r_inv[o, k] (K2C), or K3A's x k3_rs[k, s], double where the
 // output row's weight wraps, canon and, with with_a (uniform over the
-// grid), x a and canon: canonical out, as K3b takes it.
+// grid), x a and canon: canonical out, as K3b takes it; K4u / K5u's
+// ax_pass_post.
 template <int MODE, int PART>
 __device__ __forceinline__ u64 axf_post(const AxisArgs& g, u64 v, int o,
                                         int k, int s, int c, size_t idx) {
+    if (MODE == AX_K4UF || MODE == AX_K4UI)
+        return ax_pass_post(g, o, k, s, c, v);
     const u64 f = MODE == AX_K2A   ? g.tab[idx]
                   : MODE == AX_K2C ? g.rs[o * g.L + k]
                                    : g.rs[k * g.S + s];
@@ -207,7 +217,8 @@ __device__ __forceinline__ void axis_fft_tile(const AxisArgs& g, int o, int s,
                                               int cb, int tx, int ty,
                                               u64* xs) {
     constexpr int L = 1 << LL;
-    constexpr bool INV = MODE == AX_K2C || MODE == AX_K3A;
+    constexpr bool INV =
+        MODE == AX_K2C || MODE == AX_K3A || MODE == AX_K4UI;
     constexpr bool LEVELS = PART == AXF_FULL;
     const int S = g.S, C = g.C;
     if constexpr (LL <= 3) {
@@ -222,7 +233,7 @@ __device__ __forceinline__ void axis_fft_tile(const AxisArgs& g, int o, int s,
         }
 #pragma unroll
         for (int j = 0; j < L; ++j)
-            v[j] = axf_pre<MODE, PART>(g, v[j], j, s, c, idx[j]);
+            v[j] = axf_pre<MODE, PART>(g, v[j], o, j, s, c, idx[j]);
         if constexpr (LEVELS && INV) gl_dit_shift_inv<LL>(v, 1);
         if constexpr (LEVELS && !INV) gl_dif_shift<LL>(v, 1);
 #pragma unroll
@@ -243,7 +254,7 @@ __device__ __forceinline__ void axis_fft_tile(const AxisArgs& g, int o, int s,
 #pragma unroll
             for (int t = 0; t < T; ++t) {
                 const int j = ty + 8 * t;
-                v[t] = axf_pre<MODE, PART>(g, v[t], j, s, c, base + j * rs);
+                v[t] = axf_pre<MODE, PART>(g, v[t], o, j, s, c, base + j * rs);
             }
             if constexpr (LEVELS) axf_dif_stride<LL>(v, ty);
 #pragma unroll
@@ -280,7 +291,7 @@ __device__ __forceinline__ void axis_fft_tile(const AxisArgs& g, int o, int s,
 #pragma unroll
                     for (int i = 0; i < 8; ++i)
                         w[gi][i] = axf_pre<MODE, PART>(
-                            g, w[gi][i], j0 + i, s, c, base + (j0 + i) * rs);
+                            g, w[gi][i], o, j0 + i, s, c, base + (j0 + i) * rs);
                     if constexpr (LEVELS) gl_dit_shift_inv<3>(w[gi], 1);
 #pragma unroll
                     for (int i = 0; i < 8; ++i)

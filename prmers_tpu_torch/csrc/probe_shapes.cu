@@ -22,18 +22,21 @@
 //   n (576,512) @ (512,1024), then the sum of its nine 64-row slices
 // The copy cases are index kernels, one thread per output element (the
 // case's source index computed from the input's dims d0..d2). The int8
-// dots (b, e, n) are one hand-written product: a 64 x 64 output tile per
-// block of 256 threads, 4 x 4 outputs per thread, K in steps of 32 with
-// A's rows and B's columns packed four int8 per int32 in shared memory and
-// summed with __dp4a (four signed byte products and an add per
-// instruction); n adds its nine row slices in a second launch.
+// dots (b, e, n) are one launch of dot8_kernel on s8_mma.cuh's tile
+// product (mma.sync m16n8k32 s8 on the tensor cores): 128 x 128 output
+// tiles, A and B staged by cp.async into a three-stage ring, B turned
+// K-major in shared memory; n sums its nine 64-row slices in the same
+// launch (each warp row over its own slices, then one exchange through
+// shared memory).
 //
 // What bounds it on the H100: the copies, their bytes; the dots, at 603
-// MFLOP (e) to 4.8 GFLOP (b) of int8 work, the int8 rate, which __dp4a on
-// the integer pipe reaches only a fraction of (no tensor cores here: a
-// later change would take mma.sync or wgmma).
+// MFLOP (e) to 4.8 GFLOP (b) of int8 work, the bytes: b moves 23.4 MB
+// (0.0070 ms at 3.35 TB/s) against 0.0024 ms of int8 operations, e 3.2 MB
+// (0.00095 ms), near the launch floor.
 
 #include <cuda_runtime.h>
+
+#include "s8_mma.cuh"
 
 namespace {
 
@@ -93,56 +96,155 @@ int copy_launch(char cs, const void* in, void* out, long long total, int d0,
     return (int)cudaGetLastError();
 }
 
-// C (M, N) int32 = A (M, K) int8 @ B (K, N) int8, M and N multiples of 64,
-// K of 32
-__global__ void __launch_bounds__(256)
-dot8_kernel(const signed char* A, const signed char* B, int* Cm, int M,
-            int N, int K) {
-    __shared__ int As[64][9];      // 64 rows x 32 k, four k per int
-    __shared__ int Bs[8][65];      // 32 k packed by four x 64 columns
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    const int row0 = blockIdx.y * 64, col0 = blockIdx.x * 64;
-    int acc[4][4] = {};
-    for (int k0 = 0; k0 < K; k0 += 32) {
-        for (int t = tid; t < 512; t += 256) {
-            const int r = t / 8, kq = t % 8;
-            As[r][kq] = *(const int*)(A + (size_t)(row0 + r) * K + k0 +
-                                      4 * kq);
-        }
-        for (int t = tid; t < 512; t += 256) {
-            const int kq = t / 64, c = t % 64;
-            const signed char* b = B + (size_t)(k0 + 4 * kq) * N + col0 + c;
-            Bs[kq][c] = (int)((unsigned)(unsigned char)b[0] |
-                              ((unsigned)(unsigned char)b[N] << 8) |
-                              ((unsigned)(unsigned char)b[2 * N] << 16) |
-                              ((unsigned)(unsigned char)b[3 * N] << 24));
-        }
-        __syncthreads();
-        for (int kq = 0; kq < 8; ++kq) {
-            int a[4], bb[4];
-            for (int i = 0; i < 4; ++i) a[i] = As[ty + 16 * i][kq];
-            for (int j = 0; j < 4; ++j) bb[j] = Bs[kq][tx + 16 * j];
-            for (int i = 0; i < 4; ++i)
-                for (int j = 0; j < 4; ++j)
-                    acc[i][j] = __dp4a(a[i], bb[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-    for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j)
-            Cm[(size_t)(row0 + ty + 16 * i) * N + col0 + tx + 16 * j] =
-                acc[i][j];
+#define D8_THREADS 256
+#define D8_TM 128        // rows of a block tile (two warp rows of 64)
+#define D8_TN 128        // columns of a block tile (four warps of 32)
+#define D8_KC 128        // contraction bytes of a ring stage
+#define D8_STAGES 3
+#define D8_STAGE (D8_TM * D8_KC + D8_KC * D8_TN)
+#define D8_SMEM (D8_STAGES * D8_STAGE + D8_TN * D8_KC)
+
+// unit u of row k of the staged (K-rows, N-bytes) B chunk: rows 4 q + i of
+// one transpose load read units (u ^ 2 (q & 3)), 8 distinct for a warp's
+// 8 column-groups x 4 q
+__device__ __forceinline__ int d8_raw(int k, int u) {
+    return k * D8_TN + 16 * (u ^ (((k >> 2) & 3) << 1));
 }
 
-// out (fold, N) = sum over the M / fold row slices of D (M, N)
-__global__ void fold_rows_kernel(const int* D, int* out, int M, int N,
-                                 int fold) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (long long)fold * N) return;
-    int s = 0;
-    for (int m = 0; m < M / fold; ++m) s += D[(size_t)m * fold * N + i];
-    out[i] = s;
+// C (M, N) int32 = A (M, K) int8 @ B (K, N) int8 (row-major, N
+// contiguous), or with fold (= 64, M % 64 == 0) C (64, N) = the sum of
+// the product's 64-row slices. The block takes a 128 x 128 tile (fold:
+// all of M, a 128-row step at a time, each warp row summing its own
+// slices); each ring stage holds 128 contraction bytes of A's 128 rows
+// (S8SwzA) and of B's 128 columns as they lie, N-major; after its wait the
+// block turns the stage's B into bt (column-major, S8SwzB), one 4 x
+// 4-byte block a lane at a time, and the warps run s8_warp_k32 on it.
+// Past M, N and K the stages are zero-filled, so any M, and N, K
+// multiples of 16, work.
+__global__ void __launch_bounds__(D8_THREADS, 2)
+dot8_kernel(const signed char* A, const signed char* B, int* Cm, int M,
+            int N, int K, int fold) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    unsigned char* bt = smem + D8_STAGES * D8_STAGE;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int wm = warp >> 2, wn = warp & 3;
+    const int n0 = blockIdx.x * D8_TN;
+    const int m0 = fold ? 0 : blockIdx.y * D8_TM;
+    const int steps = fold ? (M + D8_TM - 1) / D8_TM : 1;
+    const int nk = (K + D8_KC - 1) / D8_KC;
+    const int total = steps * nk;
+
+    auto issue = [&](int q) {
+        if (q < total) {
+            unsigned char* a = smem + (q % D8_STAGES) * D8_STAGE;
+            unsigned char* b = a + D8_TM * D8_KC;
+            const int r0 = m0 + (q / nk) * D8_TM, k0 = (q % nk) * D8_KC;
+            for (int t = tid; t < D8_TM * D8_KC / 16; t += D8_THREADS) {
+                const int r = t >> 3, u = t & 7;
+                const int kb = K - (k0 + 16 * u);
+                const int nb = r0 + r < M ? (kb < 0 ? 0 : kb < 16 ? kb : 16)
+                                          : 0;
+                s8_cp_async16(a + S8SwzA()(r, u),
+                              nb ? A + (size_t)(r0 + r) * K + k0 + 16 * u
+                                 : A,
+                              nb);
+            }
+            for (int t = tid; t < D8_KC * D8_TN / 16; t += D8_THREADS) {
+                const int k = t >> 3, u = t & 7;
+                const bool in = k0 + k < K && n0 + 16 * u < N;
+                s8_cp_async16(b + d8_raw(k, u),
+                              in ? B + (size_t)(k0 + k) * N + n0 + 16 * u
+                                 : B,
+                              in ? 16 : 0);
+            }
+        }
+        s8_cp_commit();
+    };
+#pragma unroll
+    for (int q = 0; q < D8_STAGES - 1; ++q) issue(q);
+
+    int acc[4][4][4];
+    s8_zero<4>(acc);
+    for (int q = 0; q < total; ++q) {
+        s8_cp_wait<D8_STAGES - 2>();
+        __syncthreads();
+        issue(q + D8_STAGES - 1);
+        const unsigned char* a = smem + (q % D8_STAGES) * D8_STAGE;
+        const unsigned char* b = a + D8_TM * D8_KC;
+        // the transpose: 32 x 32 blocks of 4 x 4 bytes in 32 groups of 8
+        // column-groups x 4 contraction-groups, four groups a warp
+#pragma unroll
+        for (int grp = warp; grp < 32; grp += D8_THREADS / 32) {
+            const int nq = (grp & 3) * 8 + (lane & 7);
+            const int kq = (grp >> 2) * 4 + (lane >> 3);
+            u32 rw[4], cw[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                rw[i] = *(const u32*)(b + d8_raw(4 * kq + i, nq >> 2) +
+                                      4 * (nq & 3));
+            s8_transpose4x4(rw, cw);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                *(u32*)(bt + S8SwzB()(4 * nq + i, kq >> 2) + 4 * (kq & 3)) =
+                    cw[i];
+        }
+        __syncthreads();
+        const int r0 = m0 + (q / nk) * D8_TM + 64 * wm;
+        if (r0 < M) {
+            const unsigned char* aw = a + 64 * wm * D8_KC;
+            const unsigned char* bw = bt + 32 * wn * D8_KC;
+#pragma unroll
+            for (int ks = 0; ks < D8_KC / 32; ++ks)
+                s8_warp_k32<4>(acc, aw, S8SwzA(), 2 * ks, bw, S8SwzB(),
+                               2 * ks, lane);
+        }
+        if (!fold && q == total - 1 && r0 < M) {
+            const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+            for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int r = r0 + 16 * mt + g + 8 * h;
+                    if (r >= M) continue;
+#pragma unroll
+                    for (int nt = 0; nt < 4; ++nt) {
+                        const int c = n0 + 32 * wn + 8 * nt + 2 * t;
+                        if (c < N)
+                            *(int2*)(Cm + (size_t)r * N + c) = make_int2(
+                                acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+                    }
+                }
+        }
+    }
+    s8_cp_wait<0>();
+    if (fold) {
+        // warp row 1's sums through shared memory into row 0's
+        int* red = (int*)smem;
+        __syncthreads();
+        if (wm == 1)
+#pragma unroll
+            for (int j = 0; j < 64; ++j)
+                red[j * 128 + tid - 128] = acc[j >> 4][(j >> 2) & 3][j & 3];
+        __syncthreads();
+        if (wm == 0) {
+#pragma unroll
+            for (int j = 0; j < 64; ++j)
+                acc[j >> 4][(j >> 2) & 3][j & 3] += red[j * 128 + tid];
+            const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+            for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+                for (int nt = 0; nt < 4; ++nt) {
+                    const int c = n0 + 32 * wn + 8 * nt + 2 * t;
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        if (c < N)
+                            *(int2*)(Cm + (size_t)(16 * mt + g + 8 * h) * N +
+                                     c) = make_int2(acc[mt][nt][2 * h],
+                                                    acc[mt][nt][2 * h + 1]);
+                }
+        }
+    }
 }
 
 }  // namespace
@@ -170,20 +272,20 @@ extern "C" int prmers_probe_copy(int cs, const void* in, void* out,
     return -1;
 }
 
-// C = A @ B (int8 in, int32 out); with fold > 0, C (fold, N) is the sum of
-// the product's M / fold row slices, formed in scratch (M, N) first.
+// C = A @ B (int8 in, int32 out), or with fold = 64 the (64, N) sum of
+// the product's 64-row slices, in one launch. Returns cudaGetLastError(),
+// or -1 for a shape the kernel does not take (N or K not a multiple of 16,
+// a fold other than 0 or 64, or M not a multiple of it).
 extern "C" int prmers_probe_dot8(const signed char* A, const signed char* B,
                                  int* Cm, int M, int N, int K, int fold,
-                                 int* scratch, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (M % 64 || N % 64 || K % 32 || M <= 0 || N <= 0 || K <= 0) return -1;
-    if (fold < 0 || (fold > 0 && (M % fold || scratch == nullptr))) return -1;
-    dim3 grid(N / 64, M / 64);
-    dot8_kernel<<<grid, 256, 0, st>>>(A, B, fold ? scratch : Cm, M, N, K);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || !fold) return (int)err;
-    const long long total = (long long)fold * N;
-    fold_rows_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        scratch, Cm, M, N, fold);
+                                 void* stream) {
+    if (M <= 0 || N <= 0 || K <= 0 || N % 16 || K % 16) return -1;
+    if (fold != 0 && (fold != 64 || M % 64)) return -1;
+    cudaError_t err = cudaFuncSetAttribute(
+        dot8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D8_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((N + D8_TN - 1) / D8_TN, fold ? 1 : (M + D8_TM - 1) / D8_TM);
+    dot8_kernel<<<grid, D8_THREADS, D8_SMEM, (cudaStream_t)stream>>>(
+        A, B, Cm, M, N, K, fold);
     return (int)cudaGetLastError();
 }

@@ -56,8 +56,8 @@ SIGNATURES = {
     "prmers_k4_axis0": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _U32, _P, _P, _I,
                         _I, _I, _P],
     "prmers_k7_block_carry": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
-    "prmers_k4u_pass": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _U64, _P,
-                        _I, _P, _P, _U32, _I, _I, _I, _I, _I, _P],
+    "prmers_k4u_pass": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
+                        _U64, _P, _I, _P, _P, _U32, _I, _I, _I, _I, _I, _P],
     # the fft3161 transform (ops/kernels.py: K10-K12)
     "prmers_f3_fwd_stage": [_P] * 6 + [_I] * 4 + [_P, _U32, _U32, _U64,
                                                    _U64, _I, _I, _P],
@@ -68,7 +68,7 @@ SIGNATURES = {
     "prmers_probe_reps": [_I, _P, _P, _I, _I, _LL, _P],
     "prmers_probe_bitcast": [_P, _P, _I, _I, _P],
     "prmers_probe_copy": [_I, _P, _P, _LL, _I, _I, _I, _P],
-    "prmers_probe_dot8": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "prmers_probe_dot8": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

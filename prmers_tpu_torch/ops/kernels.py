@@ -46,10 +46,11 @@ mode "fwd"; K3 two; the others one).
                                                 round rule, on a rank's
                                                 r1 blocks (the mesh)
   K4u axis_pass, axis 0     csrc/k4u_pass.cu    the unfolded r passes:
-  K5u axis_pass, axis 1                         [halve], [inject], [x pre],
-                                                DFT (matrix or shift
-                                                butterflies), [x post],
-                                                [double, canon]
+  K5u axis_pass, axis 1     (s8_mma.cuh,        [halve], [inject], [x pre],
+                            s8_dft.cuh,         DFT (matrix: int8 limb
+                            axis_fft.cuh)       planes on the tensor cores;
+                                                or shift butterflies),
+                                                [x post], [double, canon]
   K10 f3_fwd_stage          csrc/f3_ntt.cu      the second arithmetic
                             (f3_ntt.cuh)        (fft3161): one DIF stage
                                                 of both planes [the first
@@ -71,7 +72,10 @@ launch that runs the row-carry stages as its phases. No step runs K4u or
 K5u: they are the JAX's `_forward_r` / `_inverse_r` (forward_r,
 inverse_r below, on DevTables' optional `unfolded` view), which only the
 pass profiler (tools/profile_passes.py) and the tests reach, as in the
-reference.
+reference. Their plain version multiplies by the u64 matrix; the CUDA
+matrix form takes the same matrix as the reference's int8 limb planes
+(ops/mxu_tables.py; S8Tables, built with the view), and s8_dft_model
+below is its torch model, for the tests.
 
 The plain versions of K1, K3's first half, K4 and K2's and K5's r2
 stages multiply by the dense folded matrices (k1_mats, k3_mats, g2,
@@ -120,6 +124,7 @@ from . import build
 from . import carry as carry_ops
 from . import fourstep as tfs
 from . import gl64 as gl
+from . import mxu_tables as mxt
 from . import ntt2
 
 KERNELS = ("k1_p1c", "k2_fused_c", "k3_p7c", "k5_axis1", "k6_fused_c",
@@ -1390,10 +1395,85 @@ def square_chain_part(t: DevTables, x: torch.Tensor, co: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(eq=False)
+class S8Tables:
+    """A matrix (L, L), or one per variant (V, L, L), in the int8 form of
+    the CUDA matrix form (ops/mxu_tables.py's device layout): w8 (V, kp,
+    kp) int8 and corr (V, kp) int32, kp = 128 ceil(L / 16)."""
+    w8: torch.Tensor
+    corr: torch.Tensor
+    L: int
+
+    @property
+    def kp(self) -> int:
+        return self.w8.shape[-1]
+
+
+def s8_tables(mats, device="cpu") -> S8Tables:
+    """The int8 form of u64 matrices (numpy uint64, or an int64 tensor of
+    their bit patterns), (L, L) or (V, L, L), built on the host
+    (mxu_tables.tables_from_mats, device_layout)."""
+    if isinstance(mats, torch.Tensor):
+        mats = gl.to_numpy_u64(mats)
+    m = np.asarray(mats, dtype=np.uint64)
+    w8, corr = mxt.device_layout(*mxt.tables_from_mats(
+        m.reshape((-1,) + m.shape[-2:])))
+    return S8Tables(torch.from_numpy(w8).to(device),
+                    torch.from_numpy(corr).to(device), m.shape[-1])
+
+
+S8_MATS = ("tr_fwd", "d1i", "g2", "tri")
+
+
+def s8_pack_model(x: torch.Tensor, kp: int) -> torch.Tensor:
+    """The B operand of the matrix form (csrc/s8_dft.cuh's s8_pack_word):
+    (L, B) words (u64 bit patterns in int64) -> (kp, B) int64, row c * 8 +
+    l the int8 of byte l of word c XOR 0x80 (the byte less 128); the rows
+    of padding words c >= L zero."""
+    L, B = x.shape
+    out = torch.zeros((kp // 8, 8, B), dtype=torch.int64, device=x.device)
+    for l in range(8):
+        out[:L, l] = ((x >> (8 * l)) & 0xFF) - 128
+    return out.reshape(kp, B)
+
+
+def s8_combine_model(d: torch.Tensor) -> torch.Tensor:
+    """csrc/s8_dft.cuh's s8_combine in torch: planes d (8, ...) int64 in
+    [0, 2^31) -> the lazy word gl_reduce128(lo, hi) of V = sum_m d_m
+    2^(8m) = lo + hi 2^64, in 32-bit words held in int64; the same bits
+    as the kernel's."""
+    s0 = d[0] + (d[1] << 8) + (d[2] << 16) + (d[3] << 24)
+    s1 = d[4] + (d[5] << 8) + (d[6] << 16) + (d[7] << 24)
+    w1 = (s0 >> 32) + (s1 & gl.M32)
+    lo0, lo1 = s0 & gl.M32, w1 & gl.M32
+    hi = (s1 >> 32) + (w1 >> 32)
+    # lo + hi (2^32 - 1), a wrap past 2^64 folded back as 2^32 - 1
+    r0 = lo0 + ((-hi) & gl.M32)
+    r1 = lo1 + hi - (hi > 0).to(torch.int64) + (r0 >> 32)
+    r0 = (r0 & gl.M32) + (r1 >> 32) * gl.M32
+    r1 = (r1 & gl.M32) + (r0 >> 32)
+    return gl.join(r0 & gl.M32, r1)
+
+
+def s8_dft_model(x: torch.Tensor, t: S8Tables, v: int = 0) -> torch.Tensor:
+    """The matrix form's schedule on one variant v of the tables, for the
+    tests: x (L, B) lazy words -> (L, B) lazy words = mats[v] @ x mod P.
+    The byte planes (s8_pack_model), D = w8[v] @ X (exact in float64),
+    + corr, each output's eight planes from the device rows (r >> 3) * 64
+    + m * 8 + (r & 7), then s8_combine_model."""
+    L, B = x.shape
+    kp = t.kp
+    X = s8_pack_model(x, kp)
+    D = (t.w8[v].double() @ X.double()).to(torch.int64)
+    d = D + t.corr[v].to(torch.int64).reshape(kp, 1)
+    planes = d.reshape(kp // 64, 8, 8, B).permute(1, 0, 2, 3)
+    return s8_combine_model(planes.reshape(8, kp // 8, B)[:, :L])
+
+
+@dataclasses.dataclass(eq=False)
 class UnfoldedView:
     """fourstep.UnfoldedTables on a device: the u64 tables as int64 bit
     patterns, cin_widths as int32; a matrix the JAX does not build is
-    None."""
+    None. s8 holds each matrix's int8 form (S8Tables), by name."""
     w: torch.Tensor
     iw: torch.Tensor
     t_r: torch.Tensor
@@ -1405,6 +1485,7 @@ class UnfoldedView:
     g2: torch.Tensor | None
     tri: torch.Tensor | None
     cin_widths: torch.Tensor
+    s8: dict
 
     @classmethod
     def from_host(cls, u: tfs.UnfoldedTables, device) -> "UnfoldedView":
@@ -1415,7 +1496,10 @@ class UnfoldedView:
             if name == "cin_widths":
                 return torch.from_numpy(a.astype("int32")).to(device)
             return gl.from_numpy_u64(a, device)
-        return cls(**{f.name: put(f.name) for f in dataclasses.fields(cls)})
+        s8 = {name: s8_tables(getattr(u, name), device) for name in S8_MATS
+              if getattr(u, name) is not None}
+        return cls(**{f.name: put(f.name) for f in dataclasses.fields(cls)
+                      if f.name != "s8"}, s8=s8)
 
 
 def with_unfolded(t: DevTables,
@@ -1440,7 +1524,8 @@ def _axis0_lane_tiled(L: int, R2: int, C: int) -> bool:
     return L * S * C >= AXIS0_BUDGET_EL and C % 256 == 0 and C > 256
 
 
-def _check_pass(x, axis, pre, post, mats, cin, cin_widths, wcorr, out):
+def _check_pass(x, axis, pre, post, mats, cin, cin_widths, wcorr, out,
+                s8=None):
     if x.dim() != 3 or x.dtype != torch.int64 or not x.is_contiguous():
         raise ValueError("the register must be contiguous int64 "
                          f"(R1, R2, C) (got {x.dtype} {tuple(x.shape)})")
@@ -1464,6 +1549,28 @@ def _check_pass(x, axis, pre, post, mats, cin, cin_widths, wcorr, out):
     if mats is None and (L > 64 or 64 % L):
         raise ValueError(f"no shift-twiddle butterflies for L={L} (L must "
                          "divide 64): the pass needs its matrix")
+    if s8 is not None:
+        V = 1 if mats is None or mats.dim() == 2 else mats.shape[0]
+        kp = mxt.padded(L)
+        if mats is None or s8.L != L or \
+                s8.w8.dtype != torch.int8 or \
+                tuple(s8.w8.shape) != (V, kp, kp) or \
+                s8.corr.dtype != torch.int32 or \
+                tuple(s8.corr.shape) != (V, kp) or \
+                not (s8.w8.is_contiguous() and s8.corr.is_contiguous()) or \
+                s8.w8.device != x.device or s8.corr.device != x.device:
+            raise ValueError(f"s8 must be the int8 form of mats: w8 int8 "
+                             f"{(V, kp, kp)}, corr int32 {(V, kp)} on "
+                             f"{x.device} (kernels.s8_tables(mats))")
+    elif mats is not None and not _on_cpu(x):
+        raise ValueError("the matrix form on the card takes the matrix's "
+                         "int8 tables: s8=kernels.s8_tables(mats)")
+    # the narrowest block's columns: axis_fft.cuh's (256 at L <= 8, else
+    # 32) in the shift form, 32 in the matrix form
+    cols = 256 if mats is None and L <= 8 else 32
+    if C % cols:
+        raise ValueError(f"C={C}: the {'shift' if mats is None else 'matrix'}"
+                         f" form's blocks take C a multiple of {cols}")
     if axis == 1 and (cin is not None or wcorr is not None):
         raise ValueError("the axis-1 pass takes no injection and no wrap "
                          "correction (kernels.py:391)")
@@ -1551,13 +1658,15 @@ def dft_shift_plain(x: torch.Tensor, inverse: bool) -> torch.Tensor:
 def axis_pass_plain(x: torch.Tensor, axis: int, inverse: bool,
                     pre=None, post=None, mats=None, cin: int | None = None,
                     cin_widths=None, wcorr=None,
-                    canon: bool = False) -> torch.Tensor:
+                    canon: bool = False, s8=None) -> torch.Tensor:
     """Plain K4u (axis 0, the length-R1 DFT over r1) or K5u (axis 1, over
     r2), in _pass_kernel's order: halve where wrapped (wcorr = (er, ec, n),
     not with canon), inject cin's parts into digits 0 ... k-1, x pre, the
     DFT (mats None: the shift butterflies; (L, L): one matrix; (V, L, L):
     one per r2 on axis 0, per r1 on axis 1), x post, and with canon the
-    double where wrapped and the reduction to [0, P)."""
+    double where wrapped and the reduction to [0, P). s8, the kernel's
+    int8 form of mats, is not read: the plain version multiplies by
+    mats."""
     R1, R2, C = x.shape
     y = x
     mask = None
@@ -1598,10 +1707,14 @@ def axis_pass_plain(x: torch.Tensor, axis: int, inverse: bool,
 def axis_pass(x: torch.Tensor, axis: int, inverse: bool, pre=None,
               post=None, mats=None, cin: int | None = None, cin_widths=None,
               wcorr=None, canon: bool = False,
-              out: torch.Tensor | None = None) -> torch.Tensor:
+              out: torch.Tensor | None = None,
+              s8: S8Tables | None = None) -> torch.Tensor:
     """K4u (axis 0) or K5u (axis 1) over the whole register, with the
-    operands of axis_pass_plain; in place when out is x."""
-    _check_pass(x, axis, pre, post, mats, cin, cin_widths, wcorr, out)
+    operands of axis_pass_plain; in place when out is x. On the card the
+    matrix form takes mats' int8 form s8 (the unfolded view's s8[name],
+    or s8_tables(mats)) and runs on the tensor cores; without mats, the
+    shift form."""
+    _check_pass(x, axis, pre, post, mats, cin, cin_widths, wcorr, out, s8)
     if _on_cpu(x):
         r = axis_pass_plain(x, axis, inverse, pre, post, mats, cin,
                             cin_widths, wcorr, canon)
@@ -1613,12 +1726,13 @@ def axis_pass(x: torch.Tensor, axis: int, inverse: bool, pre=None,
     var_o = int(mats is not None and mats.dim() == 3 and axis == 1)
     var_s = int(mats is not None and mats.dim() == 3 and axis == 0)
     er, ec, n = wcorr if wcorr is not None else (None, None, 0)
+    w8, corr, kp = (s8.w8, s8.corr, s8.kp) if s8 else (None, None, 0)
     name = "k4u_pass" if axis == 0 else "k5u_pass"
     err = build.lib().prmers_k4u_pass(
         x.data_ptr(), out.data_ptr(), _ptr(pre),
         int(pre is not None and pre.shape[2] == 1), _ptr(post),
-        int(post is not None and post.shape[2] == 1), _ptr(mats), var_o,
-        var_s, int(inverse), 0 if cin is None else cin,
+        int(post is not None and post.shape[2] == 1), _ptr(w8), _ptr(corr),
+        kp, var_o, var_s, int(inverse), 0 if cin is None else cin,
         _ptr(cin_widths if cin is not None else None),
         0 if cin is None else cin_widths.numel(), _ptr(er), _ptr(ec), n,
         int(canon), O, L, S, C, _stream())
@@ -1643,19 +1757,22 @@ def r_passes(t: DevTables, shift: bool, cin: int | None = None) -> dict:
     axis_pass), in the matrix form, or with shift the butterflies on every
     factor (the JAX under PRMERS_NO_MXU)."""
     u = _unfolded(t)
-    m1 = None if shift else u.tr_fwd
-    m6 = None if shift else u.tri
+
+    def mat(name):
+        """mats and their int8 form s8, or none (the shift form)."""
+        m = None if shift else getattr(u, name)
+        return dict(mats=m, s8=None if m is None else u.s8[name])
+
+    m1, m6 = mat("tr_fwd"), mat("tri")
     return {
         "k4u_fwd": (0, False, dict(
-            pre=u.w, post=u.t_r if m1 is None else None, mats=m1, cin=cin,
-            cin_widths=u.cin_widths if cin is not None else None)),
-        "k5u_fwd": (1, False, dict(post=u.mid,
-                                   mats=None if shift else u.g2)),
+            pre=u.w, post=u.t_r if m1["mats"] is None else None, cin=cin,
+            cin_widths=u.cin_widths if cin is not None else None, **m1)),
+        "k5u_fwd": (1, False, dict(post=u.mid, **mat("g2"))),
         "k5u_inv": (1, True, dict(
-            pre=u.mid_inv, post=u.t_r_inv if m6 is None else None,
-            mats=m6)),
-        "k4u_inv": (0, True, dict(post=u.iw, mats=None if shift else u.d1i,
-                                  canon=True)),
+            pre=u.mid_inv, post=u.t_r_inv if m6["mats"] is None else None,
+            **m6)),
+        "k4u_inv": (0, True, dict(post=u.iw, canon=True, **mat("d1i"))),
     }
 
 

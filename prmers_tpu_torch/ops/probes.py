@@ -289,8 +289,49 @@ def shape_inputs(case: str, seed: int = 0, device="cpu") -> tuple:
 
 
 def _dot_plain(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """int8 (M, K) @ (K, N) -> int32, exact in float64 (|sum| < 2^23)."""
+    """int8 (M, K) @ (K, N) -> int32, exact in float64 (|sum| < 2^31 for K
+    < 2^17)."""
     return (w.double() @ x.reshape(x.shape[0], -1).double()).to(torch.int32)
+
+
+def dot8_plain(w: torch.Tensor, x: torch.Tensor,
+               fold: int = 0) -> torch.Tensor:
+    """w (M, K) @ x (K, N) int8 -> int32, or with fold the (fold, N) sum of
+    the product's fold-row slices."""
+    d = _dot_plain(w, x)
+    if fold:
+        d = d.reshape(-1, fold, d.shape[1]).sum(dim=0).to(torch.int32)
+    return d
+
+
+def dot8(w: torch.Tensor, x: torch.Tensor, fold: int = 0) -> torch.Tensor:
+    """The shape probes' int8 product (csrc/probe_shapes.cu on s8_mma.cuh's
+    tensor-core tile product) on any (M, K) @ (K, N) whose N and K are
+    multiples of 16, fold 0 or 64 (M a multiple of it); its plain version
+    on the CPU."""
+    if w.dim() != 2 or x.dim() != 2 or w.dtype != torch.int8 or \
+            x.dtype != torch.int8 or not w.is_contiguous() or \
+            not x.is_contiguous() or w.device != x.device or \
+            w.shape[1] != x.shape[0]:
+        raise ValueError("dot8 takes contiguous int8 (M, K) and (K, N) on "
+                         "one device")
+    M, K = w.shape
+    N = x.shape[1]
+    if min(M, N, K) < 1 or N % 16 or K % 16:
+        raise ValueError(f"dot8 takes N and K multiples of 16 (got M={M}, "
+                         f"N={N}, K={K})")
+    if fold not in (0, 64) or (fold and M % fold):
+        raise ValueError(f"dot8 folds 64-row slices of a multiple of 64 "
+                         f"rows (got fold={fold}, M={M})")
+    if _on_cpu(w):
+        return dot8_plain(w, x, fold)
+    out = torch.empty((fold or M, N), dtype=torch.int32, device=w.device)
+    err = build.lib().prmers_probe_dot8(w.data_ptr(), x.data_ptr(),
+                                        out.data_ptr(), M, N, K, fold,
+                                        _stream())
+    calls["probe_shapes"] += 1
+    build.check(err, "probe_shapes[dot8]")
+    return out
 
 
 def shape_plain(case: str, *xs: torch.Tensor) -> torch.Tensor:
@@ -347,23 +388,15 @@ def shape_case(case: str, *xs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"case {case} takes {want}")
     if _on_cpu(xs[0]):
         return shape_plain(case, *xs)
-    out = _out_like(case, xs)
-    lib = build.lib()
     if case in _DOTS:
         w, x = xs
-        K = w.shape[1]
-        N = x.numel() // K
-        scratch = torch.empty((576, N), dtype=torch.int32,
-                              device=x.device) if case == "n" else None
-        err = lib.prmers_probe_dot8(
-            w.data_ptr(), x.data_ptr(), out.data_ptr(), w.shape[0], N, K,
-            64 if case == "n" else 0,
-            None if scratch is None else scratch.data_ptr(), _stream())
-    else:
-        dims = tuple(xs[0].shape) + (1, 1)
-        err = lib.prmers_probe_copy(ord(case), xs[0].data_ptr(),
-                                    out.data_ptr(), out.numel(), *dims[:3],
-                                    _stream())
+        out = dot8(w, x.reshape(x.shape[0], -1), 64 if case == "n" else 0)
+        return out.reshape(_out_like(case, xs).shape)
+    out = _out_like(case, xs)
+    dims = tuple(xs[0].shape) + (1, 1)
+    err = build.lib().prmers_probe_copy(ord(case), xs[0].data_ptr(),
+                                        out.data_ptr(), out.numel(),
+                                        *dims[:3], _stream())
     calls["probe_shapes"] += 1
     build.check(err, f"probe_shapes[{case}]")
     return out

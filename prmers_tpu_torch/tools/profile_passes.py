@@ -13,14 +13,19 @@ card: the twin of tools/profile_passes.py.
     `_inverse_r`: K5u inverse (x mid_inv, the r2 inverse DFT with t_r_inv
     folded or after it), then K4u inverse (the r1 inverse DFT, x iw,
     canon). Each of the four in the matrix form (tr_fwd, g2, tr_inv,
-    (L1, True)) and in the shift form (the butterflies PRMERS_NO_MXU
-    selects in the reference); at L2 = 64 both forms apply on axis 1 too.
+    (L1, True): the int8 limb planes on the tensor cores) and in the
+    shift form (the butterflies PRMERS_NO_MXU selects in the reference);
+    at L2 = 64 both forms apply on axis 1 too.
 
 Each pass's device ms (CUDA events around each launch, behind a device
 sleep) stands beside its bound; then each is held against its plain
-version on the same inputs, exact mod P. The line gives the card's name
-and power limit first. The unfolded tables are built for the run alone
-(kernels.with_unfolded), so an engine's cached tables do not grow.
+version on the same inputs, exact mod P. The bound prices the work
+from the u64 tables whatever form runs it (_pass_bound), so the forms
+compare; "s8_bytes" gives beside it the bytes of each matrix's int8
+tables, which the matrix form reads instead, and "unfolded_s" the host
+seconds that built the unfolded view (u64 and int8 tables). The line gives the card's
+name and power limit first. The unfolded tables are built for the run
+alone (kernels.with_unfolded), so an engine's cached tables do not grow.
 
 `python -m prmers_tpu_torch.tools.profile_passes --r5 [p] [reps]`
 (default p = 700000001, n = 5 * 2^23, (64, 320, 2048)) times K5's two r2
@@ -86,6 +91,7 @@ from __future__ import annotations
 import json
 import math
 import sys
+import time
 
 from . import (OPS_PER_PRODUCT, Timed, bound, check, device_ms, nbytes,
                require_card, stream_ms)
@@ -128,6 +134,17 @@ def _pass_bound(t, axis: int, kw: dict):
     return bound(per * n * OPS_PER_PRODUCT, moved)
 
 
+# host seconds of each measured plan's unfolded view (the u64 tables and
+# their int8 forms), by p
+UNFOLDED_S: dict = {}
+
+
+def s8_bytes(t) -> dict:
+    """Bytes of each unfolded matrix's int8 tables (w8 and corr), by
+    name."""
+    return {k: nbytes(v.w8, v.corr) for k, v in t.unfolded.s8.items()}
+
+
 def measure(p: int = P_DEFAULT, reps: int = 10):
     """Time every pass at p's plan; returns (the tables with the unfolded
     view, the list of Timed)."""
@@ -140,7 +157,10 @@ def measure(p: int = P_DEFAULT, reps: int = 10):
     from ..ops import kernels as tk
     dev = require_card()
     plan = cached_plan(p)
-    t = tk.with_unfolded(get_tables(plan, dev))
+    t = get_tables(plan, dev)
+    t0 = time.perf_counter()
+    t = tk.with_unfolded(t)
+    UNFOLDED_S[p] = time.perf_counter() - t0
     R1, R2, C = t.shape
     n = R1 * R2 * C
     rng = np.random.default_rng(p)
@@ -192,9 +212,10 @@ def measure(p: int = P_DEFAULT, reps: int = 10):
                                ("k4u_inv", "k4u_inv", None)):
             axis, inverse, kw = ps[name]
             xin = v[src]
+            buf = torch.empty_like(xin)   # no allocation in a timed call
 
-            def fn(xin=xin, axis=axis, inverse=inverse, kw=kw):
-                return tk.axis_pass(xin, axis, inverse, **kw)
+            def fn(xin=xin, axis=axis, inverse=inverse, kw=kw, buf=buf):
+                return tk.axis_pass(xin, axis, inverse, out=buf, **kw)
 
             def plain(xin=xin, axis=axis, inverse=inverse, kw=kw):
                 return tk.axis_pass_plain(xin, axis, inverse, **kw)
@@ -564,6 +585,8 @@ def main(argv=None) -> int:
                       "card": card(), "p": p,
                       "n": R1 * R2 * C, "shape": [R1, R2, C], "reps": reps,
                       "passes": [e.row() for e in entries],
+                      **({"s8_bytes": s8_bytes(t),
+                          "unfolded_s": UNFOLDED_S[p]} if not flag else {}),
                       **({"parts": parts[0]} if parts else {})}))
     return 0
 

@@ -209,6 +209,33 @@ def test_copies_are_the_originals(rel):
     assert ("Port: a copy of prmers_tpu/" + rel in head) == bool(spec)
 
 
+# ops/mxu_tables.py copies part of prmers_tpu/ops/pallas/mxu_dft.py (the
+# host-side table builders): the definitions it takes as they are, and
+# those its header lists as changed
+MXU_COPIED = ("_plane_offset", "N_WPLANES", "_MAXPOS8", "_balanced_limbs",
+              "_balanced_limbs_vec", "_fold_sub_into_corr")
+MXU_CHANGED = ("_mulmod_u64", "build_mxu_tables")
+
+
+@pytest.mark.parametrize("name", MXU_COPIED + MXU_CHANGED)
+def test_mxu_tables_copies_are_the_originals(name):
+    """Each copied builder equals the original's definition (the ast);
+    each changed one differs, as the header says."""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    a = _definitions(os.path.join(root, "prmers_tpu", "ops", "pallas",
+                                  "mxu_dft.py"))
+    b = _definitions(os.path.join(root, "prmers_tpu_torch", "ops",
+                                  "mxu_tables.py"))
+    assert (a[name] == b[name]) == (name in MXU_COPIED)
+    with open(os.path.join(root, "prmers_tpu_torch", "ops",
+                           "mxu_tables.py")) as f:
+        head = f.read(4000)
+    assert "Port: a copy of the host-side table builders of prmers_tpu/" \
+           "ops/pallas/\nmxu_dft.py" in head
+    assert name in head or name in ("N_WPLANES", "_MAXPOS8")
+
+
 def test_matrix_cases_and_fingerprint_are_the_originals():
     """The port's validation matrix (prmers_tpu_torch/tools/
     validation_matrix.py) runs the reference's cases

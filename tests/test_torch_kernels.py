@@ -584,21 +584,30 @@ def test_cuda_shard_kernels_match_plain(logn, s):
             assert torch.equal(d, dw) and torch.equal(c, cw), a
 
 
+# the unfolded passes' plans: n -> p (the radix-5 ones: L2 = 5, the
+# smallest radix-5 factor, and L2 = 320, the largest, a 2560-byte
+# contraction)
+UNFOLDED_PLANS = {"2^15": (1 << 15, None), "2^17": (1 << 17, None),
+                  "2^23": (1 << 23, 136279841), "5x2^15": (5 << 15, None),
+                  "5x2^22": (5 << 22, 332192831)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("logn", [15, 17, 23])
-def test_cuda_unfolded_passes_match_plain(logn):
+@pytest.mark.parametrize("plan_id", list(UNFOLDED_PLANS))
+def test_cuda_unfolded_passes_match_plain(plan_id):
     """On the card: K4u and K5u, each of the four passes of forward_r (with
-    a nonzero scalar carry) and inverse_r in the matrix and the shift form,
-    against its plain version on the same inputs, exact mod P; then the
-    two r passes whole against their plain versions."""
+    a nonzero scalar carry) and inverse_r in the matrix form (the int8
+    tables on the tensor cores) and, where both factors divide 64, the
+    shift form, against its plain version on the same inputs, exact mod
+    P; then the two r passes whole against their plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    n = 1 << logn
-    plan = build_plan(136279841 if logn == 23 else int(n * 16.5) | 1, n=n)
+    n, p = UNFOLDED_PLANS[plan_id]
+    plan = build_plan(p or int(n * 16.5) | 1, n=n)
     fp = tfs.FourStepPlan.from_plan(plan)
     t = tk.with_unfolded(tk.DevTables.from_host(tfs.build_tables(fp),
                                                 "cuda"))
-    rng = np.random.default_rng(logn)
+    rng = np.random.default_rng(n)
     x = _t(_digits(plan, rng).reshape(t.shape)).cuda()
     z = _t(rng.integers(0, GP, size=t.shape, dtype=np.uint64)).cuda()
     cin = 0x9E3779B97F4A7C15
@@ -606,7 +615,8 @@ def test_cuda_unfolded_passes_match_plain(logn):
     def same(got, want):
         return torch.equal(tgl.canon64(got), tgl.canon64(want))
 
-    for shift in (False, True):
+    R1, R2, _C = t.shape
+    for shift in (False, True)[:2 if 64 % R1 == 0 and 64 % R2 == 0 else 1]:
         ps = tk.r_passes(t, shift, cin)
         for name, v in (("k4u_fwd", x), ("k5u_fwd", x), ("k5u_inv", z),
                         ("k4u_inv", z)):
@@ -647,6 +657,24 @@ def test_cuda_probes_match_plain():
         xs = pr.shape_inputs(case, device="cuda")
         assert torch.equal(pr.shape_case(case, *xs),
                            pr.shape_plain(case, *xs)), case
+    # the int8 product off its 128 x 128 x 128 tile grid: ragged M, N and
+    # K (multiples of 16), a single row, a fold over 64-row slices, and
+    # extreme bytes (every product -128 * -128)
+    rng = np.random.default_rng(8)
+    for M, N, K, fold in ((1, 16, 16, 0), (40, 48, 80, 0),
+                          (200, 272, 336, 0), (576, 1040, 528, 0),
+                          (130, 128, 2560, 0), (192, 144, 96, 64),
+                          (576, 1024, 512, 64)):
+        w = torch.from_numpy(rng.integers(-128, 128, size=(M, K),
+                                          dtype=np.int8)).cuda()
+        x = torch.from_numpy(rng.integers(-128, 128, size=(K, N),
+                                          dtype=np.int8)).cuda()
+        assert torch.equal(pr.dot8(w, x, fold), pr.dot8_plain(w, x, fold)), \
+            (M, N, K, fold)
+    w = torch.full((64, 4096), -128, dtype=torch.int8, device="cuda")
+    assert torch.equal(pr.dot8(w, w.t().contiguous()),
+                       torch.full((64, 64), 4096 * 128 * 128,
+                                  dtype=torch.int32, device="cuda"))
 
 
 @pytest.mark.gpu
