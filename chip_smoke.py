@@ -150,12 +150,19 @@ Phases; any failure raises and the script exits non-zero with no result:
      and probe_mulmod with their rates; tools/microbench_fields:
      probe_fields for gl64, GF(M31^2) and GF(M61^2) mul/sqr and the fft3161
      ratio) and the probes (tools/probe_shapes: cases a-n;
-     tools/probe_bitcast: the byte order). The wrapper counts are reset
-     just before and read just after, and every kernel of the phase must
-     be > 0; then each timed launch's output is held against its plain
-     version on the same inputs (exact mod P for K4u/K5u and the field
-     ops after canon, bit for bit for the rest), and each time stands
-     beside its bound and the card;
+     tools/probe_bitcast: the byte order), each time the median of its
+     event pairs (mean and largest beside it; outputs allocated before
+     the timing), beside an empty launch timed the same way (the floor of
+     the method); the rep probes priced by the integer instructions of
+     their compiled loops (tools/sass.py, cuobjdump), as slots of the
+     busier of the SM's two integer pipes, over a pipe's rate (SMs x 64
+     lanes x nvidia-smi's clocks.max.sm). The wrapper
+     counts are reset just before and read just after, and every kernel
+     of the phase must be > 0; then each timed launch's output is held
+     against its plain version on the same inputs (exact mod P for
+     K4u/K5u and the field ops after canon, bit for bit for the rest),
+     and each time stands beside its bound and the card; the shape cases
+     slower than their one-call twin (by median) are listed;
   8. the any-size engine (engine/torch_engine.TorchEngine, what
      create_engine gives where the four-step engine does not take the
      plan, and for every p under PRMERS_NO_PALLAS): the table build time
@@ -580,15 +587,15 @@ def tools_drive(dev, card):
     136279841, the microbenchmarks, the probes), the wrapper counts of
     their run (reset just before, read just after; each > 0), then every
     timed launch held against its plain version; returns (the checked
-    Timed, the counts, the ms of each shape case's one-call PyTorch twin:
-    torch._int_mm on the dots b, e and n)."""
+    Timed, the counts, the pair times of each shape case's one-call
+    PyTorch twin: torch._int_mm on the dots b, e and n)."""
     import torch
     from prmers_tpu_torch import tools
     from prmers_tpu_torch.ops import kernels as tk
     from prmers_tpu_torch.ops import probes as pr
     from prmers_tpu_torch.tools import (microbench, microbench_fields,
                                         probe_bitcast, probe_shapes,
-                                        profile_passes)
+                                        profile_passes, sass)
     t1 = time.perf_counter()
     tk.reset_calls()
     pr.reset_calls()
@@ -612,6 +619,7 @@ def tools_drive(dev, card):
     mf, per_el = run("fields", microbench_fields.measure)
     ps, library = run("shapes", probe_shapes.measure)
     pb, order, col = run("bitcast", probe_bitcast.measure)
+    floor = run("floor", tools.empty_launch_ms)
     log(f"[7] seconds by tool: {secs}")
     calls = {**tk.calls, **pr.calls}
     log(f"[7] tools' run in {time.perf_counter() - t1:.3f} s; wrapper calls "
@@ -628,32 +636,59 @@ def tools_drive(dev, card):
     for r in moves:
         log(f"[7]   move-only body {r['what']}: {r['ms']:.6f} ms, bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}) ({card})")
+    log(f"[7] empty launch (the floor of the timing method): median "
+        f"{floor.median:.6f} ms, mean {floor.mean:.6f}, max "
+        f"{floor.max:.6f}, pairs {[round(v, 6) for v in floor.pairs]} "
+        f"({card})")
     for e in timed7:
-        log(f"[7]   {e.kernel} {e.what}: kernel {e.ms:.6f} ms, plain "
+        log(f"[7]   {e.kernel} {e.what}: kernel {e.ms:.6f} ms (median; "
+            f"mean {e.times.mean:.6f}, max {e.times.max:.6f}), plain "
             f"{e.plain_ms:.6f} ms, bound {e.bound_ms:.6f} ms "
             f"({e.bound_by}), max_abs_err {e.max_abs_err} ({card})")
     for r in mm:
         log(f"[7] library {r['kind']} product {r['shape']} serial: "
             f"{r['ms']:.6f} ms, {r['rate_T']:.3f} T/s ({card})")
+    log(f"[7] integer pipe: {tools.int_pipe_rate():.6e} slots/s "
+        f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs "
+        f"x {tools.INT_LANES_PER_SM} lanes x {tools.sm_clock_hz() / 1e6} "
+        f"MHz clocks.max.sm) ({card})")
+    counts = sass.library_counts()
+    for op, c in counts.items():
+        log(f"[7] rep loop {op} (SASS, per rep): ALU {c['alu_per_rep']}, "
+            f"FMA {c['fma_per_rep']}, either {c['either_per_rep']}, issued "
+            f"{c['issued_per_rep']}: {c['slots_per_rep']} pipe slots; "
+            f"opcodes per {c['unroll']} reps {c['opcodes']}")
     for name, r in list(rates.items()) + list(per_el.items()):
         log(f"[7] {name} rate from the slope: {r['ns_per_el']:.6f} ns per "
-            f"rep and element, {r['rate_G_per_s']} G/s ({card})")
+            f"rep and element, {r['rate_G_per_s']} G/s; the loop's issue "
+            f"bound {r['bound_G_per_s']:.3f} G/s at {r['slots_per_rep']} "
+            f"pipe slots a rep (SASS): "
+            f"{r['rate_G_per_s'] / r['bound_G_per_s']:.1%} of it; its "
+            f"products alone {r['products_G_per_s']:.3f} G/s at "
+            f"{r['product_slots']} FMA slots: "
+            f"{r['rate_G_per_s'] / r['products_G_per_s']:.1%} ({card})")
     log(f"[7] fft3161 word vs two gl64 words: "
         f"{microbench_fields.ratios(per_el)} ({card})")
     log(f"[7] bitcast order {order} {col} ({card})")
     log(f"[7] K4u/K5u matrix form's int8 tables, bytes: {s8b} ({card})")
+    slow = []
     for e in timed7:
+        if e.kernel in ("probe_shapes", "probe_bitcast"):
+            floor_note = ", at the launch floor" if e.ms <= floor.max else ""
         if e.kernel == "probe_shapes":
             case = e.what.split()[0]
             lib = "torch._int_mm" if case in "ben" else "one-call twin"
+            if library[case].median < e.ms:
+                slow.append(case)
             log(f"[7] probe_shapes {case}: kernel {e.ms:.6f} ms, {lib} "
-                f"{library[case]:.6f} ms, bound {e.bound_ms:.6f} ms "
-                f"({e.bound_by}) ({card})")
-    slow = [c for c in "be" if library[c] < min(
-        e.ms for e in timed7 if e.kernel == "probe_shapes"
-        and e.what.startswith(c + " "))]
-    log(f"[7] dots b and e slower than torch._int_mm: {slow or 'none'} "
-        f"({card})")
+                f"{library[case].median:.6f} ms (medians), bound "
+                f"{e.bound_ms:.6f} ms ({e.bound_by}){floor_note} ({card})")
+        elif e.kernel == "probe_bitcast":
+            log(f"[7] probe_bitcast: {e.ms:.6f} ms, the empty launch "
+                f"{floor.median:.6f} (max {floor.max:.6f}){floor_note} "
+                f"({card})")
+    log(f"[7] shape cases slower than their one-call twin (medians): "
+        f"{slow or 'none'} ({card})")
     log(f"[7] phase 7 in {time.perf_counter() - t1:.3f} s")
     return timed7, calls, library
 
@@ -2052,7 +2087,9 @@ def main(argv) -> int:
     if "--tools-only" in argv:
         timed7, calls, library = tools_drive(dev, card)
         print(json.dumps({"tools": [e.row() for e in timed7],
-                          "calls": calls, "library_ms": library}))
+                          "calls": calls,
+                          "library": {k: v.row()
+                                      for k, v in library.items()}}))
         print(card)
         return 0
     if "--anysize-only" in argv:
@@ -2881,11 +2918,12 @@ def main(argv) -> int:
                 "launches": counts[path][name], "max_abs_err": errs[entry],
                 "ms": ms[entry][0], "plain_ms": ms[entry][1],
                 "bound_ms": bounds[entry][0], "bound_by": bounds[entry][1],
-                # the shape cases' one-call twins, summed as their kernels'
-                # ms are (torch._int_mm for the dots, n's product alone);
+                # the shape cases' one-call twins' medians, summed as their
+                # kernels' are (torch._int_mm for the dots, n's product
+                # alone);
                 # no PyTorch call computes a Goldilocks product, this
                 # carry or a GF(q^2) stage
-                "library_ms": (sum(library7.values())
+                "library_ms": (sum(v.median for v in library7.values())
                                if entry == "probe_shapes" else None)}
                for entry, name, path in ENTRIES]
     log(f"[smoke] total {time.perf_counter() - t_start:.3f} s")

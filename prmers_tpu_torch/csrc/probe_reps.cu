@@ -21,7 +21,12 @@
 //
 // What bounds it on the H100: the integer pipe, by design (a probe of its
 // rate). Each thread keeps its element in registers for the whole loop;
-// device traffic is n_in + n_out words per element, once.
+// device traffic is n_in + n_out words per element, once. The tools price
+// a rep at the slots its compiled loop takes on the busier of the SM's two
+// integer pipes, ALU and FMA, 64 lanes each at the SM clock (tools/sass.py
+// reads them from the SASS, and each loop's unroll from the step of its
+// counter). The loops are unrolled 16 times for the one-IMAD REP_VPU (an
+// unroll of 4 cut its rate by 14%) and 4 times for the rest.
 
 #include <cuda_runtime.h>
 
@@ -54,14 +59,17 @@ rep_kernel(const u32* in, u32* out, int n_out, int reps, size_t N) {
     if (OP == REP_VPU) {
         const u32 x = in[i];
         u32 y = x;
+#pragma unroll 16
         for (int r = 0; r < reps; ++r) y = y * x + 1u;
         w[nw++] = y;
     } else if (OP == REP_GL_MUL || OP == REP_GL_SQR) {
         u64 a = pair_at(in, 0, N, i);
         if (OP == REP_GL_MUL) {
             const u64 b = pair_at(in, 2, N, i);
+#pragma unroll 4
             for (int r = 0; r < reps; ++r) a = gl_mul(a, b);
         } else {
+#pragma unroll 4
             for (int r = 0; r < reps; ++r) a = gl_sqr(a);
         }
         w[nw++] = (u32)a;
@@ -74,8 +82,10 @@ rep_kernel(const u32* in, u32* out, int n_out, int reps, size_t N) {
         u32 ar = in[i], ai = in[N + i];
         if (OP == REP_M31_MUL) {
             const u32 br = in[2 * N + i], bi = in[3 * N + i];
+#pragma unroll 4
             for (int r = 0; r < reps; ++r) m31c_mul(ar, ai, br, bi, ar, ai);
         } else {
+#pragma unroll 4
             for (int r = 0; r < reps; ++r) m31c_sqr(ar, ai, ar, ai);
         }
         w[nw++] = ar;
@@ -88,8 +98,10 @@ rep_kernel(const u32* in, u32* out, int n_out, int reps, size_t N) {
         u64 ar = pair_at(in, 0, N, i), ai = pair_at(in, 2, N, i);
         if (OP == REP_M61_MUL) {
             const u64 br = pair_at(in, 4, N, i), bi = pair_at(in, 6, N, i);
+#pragma unroll 4
             for (int r = 0; r < reps; ++r) m61c_mul(ar, ai, br, bi, ar, ai);
         } else {
+#pragma unroll 4
             for (int r = 0; r < reps; ++r) m61c_sqr(ar, ai, ar, ai);
         }
         w[nw++] = (u32)ar;

@@ -20,8 +20,12 @@
 //   l x[:, 0, :] -> (64,1,128) u32             expand
 //   m (64,8,128) int8 -> (64,1024) -> 8 x rows (512,1024)
 //   n (576,512) @ (512,1024), then the sum of its nine 64-row slices
-// The copy cases are index kernels, one thread per output element (the
-// case's source index computed from the input's dims d0..d2). The int8
+// The copy cases (a, c, d, f-m) are one instantiation each of copy_kernel
+// on csrc/probe_copy.cuh's index maps: the case a template parameter, its
+// dims compile-time constants, 32-bit index math (every case is below 2^21
+// units), and each thread moves whole 16-byte units (W4: four words or 16
+// bytes). f reads four units and writes one of 16 int8; k adds 1 to four
+// words a unit; j sums eight units (rows j = 0..7) into one. The int8
 // dots (b, e, n) are one launch of dot8_kernel on s8_mma.cuh's tile
 // product (mma.sync m16n8k32 s8 on the tensor cores): 128 x 128 output
 // tiles, A and B staged by cp.async into a three-stage ring, B turned
@@ -29,70 +33,53 @@
 // launch (each warp row over its own slices, then one exchange through
 // shared memory).
 //
-// What bounds it on the H100: the copies, their bytes; the dots, at 603
-// MFLOP (e) to 4.8 GFLOP (b) of int8 work, the bytes: b moves 23.4 MB
-// (0.0070 ms at 3.35 TB/s) against 0.0024 ms of int8 operations, e 3.2 MB
-// (0.00095 ms), near the launch floor.
+// What bounds it on the H100: the copies, their bytes (each input read
+// once, each output written once: 0.000157 ms for k up to 0.011268 ms for
+// d's 37.7 MB), so most sit at the launch floor of ~0.005 ms; only d is
+// long enough to be bound by the HBM. Its grid is one wave (8 blocks of
+// 256 threads an SM) that takes d in passes, each a contiguous 4.3 MB of
+// the input, so the HBM serves one stream in order: with all its 18.9 MB
+// of loads in flight at once (eight units a thread, one pass) it read
+// slower from a cold L2 than this, though faster from a warm one. The
+// dots, at 603 MFLOP (e) to 4.8 GFLOP (b) of int8 work, the bytes: b moves
+// 23.4 MB (0.0070 ms at 3.35 TB/s) against 0.0024 ms of int8 operations,
+// e 3.2 MB (0.00095 ms), near the launch floor.
 
 #include <cuda_runtime.h>
 
+#include "probe_copy.cuh"
 #include "s8_mma.cuh"
 
 namespace {
 
-template <typename Ti, typename To>
-__global__ void copy_kernel(char cs, const Ti* in, To* out, long long total,
-                            int d0, int d1, int d2) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= total) return;
-    long long src = i;
-    switch (cs) {
-        case 'c':
-            src = i % ((long long)d0 * d1 * d2);
-            break;
-        case 'g': {
-            const long long w = 8LL * d1;
-            src = (i / w) * d1 + (i % w) % d1;
-            break;
-        }
-        case 'h':
-            src = i + 64LL * d1;
-            break;
-        case 'i':
-            src = (i / 128) * d1 + 128 + i % 128;
-            break;
-        case 'j': {
-            const long long r = i / d2, c = i % d2;
-            unsigned int s = 0;
-            for (int j = 0; j < 8; ++j)
-                s += (unsigned int)in[(r * d1 + j) * d2 + c];
-            out[i] = (To)s;
-            return;
-        }
-        case 'l':
-            src = (i / d2) * d1 * d2 + i % d2;
-            break;
-        case 'm': {
-            const long long w = (long long)d1 * d2;
-            const long long R = i / w, q = i % w;
-            src = ((R % d0) * d1 + q / d2) * d2 + q % d2;
-            break;
-        }
-    }
-    if (cs == 'f')
-        out[i] = (To)(signed char)(unsigned char)(in[src] & 0xFF);
-    else if (cs == 'k')
-        out[i] = (To)(in[src] + 1u);
-    else
-        out[i] = (To)in[src];
+#define COPY_THREADS 256
+
+// One case's copy: thread t of the grid builds output units t, t + the
+// grid's threads, ... (one pass where the grid covers the case).
+template <int CS>
+__global__ void __launch_bounds__(COPY_THREADS)
+copy_kernel(const W4* __restrict__ in, W4* __restrict__ out) {
+    const int step = gridDim.x * COPY_THREADS;
+    for (int q = blockIdx.x * COPY_THREADS + threadIdx.x; q < COPY_UNITS<CS>;
+         q += step)
+        out[q] = copy_unit<CS>(in, q);
 }
 
-template <typename Ti, typename To>
-int copy_launch(char cs, const void* in, void* out, long long total, int d0,
-                int d1, int d2, cudaStream_t st) {
-    const unsigned blocks = (unsigned)((total + 255) / 256);
-    copy_kernel<Ti, To><<<blocks, 256, 0, st>>>(
-        cs, (const Ti*)in, (To*)out, total, d0, d1, d2);
+// a block a COPY_THREADS units, at most the blocks the SMs hold at once
+// (2048 threads each): one pass below that, else passes over one wave
+template <int CS>
+int copy_launch(const void* in, void* out, cudaStream_t st) {
+    static int sms = 0;
+    if (!sms) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (sms <= 0) sms = 132;
+    }
+    const int need = (COPY_UNITS<CS> + COPY_THREADS - 1) / COPY_THREADS;
+    const int cap = sms * (2048 / COPY_THREADS);
+    copy_kernel<CS><<<need < cap ? need : cap, COPY_THREADS, 0, st>>>(
+        (const W4*)in, (W4*)out);
     return (int)cudaGetLastError();
 }
 
@@ -249,25 +236,23 @@ dot8_kernel(const signed char* A, const signed char* B, int* Cm, int M,
 
 }  // namespace
 
-// One copy case; returns cudaGetLastError(), or -1 for an unknown case.
+// One copy case (its own instantiation; the case's shapes are fixed);
+// returns cudaGetLastError(), or -1 for an unknown case.
 extern "C" int prmers_probe_copy(int cs, const void* in, void* out,
-                                 long long total, int d0, int d1, int d2,
                                  void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (total <= 0) return -1;
     switch (cs) {
-        case 'a': case 'd': case 'h': case 'i':
-            return copy_launch<int, int>(cs, in, out, total, d0, d1, d2, st);
-        case 'c': case 'g': case 'm':
-            return copy_launch<signed char, signed char>(cs, in, out, total,
-                                                         d0, d1, d2, st);
-        case 'f':
-            return copy_launch<unsigned int, signed char>(cs, in, out, total,
-                                                          d0, d1, d2, st);
-        case 'j': case 'k': case 'l':
-            return copy_launch<unsigned int, unsigned int>(cs, in, out,
-                                                           total, d0, d1, d2,
-                                                           st);
+        case 'a': return copy_launch<'a'>(in, out, st);
+        case 'c': return copy_launch<'c'>(in, out, st);
+        case 'd': return copy_launch<'d'>(in, out, st);
+        case 'f': return copy_launch<'f'>(in, out, st);
+        case 'g': return copy_launch<'g'>(in, out, st);
+        case 'h': return copy_launch<'h'>(in, out, st);
+        case 'i': return copy_launch<'i'>(in, out, st);
+        case 'j': return copy_launch<'j'>(in, out, st);
+        case 'k': return copy_launch<'k'>(in, out, st);
+        case 'l': return copy_launch<'l'>(in, out, st);
+        case 'm': return copy_launch<'m'>(in, out, st);
     }
     return -1;
 }

@@ -67,7 +67,7 @@ SIGNATURES = {
     # the probes (ops/probes.py)
     "prmers_probe_reps": [_I, _P, _P, _I, _I, _LL, _P],
     "prmers_probe_bitcast": [_P, _P, _I, _I, _P],
-    "prmers_probe_copy": [_I, _P, _P, _LL, _I, _I, _I, _P],
+    "prmers_probe_copy": [_I, _P, _P, _P],
     "prmers_probe_dot8": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 

@@ -20,12 +20,18 @@ Data are u32 words held in int32 tensors (the bit patterns the TPU's u32
 arrays hold; a rep op's planes stacked on dim 0), int8 and int32 as they
 are. Each wrapper takes its plain torch version for a CPU tensor and
 launches its kernel for a CUDA tensor, and `calls` counts the calls that
-launched. The plain versions compute on int64 words in [0, 2^32) with the
-port's gl64 and mers ops; a rep op's results equal its kernel's after
-canon (canon_planes), the others' bit for bit.
+launched. Each takes an optional `out=`, a contiguous, 16-byte aligned
+tensor of the result's shape and type on the inputs' device (the shape
+probes' inputs are held to the same alignment), which it fills and returns
+(the tools allocate it once, outside their timed calls). The plain
+versions compute on int64 words in [0, 2^32) with the port's gl64 and
+mers ops; a rep op's results equal its kernel's after canon
+(canon_planes), the others' bit for bit.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -77,6 +83,32 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _aligned(*xs: torch.Tensor) -> bool:
+    """Whether every tensor starts on a 16-byte boundary, as the copy
+    kernel's and dot8's 16-byte loads and stores need (a view at an odd
+    offset does not)."""
+    return all(x.data_ptr() % 16 == 0 for x in xs)
+
+
+def _out(out, shape, dtype, device) -> torch.Tensor:
+    """The caller's `out` checked against the result's shape, type and
+    device (and for contiguity and 16-byte alignment), or a new tensor
+    when out is None."""
+    shape = tuple(shape)
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if tuple(out.shape) != shape or out.dtype != dtype or \
+            out.device != torch.device(device) or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {dtype} {shape} on "
+                         f"{device} (got {out.dtype} {tuple(out.shape)} on "
+                         f"{out.device}, contiguous: "
+                         f"{out.is_contiguous()})")
+    if not _aligned(out):
+        raise ValueError("out must be 16-byte aligned (got a view at "
+                         f"{out.data_ptr() % 16} bytes past a boundary)")
+    return out
+
+
 def words(x: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> int64 words in [0, 2^32)."""
     return x.to(torch.int64) & M32
@@ -125,8 +157,8 @@ def reps_plain(op: str, x: torch.Tensor, reps: int) -> torch.Tensor:
     return torch.stack([bits32(p) for p in w])
 
 
-def _reps(name: str, op: str, x: torch.Tensor, reps: int,
-          n_out: int) -> torch.Tensor:
+def _reps(name: str, op: str, x: torch.Tensor, reps: int, n_out: int,
+          out=None) -> torch.Tensor:
     op_id, n_in = REP_OPS[op]
     if x.dtype != torch.int32 or not x.is_contiguous() or x.dim() < 2 or \
             x.shape[0] != n_in:
@@ -134,10 +166,9 @@ def _reps(name: str, op: str, x: torch.Tensor, reps: int,
                          f"(got {x.dtype} {tuple(x.shape)})")
     if not 0 <= reps < (1 << 31):
         raise ValueError(f"reps={reps}")
+    out = _out(out, (n_out,) + tuple(x.shape[1:]), torch.int32, x.device)
     if _on_cpu(x):
-        return reps_plain(op, x, reps)[:n_out].contiguous()
-    out = torch.empty((n_out,) + tuple(x.shape[1:]), dtype=torch.int32,
-                      device=x.device)
+        return out.copy_(reps_plain(op, x, reps)[:n_out])
     err = build.lib().prmers_probe_reps(op_id, x.data_ptr(), out.data_ptr(),
                                         n_out, reps, x[0].numel(), _stream())
     calls[name] += 1
@@ -145,23 +176,25 @@ def _reps(name: str, op: str, x: torch.Tensor, reps: int,
     return out
 
 
-def vpu(x: torch.Tensor, reps: int) -> torch.Tensor:
+def vpu(x: torch.Tensor, reps: int, out=None) -> torch.Tensor:
     """probe_vpu: x (R, C) int32 -> y after reps of y = y * x + 1."""
-    return _reps("probe_vpu", "vpu", x.unsqueeze(0), reps, 1)[0]
+    if out is not None:
+        out = _out(out, x.shape, torch.int32, x.device).unsqueeze(0)
+    return _reps("probe_vpu", "vpu", x.unsqueeze(0), reps, 1, out)[0]
 
 
-def mulmod(x: torch.Tensor, reps: int) -> torch.Tensor:
+def mulmod(x: torch.Tensor, reps: int, out=None) -> torch.Tensor:
     """probe_mulmod: x (4, R, C) int32 = (alo, ahi, blo, bhi) -> (2, R, C),
     the lazy a * b^reps mod P (microbench3's olo, ohi)."""
-    return _reps("probe_mulmod", "gl_mul", x, reps, 2)
+    return _reps("probe_mulmod", "gl_mul", x, reps, 2, out)
 
 
-def fields(op: str, x: torch.Tensor, reps: int) -> torch.Tensor:
+def fields(op: str, x: torch.Tensor, reps: int, out=None) -> torch.Tensor:
     """probe_fields: one of FIELD_OPS on its planes x (n_in, R, C) int32,
     reps times; every plane out (the b operands pass through)."""
     if op not in FIELD_OPS:
         raise ValueError(op)
-    return _reps("probe_fields", op, x, reps, REP_OPS[op][1])
+    return _reps("probe_fields", op, x, reps, REP_OPS[op][1], out)
 
 
 def canon_planes(op: str, x: torch.Tensor) -> torch.Tensor:
@@ -206,13 +239,13 @@ def bitcast_plain(x: torch.Tensor) -> torch.Tensor:
         .permute(0, 2, 1).reshape(4 * L, C).contiguous()
 
 
-def bitcast(x: torch.Tensor) -> torch.Tensor:
+def bitcast(x: torch.Tensor, out=None) -> torch.Tensor:
     if x.dtype != torch.int32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("bitcast takes a contiguous int32 (L, C) tensor")
-    if _on_cpu(x):
-        return bitcast_plain(x)
     L, C = x.shape
-    out = torch.empty((4 * L, C), dtype=torch.int8, device=x.device)
+    out = _out(out, (4 * L, C), torch.int8, x.device)
+    if _on_cpu(x):
+        return out.copy_(bitcast_plain(x))
     err = build.lib().prmers_probe_bitcast(x.data_ptr(), out.data_ptr(), L,
                                            C, _stream())
     calls["probe_bitcast"] += 1
@@ -304,7 +337,8 @@ def dot8_plain(w: torch.Tensor, x: torch.Tensor,
     return d
 
 
-def dot8(w: torch.Tensor, x: torch.Tensor, fold: int = 0) -> torch.Tensor:
+def dot8(w: torch.Tensor, x: torch.Tensor, fold: int = 0,
+         out=None) -> torch.Tensor:
     """The shape probes' int8 product (csrc/probe_shapes.cu on s8_mma.cuh's
     tensor-core tile product) on any (M, K) @ (K, N) whose N and K are
     multiples of 16, fold 0 or 64 (M a multiple of it); its plain version
@@ -312,9 +346,9 @@ def dot8(w: torch.Tensor, x: torch.Tensor, fold: int = 0) -> torch.Tensor:
     if w.dim() != 2 or x.dim() != 2 or w.dtype != torch.int8 or \
             x.dtype != torch.int8 or not w.is_contiguous() or \
             not x.is_contiguous() or w.device != x.device or \
-            w.shape[1] != x.shape[0]:
-        raise ValueError("dot8 takes contiguous int8 (M, K) and (K, N) on "
-                         "one device")
+            w.shape[1] != x.shape[0] or not _aligned(w, x):
+        raise ValueError("dot8 takes contiguous, 16-byte aligned int8 "
+                         "(M, K) and (K, N) on one device")
     M, K = w.shape
     N = x.shape[1]
     if min(M, N, K) < 1 or N % 16 or K % 16:
@@ -323,9 +357,9 @@ def dot8(w: torch.Tensor, x: torch.Tensor, fold: int = 0) -> torch.Tensor:
     if fold not in (0, 64) or (fold and M % fold):
         raise ValueError(f"dot8 folds 64-row slices of a multiple of 64 "
                          f"rows (got fold={fold}, M={M})")
+    out = _out(out, (fold or M, N), torch.int32, w.device)
     if _on_cpu(w):
-        return dot8_plain(w, x, fold)
-    out = torch.empty((fold or M, N), dtype=torch.int32, device=w.device)
+        return out.copy_(dot8_plain(w, x, fold))
     err = build.lib().prmers_probe_dot8(w.data_ptr(), x.data_ptr(),
                                         out.data_ptr(), M, N, K, fold,
                                         _stream())
@@ -369,34 +403,43 @@ def shape_plain(case: str, *xs: torch.Tensor) -> torch.Tensor:
     raise ValueError(case)
 
 
-def _out_like(case: str, xs) -> torch.Tensor:
-    """An empty output of the case's shape and type, on the inputs'
-    device."""
-    meta = shape_plain(case, *(torch.zeros_like(x, device="meta")
-                               for x in xs))
-    return torch.empty(meta.shape, dtype=meta.dtype, device=xs[0].device)
+@functools.lru_cache(maxsize=None)
+def _out_spec(case: str) -> tuple:
+    """(shape, dtype) of a case's output: its plain version on meta
+    tensors of its inputs' shapes."""
+    meta = shape_plain(case, *(
+        torch.empty(s, dtype=torch.int8 if k == "int8" else torch.int32,
+                    device="meta") for s, k in SHAPE_CASES[case][0]))
+    return tuple(meta.shape), meta.dtype
 
 
-def shape_case(case: str, *xs: torch.Tensor) -> torch.Tensor:
+def shape_out(case: str, device="cpu") -> torch.Tensor:
+    """An empty output of the case's shape and type."""
+    shape, dtype = _out_spec(case)
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def shape_case(case: str, *xs: torch.Tensor, out=None) -> torch.Tensor:
     """One shape case: its plain version on the CPU, its kernel on the
-    card."""
+    card (the copy cases one launch of the case's instantiation of
+    csrc/probe_shapes.cu's copy kernel, the dots dot8)."""
     want = SHAPE_CASES[case][0]
     if len(xs) != len(want) or any(
             tuple(x.shape) != s or not x.is_contiguous() or
             x.dtype != (torch.int8 if k == "int8" else torch.int32)
-            for x, (s, k) in zip(xs, want)):
-        raise ValueError(f"case {case} takes {want}")
+            for x, (s, k) in zip(xs, want)) or not _aligned(*xs):
+        raise ValueError(f"case {case} takes contiguous, 16-byte aligned "
+                         f"{want}")
+    out = _out(out, *_out_spec(case), xs[0].device)
     if _on_cpu(xs[0]):
-        return shape_plain(case, *xs)
+        return out.copy_(shape_plain(case, *xs))
     if case in _DOTS:
         w, x = xs
-        out = dot8(w, x.reshape(x.shape[0], -1), 64 if case == "n" else 0)
-        return out.reshape(_out_like(case, xs).shape)
-    out = _out_like(case, xs)
-    dims = tuple(xs[0].shape) + (1, 1)
+        dot8(w, x.reshape(x.shape[0], -1), 64 if case == "n" else 0,
+             out=out.view(out.shape[0], -1))
+        return out
     err = build.lib().prmers_probe_copy(ord(case), xs[0].data_ptr(),
-                                        out.data_ptr(), out.numel(),
-                                        *dims[:3], _stream())
+                                        out.data_ptr(), _stream())
     calls["probe_shapes"] += 1
     build.check(err, f"probe_shapes[{case}]")
     return out

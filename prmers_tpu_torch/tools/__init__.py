@@ -23,11 +23,19 @@ compared (PRMERS_PLATFORM=cpu runs its CPU columns without a card).
 
 Every tool needs a card and raises without one. A kernel's time is taken
 by CUDA events around each launch queued behind a device sleep (device
-time, not the host's enqueue), beside its bound: the larger of its bytes
-(each input read once, each output written once) over 3.35 TB/s and its
-operations over the card's peak for their type. Each timed launch keeps
-its output, and `check` holds it against the kernel's plain version on
-the same inputs (timing that too).
+time, not the host's enqueue): the median of the pairs, with their mean
+and largest beside it. The timed thunks allocate their outputs before the
+first pair (the wrappers' `out=`), so no allocation falls between the
+events; where a bound counts HBM bytes that a kernel reads once (the
+shape probes), each pair starts from a cold L2 (`l2_flush`). Beside the
+time stands its bound: the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its operations over the
+card's peak for their type (for the rep-loop probes, the integer
+instructions of their compiled loop, as slots of the busier integer pipe
+(tools/sass.py), over the pipe's rate, `int_pipe_rate`: the loop's issue
+rate, not what its function needs).
+Each timed launch keeps its output, and `check` holds it against the
+kernel's plain version on the same inputs (timing that too).
 """
 
 from __future__ import annotations
@@ -37,15 +45,18 @@ from typing import Any, Callable
 
 import numpy as np
 
-# NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s, int8 tensor-core op/s,
-# float32 op/s outside the tensor cores (the nearest row to int32 work)
+# NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s, int8 tensor-core op/s
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
-FP32_OPS_PER_S = 67e12
-# a mod-P (or M61) 64-bit product priced as the JAX's limb-plane form: 64
-# int8 MACs, 128 int8 operations; an M31 one as 16 MACs
+# a mod-P 64-bit product priced as the JAX's limb-plane form: 64 int8
+# MACs, 128 int8 operations (the passes' products)
 OPS_PER_PRODUCT = 128
-OPS_PER_M31_PRODUCT = 32
+# 32-bit integer lanes of an SM's integer pipe (CUDA's throughput table
+# for compute capability 9.0: 64 results a clock an SM for integer add,
+# logic, shift, compare and multiply-add). The SM has two such pipes, the
+# ALU and the FMA pipe (IMAD); tools/sass.py counts a rep loop's slots on
+# the busier one
+INT_LANES_PER_SM = 64
 
 
 def require_card():
@@ -53,6 +64,28 @@ def require_card():
     if not torch.cuda.is_available():
         raise RuntimeError("this tool measures the card: no CUDA device")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def sm_clock_hz() -> float:
+    """The card's top SM clock (nvidia-smi's clocks.max.sm), in Hz."""
+    import subprocess
+
+    import torch
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits", "-i",
+                        str(torch.cuda.current_device())],
+                       capture_output=True, text=True, check=True)
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
+
+
+def int_pipe_rate() -> float:
+    """Slots a second of one integer pipe over the card: SMs x
+    INT_LANES_PER_SM x the top SM clock (132 x 64 x 1.98 GHz = 1.67e13
+    on an H100 SXM)."""
+    import torch
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    return sms * INT_LANES_PER_SM * sm_clock_hz()
 
 
 def bound(ops: float, moved: float,
@@ -65,17 +98,59 @@ def bound(ops: float, moved: float,
         (bytes_ms, "bytes")
 
 
-def device_ms(fn: Callable[[], Any], reps: int) -> tuple[float, Any]:
-    """ms per call of fn on the device, and fn's last result: CUDA events
-    around each call, each pair queued behind a device sleep (~1 ms) so the
-    host has enqueued the call before the device reaches the first
-    event."""
+@dataclasses.dataclass(frozen=True)
+class PairTimes:
+    """The ms of each event pair of a device_ms run, and their median (the
+    time a tool reports), mean and largest."""
+    pairs: tuple
+
+    @property
+    def median(self) -> float:
+        return float(np.median(self.pairs))
+
+    @property
+    def mean(self) -> float:
+        return float(np.mean(self.pairs))
+
+    @property
+    def max(self) -> float:
+        return float(np.max(self.pairs))
+
+    def row(self) -> dict:
+        return {"median_ms": self.median, "mean_ms": self.mean,
+                "max_ms": self.max}
+
+
+def l2_flush(dev) -> Callable[[], Any]:
+    """A thunk that reads a scratch buffer of twice the card's L2 (its sum
+    into a scalar made here), so that the next kernel finds none of its
+    data in the L2 and reads it from HBM, as a bytes bound assumes. It
+    leaves clean lines, so no write-back falls into the next kernel."""
+    import torch
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
+                 50 << 20)
+    buf = torch.ones(2 * l2 // 4, dtype=torch.float32, device=dev)
+    total = torch.empty((), dtype=torch.float32, device=dev)
+    return lambda: torch.sum(buf, dim=0, out=total)
+
+
+def device_ms(fn: Callable[[], Any], reps: int,
+              flush: Callable[[], Any] | None = None
+              ) -> tuple[PairTimes, Any]:
+    """fn's device time over reps event pairs, and fn's last result: CUDA
+    events around each call, each pair queued behind a device sleep (~1 ms)
+    so the host has enqueued the call before the device reaches the first
+    event, and behind flush (l2_flush) where one is given. A pair that the
+    host stalls past the sleep (an allocation, a page fault) counts the
+    idle card: the median ignores it, the mean and max show it."""
     import torch
     out = fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
         torch.cuda._sleep(2_000_000)
+        if flush is not None:
+            flush()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -83,7 +158,15 @@ def device_ms(fn: Callable[[], Any], reps: int) -> tuple[float, Any]:
         e1.record()
         pairs.append((e0, e1))
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) / reps, out
+    return PairTimes(tuple(a.elapsed_time(b) for a, b in pairs)), out
+
+
+def empty_launch_ms(reps: int = 32) -> PairTimes:
+    """An empty kernel (a device sleep of 0 cycles) timed as device_ms
+    times a kernel: the floor of the method, one launch that does
+    nothing."""
+    import torch
+    return device_ms(lambda: torch.cuda._sleep(0), reps)[0]
 
 
 def stream_ms(fn: Callable[[], Any], reps: int, warm: bool = True) -> float:
@@ -125,13 +208,14 @@ def max_abs_err(got, want) -> float:
 @dataclasses.dataclass(eq=False)
 class Timed:
     """One timed kernel call: its wrapper counter (`kernel`), a label, its
-    ms and bound, the output of its last timed launch (`got`), the plain
-    version's call on the same inputs (`plain`), and the map both outputs
-    go through before they compare (`norm`: canon for lazy values mod P;
-    None, as they are). `check` fills plain_ms and max_abs_err."""
+    pair times (`times`; `ms` their median) and bound, the output of its
+    last timed launch (`got`), the plain version's call on the same inputs
+    (`plain`), and the map both outputs go through before they compare
+    (`norm`: canon for lazy values mod P; None, as they are). `check`
+    fills plain_ms and max_abs_err."""
     kernel: str
     what: str
-    ms: float
+    times: PairTimes
     bound_ms: float
     bound_by: str
     got: Any
@@ -140,8 +224,13 @@ class Timed:
     plain_ms: float | None = None
     max_abs_err: float | None = None
 
+    @property
+    def ms(self) -> float:
+        return self.times.median
+
     def row(self) -> dict:
         return {"kernel": self.kernel, "what": self.what, "ms": self.ms,
+                "mean_ms": self.times.mean, "max_ms": self.times.max,
                 "bound_ms": self.bound_ms, "bound_by": self.bound_by,
                 "plain_ms": self.plain_ms, "max_abs_err": self.max_abs_err}
 

@@ -16,8 +16,14 @@ the card's name and power limit and:
 
 Each probe is timed at the TPU tool's reps (its `ms` and bound) and, for
 its rate, at 16 times the reps: the slope between the two takes out the
-launch and the memory traffic. Each is held against its plain version on
-the same inputs after its timed run.
+launch and the memory traffic. Its bound prices a rep at the integer
+instructions of its compiled loop, as slots of the busier integer pipe
+(tools/sass.py), over the pipe's rate (tools.int_pipe_rate): the issue
+rate of the loop, not what the function needs. `rep_bound` gives that
+rate per element beside the slope's, and beside both the rate of the
+op's products alone (sass.PRODUCT_SLOTS), a loose floor of the
+function. Each is held against its plain version on the same inputs
+after its timed run.
 """
 
 from __future__ import annotations
@@ -25,8 +31,8 @@ from __future__ import annotations
 import json
 import sys
 
-from . import (FP32_OPS_PER_S, OPS_PER_PRODUCT, Timed, bound,
-               check, device_ms, require_card, stream_ms)
+from . import (Timed, bound, check, device_ms, int_pipe_rate, require_card,
+               stream_ms)
 from ..bench import card
 
 SHAPE = (512, 1024)
@@ -84,30 +90,56 @@ def slope(ms: float, ms_long: float, reps: int, n_el: int) -> dict:
             "rate_G_per_s": 1 / per / 1e9 if per > 0 else None}
 
 
+def rep_bound(op: str, n_el: int, reps: int, moved: int,
+              rate: float) -> tuple[dict, tuple]:
+    """A rep op's pricing on the integer pipe: ({slots per rep of its
+    compiled loop and the rate they allow, its products' FMA slots
+    (sass.PRODUCT_SLOTS) and the rate they allow, in G reps per element a
+    second}, bound(...) of the loop's slots for reps reps on n_el elements
+    moving `moved` bytes)."""
+    from . import sass
+    k, p = sass.rep_slots()[op], sass.PRODUCT_SLOTS[op]
+    return ({"slots_per_rep": k, "bound_G_per_s": rate / k / 1e9,
+             "product_slots": p, "products_G_per_s": rate / p / 1e9},
+            bound(n_el * reps * k, moved, rate))
+
+
+def rep_times(fn, reps: int, n_el: int, out, out_long, timing_reps: int):
+    """fn(k, out) timed at reps and SLOPE * reps (each into its own
+    output, made before the timing): (the PairTimes at reps, its output,
+    the slope)."""
+    t, got = device_ms(lambda: fn(reps, out), timing_reps)
+    t_long, _ = device_ms(lambda: fn(SLOPE * reps, out_long), 3)
+    return t, got, slope(t.median, t_long.median, reps, n_el)
+
+
 def measure(reps: int = 10):
     """The two probes: (the Timed at the TPU tool's reps, the rates from
-    the slope)."""
+    the slope beside the bound's)."""
     import torch
 
     from ..ops import gl64 as gl
     from ..ops import probes as pr
     dev = require_card()
     n_el = SHAPE[0] * SHAPE[1]
+    rate = int_pipe_rate()
     x = pr.rep_inputs("vpu", SHAPE, seed=0, device=dev)[0].contiguous()
     ab = pr.rep_inputs("gl_mul", SHAPE, seed=1, device=dev)
     entries, rates = [], {}
-    for name, fn_k, plain, norm, b in (
-            ("probe_vpu", lambda k: pr.vpu(x, k),
+    for name, op, fn, planes, plain, norm, moved in (
+            ("probe_vpu", "vpu", lambda k, o: pr.vpu(x, k, out=o[0]), 1,
              lambda: pr.reps_plain("vpu", x.unsqueeze(0), REPS)[0], None,
-             bound(2 * n_el * REPS, 8 * n_el, FP32_OPS_PER_S)),
-            ("probe_mulmod", lambda k: pr.mulmod(ab, k),
+             8 * n_el),
+            ("probe_mulmod", "gl_mul",
+             lambda k, o: pr.mulmod(ab, k, out=o), 2,
              lambda: pr.reps_plain("gl_mul", ab, REPS)[:2],
-             lambda v: torch.stack(gl.canon(*pr.words(v))),
-             bound(n_el * REPS * OPS_PER_PRODUCT, 24 * n_el))):
-        ms, got = device_ms(lambda: fn_k(REPS), reps)
-        ms_long, _ = device_ms(lambda: fn_k(SLOPE * REPS), 3)
-        rates[name] = slope(ms, ms_long, REPS, n_el)
-        entries.append(Timed(name, f"{SHAPE} x{REPS}", ms, b[0], b[1], got,
+             lambda v: torch.stack(gl.canon(*pr.words(v))), 24 * n_el)):
+        outs = [torch.empty((planes,) + SHAPE, dtype=torch.int32,
+                            device=dev) for _ in range(2)]
+        t, got, rates[name] = rep_times(fn, REPS, n_el, *outs, reps)
+        priced, b = rep_bound(op, n_el, REPS, moved, rate)
+        rates[name].update(priced)
+        entries.append(Timed(name, f"{SHAPE} x{REPS}", t, b[0], b[1], got,
                              plain, norm))
     return entries, rates
 

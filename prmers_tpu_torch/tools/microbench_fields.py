@@ -14,7 +14,11 @@ payload bits of a gl64 word, so fft3161 pays where
     ratio = (M31 op + M61 op) / (2 x gl64 op) < 1.
 
 Each op is held against its plain version (ops/mers.py, ops/gl64.py) on
-the same inputs, after canon.
+the same inputs, after canon. Each op's bound prices a rep at the
+integer instructions of its compiled loop, as slots of the busier integer
+pipe (tools/sass.py), over the pipe's rate, beside its bytes: the loop's
+issue rate. Its products' slots alone (sass.PRODUCT_SLOTS) give a loose
+floor of the function beside it.
 """
 
 from __future__ import annotations
@@ -22,37 +26,33 @@ from __future__ import annotations
 import json
 import sys
 
-from . import (OPS_PER_M31_PRODUCT, OPS_PER_PRODUCT, Timed, bound,
-               check, device_ms, require_card)
+from . import Timed, check, int_pipe_rate, require_card
 from ..bench import card
-from .microbench import SLOPE, slope
+from .microbench import rep_bound, rep_times
 
 SHAPE = (256, 1024)
 REPS = 64
-# base products per rep (the bound's operations): gl64 one product; M31
-# schoolbook 4 (sqr 2) of 32 x 32 bits; M61 Karatsuba 3 (sqr 2) of 64 x 64
-PRODUCTS = {"gl_mul": (1, OPS_PER_PRODUCT), "gl_sqr": (1, OPS_PER_PRODUCT),
-            "m31_mul": (4, OPS_PER_M31_PRODUCT),
-            "m31_sqr": (2, OPS_PER_M31_PRODUCT),
-            "m61_mul": (3, OPS_PER_PRODUCT), "m61_sqr": (2, OPS_PER_PRODUCT)}
 
 
 def measure(reps: int = 10):
-    """Each field op: (the Timed at 64 reps, {op: slope})."""
+    """Each field op: (the Timed at 64 reps, {op: slope and bound})."""
+    import torch
+
     from ..ops import probes as pr
     dev = require_card()
     n_el = SHAPE[0] * SHAPE[1]
+    rate = int_pipe_rate()
     entries, per = [], {}
     for op in pr.FIELD_OPS:
         x = pr.rep_inputs(op, SHAPE, seed=7, device=dev)
-        k, ops = PRODUCTS[op]
-        planes = x.shape[0]
-        b = bound(n_el * REPS * k * ops, 8 * planes * n_el)
-        ms, got = device_ms(lambda: pr.fields(op, x, REPS), reps)
-        ms_long, _ = device_ms(lambda: pr.fields(op, x, SLOPE * REPS), 3)
-        per[op] = slope(ms, ms_long, REPS, n_el)
+        outs = [torch.empty_like(x) for _ in range(2)]
+        t, got, per[op] = rep_times(
+            lambda k, o, op=op, x=x: pr.fields(op, x, k, out=o), REPS, n_el,
+            *outs, reps)
+        priced, b = rep_bound(op, n_el, REPS, 8 * x.shape[0] * n_el, rate)
+        per[op].update(priced)
         entries.append(Timed(
-            "probe_fields", f"{op} {SHAPE} x{REPS}", ms, b[0], b[1], got,
+            "probe_fields", f"{op} {SHAPE} x{REPS}", t, b[0], b[1], got,
             lambda op=op, x=x: pr.reps_plain(op, x, REPS),
             lambda v, op=op: pr.canon_planes(op, v)))
     return entries, per

@@ -93,8 +93,8 @@ import math
 import sys
 import time
 
-from . import (OPS_PER_PRODUCT, Timed, bound, check, device_ms, nbytes,
-               require_card, stream_ms)
+from . import (OPS_PER_PRODUCT, PairTimes, Timed, bound, check, device_ms,
+               nbytes, require_card, stream_ms)
 from ..bench import card
 from ..ops import fourstep as tfs
 
@@ -177,10 +177,12 @@ def measure(p: int = P_DEFAULT, reps: int = 10):
         out.append(Timed(kernel, what, ms, b[0], b[1], got, plain, norm))
         return got
 
-    # the folded passes of a block-carry step (K4 as shift butterflies)
+    # the folded passes of a block-carry step (K4 as shift butterflies),
+    # each into an output made before its timing
     L1, L2 = R1, R2
+    outs = [torch.empty_like(z) for _ in range(3)]
     s = timed("k4_axis0", "P1 forward (folded)",
-              lambda: tk.axis0_pass(t, x, False),
+              lambda: tk.axis0_pass(t, x, False, out=outs[0]),
               lambda: tk.axis0_plain(t, x, False), axis_bound(t, "k4f"))
     k2 = tfs.use_r2fold(t.fp) and not tfs.fc_split(t.fp)
     buf = torch.empty_like(s)
@@ -193,10 +195,11 @@ def measure(p: int = P_DEFAULT, reps: int = 10):
 
     timed("k2_fused_c" if k2 else "k6_fused_c",
           "C-transform sqr (folded)",
-          (lambda: tk.fused_c_pass(t, s, "sqr")) if k2 else span,
+          (lambda: tk.fused_c_pass(t, s, "sqr", out=outs[1])) if k2
+          else span,
           lambda: tk.fused_c_plain(t, s, "sqr"), span_bound(t))
     timed("k4_axis0", "P7 inverse (folded)",
-          lambda: tk.axis0_pass(t, z, True),
+          lambda: tk.axis0_pass(t, z, True, out=outs[2]),
           lambda: tk.axis0_plain(t, z, True), axis_bound(t, "k3"),
           norm=None)
     # the unfolded r passes, each form on the same inputs: forward_r on the
@@ -378,10 +381,10 @@ def measure_axis(reps: int = 10):
                 runs.setdefault((body, which), []).append(
                     stream_ms(lambda: run(body, which), reps))
         for (body, which), ms in runs.items():
-            ms = sum(ms) / len(ms)
+            ms = PairTimes(tuple(ms))
             if body == "move":
                 b = move_bound(t, which)
-                parts.append({"what": f"{which} {at} move", "ms": ms,
+                parts.append({"what": f"{which} {at} move", "ms": ms.median,
                               "bound_ms": b[0], "bound_by": b[1]})
                 continue
             # the checked output: one more pass in place on the inputs
@@ -443,14 +446,14 @@ def measure_r5(p: int = P_R5, reps: int = 10):
             runs.setdefault((body, which), []).append(stream_ms(fn, reps))
     entries, parts = [], []
     for (body, which), ms in runs.items():
-        ms = sum(ms) / len(ms)
+        ms = PairTimes(tuple(ms))
         if body == "split":
             entries.append(Timed(
                 "k5_axis1", f"{which} split", ms, *split_bound(t, which),
                 outs[body, which],
                 lambda which=which: tk.axis1_plain(t, z, which), gl.canon64))
         else:
-            parts.append({"what": f"{which} {body}", "ms": ms})
+            parts.append({"what": f"{which} {body}", "ms": ms.median})
     return t, entries, parts
 
 
@@ -479,14 +482,14 @@ def measure_cfft(reps: int = 10):
                     if body == "row" else tk.fused_c_part(t, z, body))
             runs.setdefault(body, []).append(stream_ms(fn, reps))
         for body, ms in runs.items():
-            ms = sum(ms) / len(ms)
+            ms = PairTimes(tuple(ms))
             if body == "row":
                 entries.append(Timed(
                     "k6_fused_c", f"sqr C={C}", ms, *row_bound(t),
                     outs[body], lambda t=t, z=z: tk.fused_c_plain(
                         t, z, "sqr", r2fold=False), gl.canon64))
             else:
-                parts.append({"what": f"{body} C={C}", "ms": ms})
+                parts.append({"what": f"{body} C={C}", "ms": ms.median})
     return t, entries, parts
 
 
@@ -547,9 +550,9 @@ def measure_k9(reps: int = 3):
         at = f"n=2^{logn}"
         a31 = tk.chain_multipliers([3, 1], dev)
         for k, ms in runs.items():
-            ms = sum(ms) / len(ms)
+            ms = PairTimes(tuple(ms))
             if k not in tk.K9_FORMS:
-                parts.append({"what": f"{k} {at}", "ms": ms})
+                parts.append({"what": f"{k} {at}", "ms": ms.median})
                 continue
             xg, cg = x.clone(), co.clone()
             tk.square_chain_part(t, xg, cg, a31, 2, form=k)

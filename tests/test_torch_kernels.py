@@ -636,27 +636,36 @@ def test_cuda_probes_match_plain():
     same inputs at the TPU tools' shapes (the rep loops with fewer reps):
     probe_vpu and probe_mulmod (512, 1024), probe_fields (256, 1024) per
     op after canon, probe_bitcast and every probe_shapes case bit for
-    bit."""
+    bit, each both into a tensor the wrapper allocates and into a
+    preallocated out= (as the tools time them)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from prmers_tpu_torch.ops import probes as pr
+
+    def both(call, want, norm=lambda v: v):
+        out = torch.full_like(want, -7)
+        assert call(out).data_ptr() == out.data_ptr()
+        return (torch.equal(norm(call(None)), norm(want)) and
+                torch.equal(norm(out), norm(want)))
+
     x = pr.rep_inputs("vpu", (512, 1024), device="cuda")[0].contiguous()
-    assert torch.equal(pr.vpu(x, 16),
-                       pr.reps_plain("vpu", x.unsqueeze(0), 16)[0])
+    assert both(lambda o: pr.vpu(x, 16, out=o),
+                pr.reps_plain("vpu", x.unsqueeze(0), 16)[0])
     ab = pr.rep_inputs("gl_mul", (512, 1024), device="cuda")
-    assert torch.equal(pr.canon_planes("gl_mul", pr.mulmod(ab, 8)),
-                       pr.canon_planes("gl_mul",
-                                       pr.reps_plain("gl_mul", ab, 8)[:2]))
+    assert both(lambda o: pr.mulmod(ab, 8, out=o),
+                pr.reps_plain("gl_mul", ab, 8)[:2],
+                lambda v: pr.canon_planes("gl_mul", v))
     for op in pr.FIELD_OPS:
         v = pr.rep_inputs(op, (256, 1024), device="cuda")
-        assert torch.equal(pr.canon_planes(op, pr.fields(op, v, 8)),
-                           pr.canon_planes(op, pr.reps_plain(op, v, 8))), op
+        assert both(lambda o: pr.fields(op, v, 8, out=o),
+                    pr.reps_plain(op, v, 8),
+                    lambda t: pr.canon_planes(op, t)), op
     w = torch.from_numpy(pr.bitcast_pattern().view(np.int32)).cuda()
-    assert torch.equal(pr.bitcast(w), pr.bitcast_plain(w))
+    assert both(lambda o: pr.bitcast(w, out=o), pr.bitcast_plain(w))
     for case in pr.SHAPE_CASES:
         xs = pr.shape_inputs(case, device="cuda")
-        assert torch.equal(pr.shape_case(case, *xs),
-                           pr.shape_plain(case, *xs)), case
+        assert both(lambda o: pr.shape_case(case, *xs, out=o),
+                    pr.shape_plain(case, *xs)), case
     # the int8 product off its 128 x 128 x 128 tile grid: ragged M, N and
     # K (multiples of 16), a single row, a fold over 64-row slices, and
     # extreme bytes (every product -128 * -128)

@@ -12,6 +12,12 @@ unported pipeline switches; the tools' entry points.
     host-callable) against the plain rep bodies;
   * each shape case's plain version against numpy, and the bitcast's plain
     order;
+  * csrc/probe_copy.cuh (the copy cases' index maps of the shape probes'
+    kernel) compiled for the host against each copy case's plain version;
+  * the wrappers' `out=` on the plain path and their refusals of a wrong
+    shape, type, device or a non-contiguous out;
+  * the tools' timing statistics (tools.PairTimes) and the SASS loop
+    count (tools/sass.py) on a made-up listing;
   * create_engine's NotImplementedError under PRMERS_NO_MXU,
     PRMERS_NO_WFOLD and PRMERS_NO_FUSE, one test each.
 
@@ -275,12 +281,264 @@ def test_shape_case_plain_matches_numpy(case):
     assert (got.numpy().astype(np.int64) == want.astype(np.int64)).all()
 
 
+_COPY_MAIN = r"""
+#include <cstdio>
+#include <vector>
+#include "probe_copy.cuh"
+// argv: case, input file, output file; output unit q = copy_unit(in, q)
+template <int CS>
+int run(const char* src, const char* dst) {
+    FILE* f = fopen(src, "rb");
+    std::vector<W4> in;
+    W4 v;
+    while (fread(&v, sizeof v, 1, f) == 1) in.push_back(v);
+    fclose(f);
+    std::vector<W4> out(COPY_UNITS<CS>);
+    for (int q = 0; q < COPY_UNITS<CS>; ++q)
+        out[q] = copy_unit<CS>(in.data(), q);
+    f = fopen(dst, "wb");
+    fwrite(out.data(), sizeof(W4), out.size(), f);
+    fclose(f);
+    return 0;
+}
+int main(int argc, char** argv) {
+    if (argc != 4) return 2;
+    switch (argv[1][0]) {
+        case 'a': return run<'a'>(argv[2], argv[3]);
+        case 'c': return run<'c'>(argv[2], argv[3]);
+        case 'd': return run<'d'>(argv[2], argv[3]);
+        case 'f': return run<'f'>(argv[2], argv[3]);
+        case 'g': return run<'g'>(argv[2], argv[3]);
+        case 'h': return run<'h'>(argv[2], argv[3]);
+        case 'i': return run<'i'>(argv[2], argv[3]);
+        case 'j': return run<'j'>(argv[2], argv[3]);
+        case 'k': return run<'k'>(argv[2], argv[3]);
+        case 'l': return run<'l'>(argv[2], argv[3]);
+        case 'm': return run<'m'>(argv[2], argv[3]);
+    }
+    return 2;
+}
+"""
+COPY_CASES = [c for c in pr.SHAPE_CASES if c not in "ben"]
+
+
+@pytest.fixture(scope="module")
+def host_copy(tmp_path_factory):
+    """csrc/probe_copy.cuh built into a host program with g++, once."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    d = tmp_path_factory.mktemp("copy")
+    src, exe = d / "main.cpp", d / "main"
+    src.write_text(_COPY_MAIN)
+    subprocess.run([cxx, "-O1", "-std=c++17", "-I",
+                    os.path.join(ROOT, "prmers_tpu_torch", "csrc"), str(src),
+                    "-o", str(exe)], check=True, capture_output=True)
+    return str(exe)
+
+
+@pytest.mark.parametrize("case", COPY_CASES)
+def test_copy_index_maps_match_plain(host_copy, tmp_path, case):
+    """Each copy case's 16-byte index map (copy_unit, the kernel's body)
+    on seeded inputs equals the case's plain version byte for byte."""
+    xs = pr.shape_inputs(case, seed=2)
+    want = pr.shape_plain(case, *xs).numpy()
+    (tmp_path / "in").write_bytes(xs[0].numpy().tobytes())
+    subprocess.run([host_copy, case, str(tmp_path / "in"),
+                    str(tmp_path / "out")], check=True)
+    got = np.frombuffer((tmp_path / "out").read_bytes(), dtype=want.dtype)
+    assert got.size == want.size
+    assert (got.reshape(want.shape) == want).all()
+
+
+def _out_cases():
+    """(wrapper, call(out), the result's shape and type) for each wrapper
+    that takes out=."""
+    v = pr.rep_inputs("vpu", (8, 128), seed=4)[0].contiguous()
+    ab = pr.rep_inputs("gl_mul", (8, 128), seed=4)
+    m61 = pr.rep_inputs("m61_sqr", (8, 128), seed=4)
+    w, x = (torch.from_numpy(np.random.default_rng(4).integers(
+        -128, 128, size=s, dtype=np.int64).astype(np.int8))
+        for s in ((128, 64), (64, 32)))
+    bc = torch.from_numpy(pr.bitcast_pattern().view(np.int32))
+    k = pr.shape_inputs("k", seed=4)
+    return {
+        "shape_case": (lambda o: pr.shape_case("k", *k, out=o),
+                       lambda: pr.shape_plain("k", *k)),
+        "shape_case_dot": (lambda o: pr.shape_case(
+            "e", *pr.shape_inputs("e", seed=4), out=o),
+            lambda: pr.shape_plain("e", *pr.shape_inputs("e", seed=4))),
+        "dot8": (lambda o: pr.dot8(w, x, 64, out=o),
+                 lambda: pr.dot8_plain(w, x, 64)),
+        "vpu": (lambda o: pr.vpu(v, 3, out=o),
+                lambda: pr.reps_plain("vpu", v.unsqueeze(0), 3)[0]),
+        "mulmod": (lambda o: pr.mulmod(ab, 3, out=o),
+                   lambda: pr.reps_plain("gl_mul", ab, 3)[:2]),
+        "fields": (lambda o: pr.fields("m61_sqr", m61, 3, out=o),
+                   lambda: pr.reps_plain("m61_sqr", m61, 3)),
+        "bitcast": (lambda o: pr.bitcast(bc, out=o),
+                    lambda: pr.bitcast_plain(bc)),
+    }
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """x's copy in a contiguous view one element past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 16, dtype=x.dtype)
+    return flat[1:1 + x.numel()].view(x.shape).copy_(x)
+
+
+OUT_WRAPPERS = ("shape_case", "shape_case_dot", "dot8", "vpu", "mulmod",
+                "fields", "bitcast")
+
+
+@pytest.mark.parametrize("wrapper", OUT_WRAPPERS)
+def test_out_argument_on_the_plain_path(wrapper):
+    """A wrapper given out= fills it with the plain version's result and
+    returns it; it raises on an out of another shape, type or device, a
+    non-contiguous one or one off a 16-byte boundary, and leaves such an
+    out as it was."""
+    call, plain = _out_cases()[wrapper]
+    want = plain()
+    out = torch.full_like(want, -7)
+    got = call(out)
+    assert got.data_ptr() == out.data_ptr() and torch.equal(out, want)
+    shape, dtype = tuple(want.shape), want.dtype
+    other = torch.int8 if dtype == torch.int32 else torch.int32
+    bad = [torch.empty(shape[:-1] + (shape[-1] + 16,), dtype=dtype),
+           torch.empty(shape, dtype=other),
+           torch.empty(shape, dtype=dtype, device="meta"),
+           torch.zeros(shape + (2,), dtype=dtype)[..., 0],
+           _misaligned(torch.zeros(shape, dtype=dtype))]
+    assert not bad[3].is_contiguous() and bad[4].data_ptr() % 16
+    for b in bad:
+        with pytest.raises(ValueError, match="out must be"):
+            call(b)
+    assert not bad[3].any()
+
+
+def test_pair_times_statistics():
+    """The tools' timing statistics: the median of the pairs is the time,
+    the mean and the largest stand beside it; one stalled pair moves the
+    mean and the max, not the median."""
+    from prmers_tpu_torch.tools import PairTimes
+    t = PairTimes((0.0052, 0.0049, 0.0051, 0.3877, 0.0050))
+    assert t.median == pytest.approx(0.0051)
+    assert t.mean == pytest.approx((0.0052 + 0.0049 + 0.0051 + 0.3877 +
+                                    0.0050) / 5)
+    assert t.max == pytest.approx(0.3877)
+    assert t.row() == {"median_ms": t.median, "mean_ms": t.mean,
+                       "max_ms": t.max}
+    assert PairTimes((1.0, 3.0)).median == pytest.approx(2.0)
+
+
+_SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_110rep_kernelILi1EEEvPKjPjiim
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/              @!P0 BRA `(.L_x_0) ;
+.L_x_1:
+        /*0020*/                   IMAD.WIDE.U32 R4, R2, R6, RZ ;
+        /*0030*/                   IMAD.HI.U32 R8, R2, R6, RZ ;
+        /*0040*/                   IADD3 R2, P1, R4, R8, RZ ;
+        /*0050*/                   NOP ;
+        /*0060*/                   IMAD.X R3, R5, 0x1, R9, P1 ;
+        /*0070*/                   IADD3 R0, R0, 0x4, RZ ;
+        /*0080*/                   ISETP.GE.AND P0, PT, R0, R7, PT ;
+        /*0090*/              @!P0 BRA `(.L_x_1) ;
+.L_x_0:
+        /*00a0*/                   LOP3.LUT R2, R2, 0xff, RZ, 0xc0, !PT ;
+        /*00b0*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*00c0*/               @P0 BRA 0xa0 ;
+        /*00d0*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_111copy_kernelILi97EEEvPK2W4PS0_
+        /*0000*/                   BRA 0x0 ;
+"""
+
+
+# rep_kernel<0>'s loops as nvcc 12 built them for sm_90a: the rep loop
+# unrolled 4 times (its counter counted down by 4), and the remainder
+_SASS_VPU = """
+		Function : _ZN46_GLOBAL__N__51201dd0_13_probe_reps_cu_9774b37910rep_kernelILi0EEEvPKjPjiim
+        /*01a0*/              @!P1 BRA 0x240 ;
+        /*01b0*/                   IMAD.IADD R3, R7, 0x1, -R0 ;
+        /*01c0*/                   IMAD.MOV.U32 R5, RZ, RZ, R2 ;
+        /*01d0*/                   IADD3 R3, R3, -0x4, RZ ;
+        /*01e0*/                   IMAD R5, R2, R5, 0x1 ;
+        /*01f0*/                   ISETP.NE.AND P1, PT, R3, RZ, PT ;
+        /*0200*/                   IMAD R5, R2, R5, 0x1 ;
+        /*0210*/                   IMAD R5, R2, R5, 0x1 ;
+        /*0220*/                   IMAD R5, R2, R5, 0x1 ;
+        /*0230*/               @P1 BRA 0x1d0 ;
+        /*0240*/              @!P0 BRA 0x290 ;
+        /*0250*/                   VIADD R0, R0, 0xffffffff ;
+        /*0260*/                   IMAD R5, R2, R5, 0x1 ;
+        /*0270*/                   ISETP.NE.AND P0, PT, R0, RZ, PT ;
+        /*0280*/               @P0 BRA 0x250 ;
+        /*0290*/                   EXIT ;
+"""
+
+
+def test_sass_loop_count():
+    """tools/sass.py on listings: the largest loop (a label or an address
+    target) of rep_kernel<OP>, its unroll read from the step of the
+    counter that its closing branch tests (up or down, IADD3 or VIADD),
+    its instructions by pipe (IMAD.WIDE and IMAD.HI two FMA slots, NOP
+    none, the branch on neither) over the unroll, the busier pipe its
+    slots; another function's loop ignored; a loop with no counter step
+    refused."""
+    from prmers_tpu_torch.tools import sass
+    funcs = sass.functions(_SASS)
+    insns = funcs["_ZN12_GLOBAL__N_110rep_kernelILi1EEEvPKjPjiim"]
+    assert sorted(sass.loops(insns)) == [(2, 9), (10, 12)]
+    c = sass.loop_count(insns)
+    assert c["unroll"] == 4
+    assert (c["fma_per_rep"], c["alu_per_rep"], c["neither_per_rep"],
+            c["issued_per_rep"]) == (5 / 4, 3 / 4, 1 / 4, 7 / 4)
+    assert c["slots_per_rep"] == 5 / 4 and c["loops"] == 2
+    assert c["opcodes"]["IMAD.WIDE.U32"] == 1 and "NOP" not in c["opcodes"]
+    with pytest.raises(RuntimeError, match="no rep_kernel"):
+        sass.rep_counts(_SASS)
+    vpu = sass.functions(_SASS_VPU)
+    c = sass.loop_count(next(iter(vpu.values())))
+    assert (c["unroll"], c["fma_per_rep"], c["alu_per_rep"],
+            c["issued_per_rep"], c["slots_per_rep"]) == (4, 1, 0.5, 1.75, 1)
+
+    # the ALU the busier pipe; VIADD on the less busy one; the issue limit
+    def listing(ops, step):
+        body = ops + [step, "ISETP.NE.AND P0, PT, R9, RZ, PT"]
+        return [(16 * i, t.split()[0], t, None)
+                for i, t in enumerate(body)] + \
+            [(16 * len(body), "BRA", "@P0 BRA 0x0", None)]
+
+    alu = listing(["IADD3"] * 8 + ["IMAD"] * 2 + ["VIADD"] * 2,
+                  "VIADD R9, R9, 0xfffffffe")
+    assert sass.loop_count(alu)["unroll"] == 2
+    assert sass.loop_count(alu)["slots_per_rep"] == 9 / 2
+    flex = listing(["IADD3"] * 2 + ["VIADD"] * 8, "IADD3 R9, R9, 0x1, RZ")
+    assert sass.loop_count(flex)["slots_per_rep"] == max(4, 12 / 2, 13 / 2)
+    for step in ("IADD3 R8, R8, 0x4, RZ",        # not the tested register
+                 "IADD3 R9, R8, 0x4, RZ",        # not a step of itself
+                 "IADD3 R9, R9, R2, RZ"):        # no immediate
+        with pytest.raises(ValueError, match="no counter step"):
+            sass.loop_count(listing(["IMAD"] * 4, step))
+
+
 def test_shape_case_refuses_bad_inputs():
     xs = pr.shape_inputs("e")
     with pytest.raises(ValueError):
         pr.shape_case("e", xs[1], xs[0])
     with pytest.raises(ValueError):
         pr.shape_case("k", xs[0])
+    # the copy kernel's and dot8's 16-byte moves: inputs at an odd offset
+    k = _misaligned(pr.shape_inputs("k")[0])
+    assert k.is_contiguous() and k.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        pr.shape_case("k", k)
+    with pytest.raises(ValueError, match="aligned"):
+        pr.shape_case("e", _misaligned(xs[0]), xs[1])
+    with pytest.raises(ValueError, match="aligned"):
+        pr.dot8(xs[0], _misaligned(xs[1]))
 
 
 def test_bitcast_plain_order():
@@ -307,7 +565,7 @@ def test_factory_refuses_unported_switch(monkeypatch, switch):
 
 
 TOOLS = ("profile_passes", "microbench", "microbench_fields", "probe_shapes",
-         "probe_bitcast")
+         "probe_bitcast", "sass", "timing_audit")
 
 
 @pytest.mark.parametrize("tool", TOOLS)
