@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch/CUDA port (prmers_tpu_torch) on one card.
 
 Run from the repository root with no arguments: python3 chip_smoke.py
-(one card; `python3 chip_smoke.py --mesh-only` runs phases 1 and 6 alone,
-at every world size the machine's cards allow; `--tools-only` phases 1
+(one card; `python3 chip_smoke.py --mesh-only` runs phases 1 and 6b alone,
+at every world size the machine's cards allow, beside the single card's
+PRP iter/s at 136279841 and 332192831; `--tools-only` phases 1
 and 7; `--anysize-only` phases 1 and 8; `--fft3161-only` phases 1 and 10;
 `--modes-only` phases 1 and 9,
 and with `--pm1-full` also M1362763's P-1 over its whole stage-2 range,
@@ -117,27 +118,47 @@ Phases; any failure raises and the script exits non-zero with no result:
      PRMERS_NO_ROWCARRY=1 (the block-carry path), which resumes from the
      checkpoint and must report prime, and its proof's host big-int build
      and check beside phases 6-8 (its result is read after phase 8);
-  6. the mesh at p = 136279841: (a) on this card, the shard-local kernel
-     forms of rank 0 and the last rank of s = 2 and 4 (K1, K3 with a = 1,
-     3 and sub2 with the rank's amount, K4 both ways on the r2-sharded
-     view; K5, K6, K6b and K8 on the r1-sharded view), each against its
-     plain version (exact as in phase 2), and K8 at the shard shapes of
-     s = 1, 2, 4 (with a = 1 and 3 against its plain version on the input
-     it is then timed on) with its time beside its bound (20 bytes per
-     digit, as K7);
+  6. the mesh at p = 136279841 and at the 100M-digit p = 332192831 (n =
+     5 * 2^22, (64, 320, 1024)): (a) on this card, the shard-local kernel
+     forms of rank 0 and the last rank of s = 2 and 4 at both (K1, K3
+     with a = 1, 3 and sub2 with the rank's amount, K4 both ways on the
+     r2-sharded view; K5 (the radix-5 split at L2 = 320, on the r1 view's
+     whole split tables), K6, K6b and K8 on the r1-sharded view), each
+     against its plain version (exact as in phase 2), and K8 at the shard
+     shapes of s = 1, 2, 4 at both sizes, K5's split at the radix-5 ones
+     (with a = 1 and 3, or P2 and P6, against its plain version on the
+     input it is then timed on), each time beside its bound (K8 20 bytes
+     per digit, as K7);
      (b) for every s in {1, 2, 4} that torch.cuda.device_count() allows,
      s rank processes of this script (NCCL, one card each): ShardedStep
      on the block carry (three steps, K8) and MeshEngine (the phase-3
-     ops, plus a sparse sub through the ring's lookahead), each against
-     GMP on every rank, with each rank's wrapper counts (reset just
-     before, read just after: every kernel of the path > 0, K2, K7 and
-     K9 at 0), PRP iter/s through MeshEngine (192 squarings) and through
-     the block carry (32), and each collective's ms per squaring (CUDA
-     events on the stream, the wait for the other ranks included);
+     ops, plus a sparse sub through the ring's lookahead) at both p (at
+     s = 1 the radix-5 and XLA-form paths run in this process, whose
+     radix-5 tables phase 2 built, unless --mesh-only), and
+     the XLA-form ShardedEngine (PRMERS_SHARDED_IMPL=xla: the any-size
+     engine's transform sharded, no kernel of its own) at 136279841 (x3
+     and x1 squarings, digits and psum_res64), each against GMP on every
+     rank, with each rank's wrapper counts (reset just before each path,
+     read just after: every kernel of the path > 0, K2, K7 and K9 at 0),
+     PRP iter/s through MeshEngine (192 squarings; 64 at 332192831),
+     through the block carry (32) and through ShardedEngine (4), beside
+     the single card's, and each collective's ms per squaring (CUDA
+     events on the stream, the wait for the other ranks included); at
+     s >= 2 M756839 through the CLI under torchrun with -backend sharded,
+     where R2 = 1 leaves the mesh step no shape, so the fallback
+     ShardedEngine resumes it 2000 squarings from its end and must report
+     prime; at the largest such s M9941 under -backend sharded with
+     PRMERS_PROOF_SHARDED=1 (the golden proof hashes, residues as rank
+     shards);
      (c) `python -m torch.distributed.run --nproc_per_node=1 -m
      prmers_tpu_torch 756839 -noproof -backend sharded` resumes from the
-     same checkpoint and must report prime. A failure in any rank fails
-     the run;
+     same checkpoint and must report prime; (d) M9941 through the CLI
+     under -backend sharded with PRMERS_PROOF_SHARDED=1 on one rank
+     (ShardedEngine in CUDA graphs), run beside phase 8's goldens:
+     prime, the golden proof hashes, each residue as shard files;
+     (e) prmers_tpu_torch/graft_entry.entry():
+     one any-size squaring at p = 9941 on the card, 3 -> 9. A failure in
+     any rank fails the run;
   7. the tools at full width: the pass profiler (tools/profile_passes) at
      p = 136279841, n = 2^23: K4 forward, K2, K4 inverse, and the unfolded
      passes K4u forward (with a scalar carry), K5u forward, K5u inverse,
@@ -172,14 +193,16 @@ Phases; any failure raises and the script exits non-zero with no result:
      (1600003); at p = 1600003 (n = 5 * 2^14, the widest plan only this
      engine takes, through create_engine) 64 squarings with a = [3, 1], a
      multiplicand, mul, sub, add_small and addsub against GMP; the
-     reference goldens through the CLI in subprocesses, M100003 in one
-     chain and the rest in another, side by side on the card while this
-     process builds the 2^23 tables: M127 -ll and -llsafe prime, M2699
-     with its 5 known factors PRP and with 4 composite, M9941's proof
-     hashes (tests/test_proof.py) and the proof verified, M11213's res64
-     every 1000 iterations and its final res64 1
-     (tests/test_prp_ll.py:127-149), M100003's res64 and res2048
-     (:106-124); then at p = 136279841 under PRMERS_NO_PALLAS (n = 2^23)
+     reference goldens through the CLI in subprocesses, side by side on
+     the card while this process builds the 2^23 tables: M127 -ll and
+     -llsafe prime, M2699 with its 5 known factors PRP and with 4
+     composite, M9941's proof hashes (tests/test_proof.py) and the proof
+     verified, M11213's res64 every 1000 iterations and its final res64 1
+     (tests/test_prp_ll.py:127-149) in one chain, phase 6's (d) in the
+     other (M100003's res64 and res2048, :106-124, are phase 10's, under
+     -arith fft3161: its gl64 run, 194-214 s, the smoke's long pole, made
+     room for phase 6's mesh checks); then at p = 136279841
+     under PRMERS_NO_PALLAS (n = 2^23)
      8 squarings of a dense value against GMP and FourStepEngine, with
      the table build time and iter/s;
   9. the modes (modes/pm1.py, ecm.py, ecm_edwards.py, memtest.py,
@@ -408,11 +431,106 @@ def drive_values(p: int):
     return v, w, s, tuple(dg.int_to_digits(x, widths) for x in want)
 
 
+def golden_checkpoint(root: str, dev, tail: int, phase: int = 5) -> str:
+    """The PRP/LL driver in this process, on the engine the CLI takes
+    (K9), stopped through its Ctrl-C path before the chunk that would pass
+    `tail` squarings from the end of M756839; returns the checkpoint it
+    writes there."""
+    from prmers_tpu_torch.core import checkpoints as ck
+    from prmers_tpu_torch.engine.factory import create_engine
+    from prmers_tpu_torch.io.cli import parse_args
+    from prmers_tpu_torch.modes.prp_ll import R0, run_prp_or_ll
+    ck_dir = os.path.join(root, "build", f"smoke_ckpt_{tail}")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    opts = parse_args([str(P_GOLDEN), "-noproof", "-save-dir", ck_dir])
+    eng = create_engine(P_GOLDEN, 8, device=dev)
+    seq, done = eng.square_mul_seq, [0]
+
+    def stop_near_end(src, a_vec):
+        if src == R0:
+            if done[0] + len(a_vec) > P_GOLDEN - tail:
+                raise KeyboardInterrupt
+            done[0] += len(a_vec)
+        seq(src, a_vec)
+
+    eng.square_mul_seq = stop_near_end
+    t1 = time.perf_counter()
+    r = run_prp_or_ll(opts, eng=eng, log=lambda *a, **k: None)
+    path = ck.ckpt_filename(P_GOLDEN, "prp", False, ck_dir)
+    log(f"[{phase}] M{P_GOLDEN} PRP in this process stopped at iteration "
+        f"{r.iteration} of {P_GOLDEN} in {time.perf_counter() - t1:.3f} "
+        f"s; checkpoint {path}")
+    if not r.interrupted or r.iteration < P_GOLDEN - 2 * tail \
+            or not os.path.exists(path):
+        raise AssertionError("no checkpoint near the end of M756839")
+    return path
+
+
+def torchrun_cli(root: str, s: int, tag: str, args, env=None,
+                 resume=None, timeout=900, phase=6):
+    """`python -m torch.distributed.run --standalone --nproc_per_node=s -m
+    prmers_tpu_torch <args>` with its own save dir (from the checkpoint
+    resume, if given); returns (rc, its output, seconds, the result JSON
+    or {})."""
+    d = os.path.join(root, "build", "smoke_mesh_cli", tag)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    if resume is not None:
+        shutil.copy(resume, d)
+    env = dict(os.environ, PYTHONUNBUFFERED="1", **(env or {}))
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t1 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={s}", "-m", "prmers_tpu_torch", *args,
+         "-save-dir", d], cwd=root, capture_output=True, text=True,
+        timeout=timeout, env=env)
+    dt = time.perf_counter() - t1
+    tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    log(f"[{phase}] torchrun s={s} {' '.join(args)}: rc={r.returncode} in "
+        f"{dt:.3f} s: {tail[:200]}")
+    try:
+        doc = json.loads(tail)
+    except ValueError:
+        doc = {}
+    return r.returncode, r.stdout + r.stderr, dt, doc
+
+
+def check_fallback_run(s, rc, out, doc) -> None:
+    """M756839 resumed through -backend sharded at s ranks: the fallback
+    engine ran and the run reports prime."""
+    if rc != 0 or doc.get("status") != "P" or \
+            "using ShardedEngine" not in out or \
+            "Resuming from a checkpoint." not in out:
+        raise AssertionError(f"M{P_GOLDEN} on the fallback at s={s} did "
+                             f"not report prime:\n{out[-3000:]}")
+
+
+def check_sharded_proof(s, rc, out, doc, d=None, phase=6) -> None:
+    """M9941 through -backend sharded under PRMERS_PROOF_SHARDED=1: the
+    fallback engine, prime, the golden hashes, and residues as shards."""
+    lines = [ln.strip() for ln in out.splitlines()
+             if ln.strip().startswith("proof [")]
+    if rc != 0 or doc.get("status") != "P" or lines != GOLDEN_9941 or \
+            "using ShardedEngine" not in out:
+        raise AssertionError(f"M9941's sharded proof at s={s} is wrong "
+                             f"({lines}):\n{out[-3000:]}")
+    if d is not None:
+        pd = os.path.join(d, "9941", "proof")
+        names = os.listdir(pd)
+        if not names or not all(x.endswith(".shards") for x in names):
+            raise AssertionError(f"no sharded residues in {pd}: {names}")
+    log(f"[{phase}] M9941 at s={s} under -backend sharded with "
+        f"PRMERS_PROOF_SHARDED=1: {lines[0]} (golden)")
+
+
 def mesh_rank(out_dir: str) -> int:
     """One rank of phase 6b (run as `chip_smoke.py --mesh-rank OUT_DIR`
     with RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT set):
     the block-carry ShardedStep and MeshEngine at p = 136279841 against
-    GMP, the wrapper counts, PRP iter/s and the collectives' ms; writes
+    GMP, the wrapper counts, PRP iter/s and the collectives' ms; the same
+    at the radix-5 p = 332192831 (mesh_rank_r5); the XLA-form
+    ShardedEngine at 136279841 (mesh_rank_xla); writes
     OUT_DIR/<rank>.json."""
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -424,7 +542,6 @@ def mesh_rank(out_dir: str) -> int:
     from prmers_tpu_torch.utils import digits as dg
     from prmers_tpu_torch.utils import gmp
 
-    import numpy as np
     dist.init_from_env()
     s, rank = dist.process_count(), dist.rank()
     p = P_MAIN
@@ -436,7 +553,7 @@ def mesh_rank(out_dir: str) -> int:
         return gmp.mersenne_mod(gmp.mul(x, x) * a, p)
 
     # the GMP side, on threads while the card works
-    pool = ThreadPoolExecutor(max_workers=2)
+    pool = ThreadPoolExecutor(max_workers=3)
     expected = pool.submit(drive_values, p)
     block_want = pool.submit(lambda: sqr(sqr(sqr(v)), 3))
 
@@ -465,7 +582,6 @@ def mesh_rank(out_dir: str) -> int:
     # the row carry: MeshEngine through create_engine, phase 3's ops
     eng = create_engine(p, 6, backend="sharded")
     v, w, sh, want = expected.result()
-    pool.shutdown()
     eng.set(0, 3 << sh)
     eng.set(1, v)
     eng.set(2, w)
@@ -476,21 +592,10 @@ def mesh_rank(out_dir: str) -> int:
     tk.reset_calls()
     c0 = dict(dist.counts)
     t0 = time.perf_counter()
-    eng.square_mul_seq(0, [1] * DRIVE_K)    # (3 * 2^sh)^(2^K)
-    eng.square_mul(0, 3)                    # ^2 * 3
-    eng.square_mul(1, 3)                    # v^2 * 3
-    eng.set_multiplicand(3, 2)
-    eng.mul(1, 3)                           # v^2 * 3 * w
-    eng.square_sub2_seq(4, 1)               # w^2 - 2
-    eng.sub(5, 2)                           # a sparse sub: the lookahead
-    eng.sub(5, 100)                         # through zero
-    eng.sync()
+    res["engine_ok"] = engine_ops(eng, want, sh, v, w, mp)
     res["engine_s"] = time.perf_counter() - t0
     res["engine_calls"] = dict(tk.calls)
     res["collectives"] = {k: n - c0[k] for k, n in dist.counts.items()}
-    res["engine_ok"] = [bool(np.array_equal(eng.get_digits(r), want[i]))
-                        for i, r in enumerate((0, 1, 4))]
-    res["engine_ok"].append(eng.get_int(5) == (79 - 100) % mp)
 
     # PRP iter/s, then each collective's ms per squaring
     eng.set(0, 3)
@@ -506,10 +611,158 @@ def mesh_rank(out_dir: str) -> int:
     res["collective_ms"] = {k: ms / 32
                             for k, ms in dist.collective_ms().items()}
     dist.time_collectives(False)
+    del eng
+    torch.cuda.empty_cache()
+    if os.environ.get("SMOKE_MESH_EXTRAS") == "1":
+        # their GMP values on threads from here: none runs beside a timing
+        v5, jobs = extras_jobs(pool)
+        res.update(mesh_rank_r5(jobs[0], jobs[1], v5,
+                                lambda: [j.result() for j in jobs]))
+        res.update(mesh_rank_xla(jobs[2], v))
+    pool.shutdown()
     with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.shutdown()
     return 0
+
+
+def engine_ops(eng, want, sh, v, w, mp) -> list:
+    """Phase 3's ops on a mesh engine whose registers 0-5 hold 3 * 2^sh, v,
+    w, -, w and 81 (drive_values' values): the sparse chain and x3, v^2
+    x3 x w through a multiplicand, the LL step, a sparse sub through the
+    ring's lookahead and one through zero; each against GMP."""
+    import numpy as np
+    eng.square_mul_seq(0, [1] * DRIVE_K)    # (3 * 2^sh)^(2^K)
+    eng.square_mul(0, 3)                    # ^2 * 3
+    eng.square_mul(1, 3)                    # v^2 * 3
+    eng.set_multiplicand(3, 2)
+    eng.mul(1, 3)                           # v^2 * 3 * w
+    eng.square_sub2_seq(4, 1)               # w^2 - 2
+    eng.sub(5, 2)                           # a sparse sub: the lookahead
+    eng.sub(5, 100)                         # through zero
+    eng.sync()
+    ok = [bool(np.array_equal(eng.get_digits(r), want[i]))
+          for i, r in enumerate((0, 1, 4))]
+    return ok + [eng.get_int(5) == (79 - 100) % mp]
+
+
+def extras_jobs(pool, drive5=None):
+    """The GMP side of the radix-5 and XLA-form mesh checks on pool's
+    threads: (v5, [drive_values(P_R5) (drive5, where a caller has it),
+    v5's three squarings then x3 (the block steps), P_MAIN's v squared x3
+    then squared (ShardedEngine)])."""
+    from prmers_tpu_torch.utils import gmp
+
+    def sqr(x, a, q):
+        return gmp.mersenne_mod(gmp.mul(x, x) * a, q)
+
+    v5 = random.Random(P_R5).getrandbits(P_R5 - 1)    # drive_values' v
+    v = random.Random(P_MAIN).getrandbits(P_MAIN - 1)
+    return v5, [drive5 or pool.submit(drive_values, P_R5),
+                pool.submit(lambda: sqr(sqr(sqr(v5, 1, P_R5), 1, P_R5), 3,
+                                        P_R5)),
+                pool.submit(lambda: sqr(sqr(v, 3, P_MAIN), 1, P_MAIN))]
+
+
+def mesh_rank_r5(expected5, block_want5, v5, settle) -> dict:
+    """The radix-5 mesh at p = 332192831, n = 5 * 2^22, (64, 320, 1024),
+    on this rank of the group: the block-carry ShardedStep (three steps,
+    K8) and MeshEngine (phase 3's ops) against GMP, each path's wrapper
+    counts (reset just before, read just after) and PRP iter/s through
+    MeshEngine (64 squarings), timed once settle() has waited for every
+    GMP thread."""
+    import torch
+    from prmers_tpu_torch.engine.factory import create_engine
+    from prmers_tpu_torch.ops import fourstep as tfs
+    from prmers_tpu_torch.ops import kernels as tk
+    from prmers_tpu_torch.parallel import dist
+    from prmers_tpu_torch.parallel.mesh_engine import MeshEngine
+    from prmers_tpu_torch.parallel.sharded_kernels import ShardedStep
+    from prmers_tpu_torch.utils import digits as dg
+    res = {}
+    t0 = time.perf_counter()
+    st = ShardedStep(P_R5, pipe=tfs.Pipeline(rowcarry=False))
+    res["r5_tables_s"] = time.perf_counter() - t0
+    res["r5_shape"] = list(st.tables.shape)
+    st.set_digits(dg.int_to_digits(v5, st.plan.widths))
+    torch.cuda.synchronize()
+    dist.barrier()
+    tk.reset_calls()
+    st.step(2)
+    st.step(1, 3)
+    torch.cuda.synchronize()
+    res["r5_block_calls"] = dict(tk.calls)
+    res["r5_block_ok"] = st.get_int() == block_want5.result()
+    del st
+    eng = create_engine(P_R5, 6, backend="sharded")
+    if type(eng) is not MeshEngine:
+        raise AssertionError(f"-backend sharded gave {type(eng).__name__} "
+                             f"at p={P_R5}")
+    v, w, sh, want = expected5.result()
+    for r, x in enumerate((3 << sh, v, w, 0, w, 81)):
+        eng.set(r, x)
+    eng.sync()
+    dist.barrier()
+    tk.reset_calls()
+    t0 = time.perf_counter()
+    res["r5_engine_ok"] = engine_ops(eng, want, sh, v, w, (1 << P_R5) - 1)
+    res["r5_engine_s"] = time.perf_counter() - t0
+    res["r5_engine_calls"] = dict(tk.calls)
+    settle()
+    eng.set(0, 3)
+    eng.square_mul_seq(0, [1] * 8)
+    eng.sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    eng.square_mul_seq(0, [1] * 64)
+    eng.sync()
+    res["r5_ips"] = 64 / (time.perf_counter() - t0)
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_rank_xla(xla_want, v) -> dict:
+    """The XLA-form ShardedEngine (PRMERS_SHARDED_IMPL=xla) at p =
+    136279841, n = 2^23, on this rank of the group: its table build, x3
+    then x1 squarings of v against GMP (digits and psum_res64), PRP
+    iter/s over 4 squarings."""
+    import numpy as np
+    import torch
+    from prmers_tpu_torch.engine.factory import create_engine
+    from prmers_tpu_torch.parallel import dist
+    from prmers_tpu_torch.parallel.sharded import ShardedEngine, psum_res64
+    from prmers_tpu_torch.utils import digits as dg
+    res = {}
+    os.environ["PRMERS_SHARDED_IMPL"] = "xla"
+    try:
+        t0 = time.perf_counter()
+        eng = create_engine(P_MAIN, 2, backend="sharded")
+        res["xla_tables_s"] = time.perf_counter() - t0
+    finally:
+        del os.environ["PRMERS_SHARDED_IMPL"]
+    if type(eng) is not ShardedEngine:
+        raise AssertionError(f"PRMERS_SHARDED_IMPL=xla gave "
+                             f"{type(eng).__name__}")
+    res["xla_graphs"] = eng.graphs
+    eng.set(0, v)
+    eng.square_mul(0, 3)
+    eng.square_mul(0, 1)
+    want = xla_want.result()
+    wd = dg.int_to_digits(want, eng.widths)
+    res["xla_ok"] = [bool(np.array_equal(eng.get_digits(0), wd)),
+                     psum_res64(eng.tables, eng.regs[0]) ==
+                     want & ((1 << 64) - 1)]
+    eng.sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        eng.square_mul(0, 1)
+    eng.sync()
+    res["xla_ips"] = 4 / (time.perf_counter() - t0)
+    del eng
+    torch.cuda.empty_cache()
+    return res
 
 
 def _free_port() -> int:
@@ -518,19 +771,34 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def mesh_drive(root: str, card: str) -> dict:
+MESH_R5_ROW = ("k1_p1c", "k3_p7c", "k5_axis1", "k6_fused_c")
+MESH_R5_BLOCK = ("k4_axis0", "k5_axis1", "k6_fused_c", "k8_local")
+FALLBACK_TAIL = 2000    # squarings M756839 resumes on the XLA-form engine
+
+
+def mesh_drive(root: str, card: str, dev=None, single=None,
+               extras_at_1=False) -> dict:
     """Phase 6b: the ranks at every s in {1, 2, 4} the cards allow, each
-    checked; returns {s: [each rank's result]}."""
+    checked; at s >= 2 (and at s = 1 with extras_at_1) the radix-5 and
+    XLA-form paths too (mesh_rank_r5, mesh_rank_xla; check_extras), and
+    M756839 through the CLI under -backend sharded on s ranks (R2 = 1:
+    the fallback ShardedEngine), resumed FALLBACK_TAIL squarings from its
+    end; at the largest s M9941's proof with PRMERS_PROOF_SHARDED=1.
+    single: the one-card PRP iter/s at P_MAIN and P_R5 to log beside the
+    mesh's. Returns {s: [each rank's result]}."""
     import torch
     out = {}
+    cards = torch.cuda.device_count()
+    fallback_ckpt = None
     for s in (1, 2, 4):
-        if s > torch.cuda.device_count():
+        if s > cards:
             break
         run_dir = os.path.join(root, "build", "smoke_mesh", str(s))
         shutil.rmtree(run_dir, ignore_errors=True)
         os.makedirs(run_dir)
         env = dict(os.environ, WORLD_SIZE=str(s), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(_free_port()))
+                   MASTER_PORT=str(_free_port()),
+                   SMOKE_MESH_EXTRAS="1" if s > 1 or extras_at_1 else "0")
         env.setdefault("NCCL_SOCKET_IFNAME", "lo")
         t1 = time.perf_counter()
         procs = [subprocess.Popen(
@@ -578,8 +846,69 @@ def mesh_drive(root: str, card: str) -> dict:
             f"at s={s} (rank 0; ranks {[r['ips'] for r in ranks]}), "
             f"{r0['block_ips']:.6f} through its block carry (K8); "
             f"collective ms per squaring {r0['collective_ms']} ({card})")
+        if "r5_ips" in r0:
+            check_extras(ranks, s, card, single)
+        if s >= 2:
+            if fallback_ckpt is None:
+                fallback_ckpt = golden_checkpoint(root, dev, FALLBACK_TAIL,
+                                                  phase=6)
+            rc, text, _dt, doc = torchrun_cli(
+                root, s, f"fallback{s}",
+                (str(P_GOLDEN), "-noproof", "-backend", "sharded"),
+                resume=fallback_ckpt)
+            check_fallback_run(s, rc, text, doc)
+        if s >= 2 and 2 * s > cards:
+            rc, text, _dt, doc = torchrun_cli(
+                root, s, f"proof{s}", ("9941", "-backend", "sharded"),
+                env={"PRMERS_PROOF_SHARDED": "1"})
+            check_sharded_proof(s, rc, text, doc, os.path.join(
+                root, "build", "smoke_mesh_cli", f"proof{s}"))
         out[s] = ranks
     return out
+
+
+def check_extras(ranks, s, card, single=None) -> None:
+    """The radix-5 and XLA-form results of each rank of s (mesh_rank_r5,
+    mesh_rank_xla): each against GMP, every kernel of each radix-5 path
+    launched (its counts reset just before, read just after) and none off
+    it; their PRP iter/s beside the single card's."""
+    for res in ranks:
+        log(f"[6]   rank {res['rank']} radix 5 p={P_R5} "
+            f"{res['r5_shape']}: tables {res['r5_tables_s']:.3f} s; "
+            f"block step vs GMP {res['r5_block_ok']}, calls "
+            f"{res['r5_block_calls']}; engine ops in "
+            f"{res['r5_engine_s']:.3f} s vs GMP {res['r5_engine_ok']}, "
+            f"calls {res['r5_engine_calls']}")
+        log(f"[6]   rank {res['rank']} ShardedEngine "
+            f"(PRMERS_SHARDED_IMPL=xla) p={P_MAIN}: tables "
+            f"{res['xla_tables_s']:.3f} s, graphs {res['xla_graphs']}, "
+            f"x3 and x1 squarings vs GMP (digits, psum_res64) "
+            f"{res['xla_ok']}")
+        if not (res["r5_block_ok"] and all(res["r5_engine_ok"]) and
+                all(res["xla_ok"])):
+            raise AssertionError(f"the radix-5 or XLA-form mesh at s={s} "
+                                 f"disagrees with GMP on rank {res['rank']}")
+        missing = [f"row {k}" for k in MESH_R5_ROW
+                   if res["r5_engine_calls"][k] <= 0]
+        missing += [f"block {k}" for k in MESH_R5_BLOCK
+                    if res["r5_block_calls"][k] <= 0]
+        ran_off = [k for k in MESH_OFF if res["r5_engine_calls"][k]
+                   or res["r5_block_calls"][k]]
+        if missing or ran_off:
+            raise AssertionError(f"radix-5 mesh rank {res['rank']} at s={s}:"
+                                 f" not launched {missing}, launched "
+                                 f"{ran_off}")
+    r0 = ranks[0]
+    single = single or {}
+    log(f"[6] PRP {r0['r5_ips']:.6f} iter/s @ p={P_R5} through the mesh "
+        f"at s={s} (rank 0; ranks {[r['r5_ips'] for r in ranks]}) "
+        f"against {single.get(P_R5, 'not measured')} through the "
+        f"single-card row carry ({card})")
+    log(f"[6] PRP {r0['xla_ips']:.6f} iter/s @ p={P_MAIN} through "
+        f"ShardedEngine at s={s} (rank 0; ranks "
+        f"{[r['xla_ips'] for r in ranks]}; graphs {r0['xla_graphs']}) "
+        f"against {single.get(P_MAIN, 'not measured')} through the "
+        f"single-card row carry ({card})")
 
 
 def tools_drive(dev, card):
@@ -796,12 +1125,12 @@ F2699 = ("5399", "307687", "1187561", "7570504839257", "1987104667810711")
 NO_PALLAS_K = 8         # squarings of the p = 136279841 check
 
 
-def expect_goldens(expect, r9941, r11213, r100003) -> None:
+def expect_goldens(expect, r9941, r11213, r100003=None) -> None:
     """The goldens phases 8 and 10 share, each run (rc, output, seconds,
     result JSON): M9941 prime with the reference's proof hashes
     (tests/test_proof.py) and the proof verified, M11213's res64 every
     1000 iterations and final res64 1 (tests/test_prp_ll.py:127-149),
-    M100003's res64 and res2048 (:106-124)."""
+    and (phase 10) M100003's res64 and res2048 (:106-124)."""
     rc, out, _dt, j = r9941[:4]
     lines = [ln.strip() for ln in out.splitlines()
              if ln.strip().startswith("proof [")]
@@ -818,6 +1147,8 @@ def expect_goldens(expect, r9941, r11213, r100003) -> None:
            all(seen.get(k) == v for k, v in GOLDEN_11213.items()))
     expect("M11213 final res64 0000000000000001",
            rc == 0 and j["res64"] == "0000000000000001")
+    if r100003 is None:
+        return
     j = r100003[3]
     expect("M100003 res64 1CF45E9503C71FD6",
            j["status"] == "C" and j["res64"] == "1CF45E9503C71FD6")
@@ -978,8 +1309,11 @@ def anysize_drive(root: str, dev, card: str, beside=None) -> None:
     if beside is not None:
         beside()
     goldens = ThreadPoolExecutor(max_workers=2)
-    long_chain = goldens.submit(lambda: [
-        cli_run(root, "100003", ["100003", "-noproof"])])
+    # phase 6's (d): the XLA-form mesh engine on one rank (n = 512 is
+    # below the four-step engine) with its residues as rank shards
+    mesh_chain = goldens.submit(
+        cli_run, root, "9941-sharded", ["9941", "-backend", "sharded"],
+        env={"PRMERS_PROOF_SHARDED": "1"})
     short_chain = goldens.submit(lambda: [
         cli_run(root, "127-ll", ["127", "-ll"]),
         cli_run(root, "127-llsafe", ["127", "-llsafe"]),
@@ -996,9 +1330,9 @@ def anysize_drive(root: str, dev, card: str, beside=None) -> None:
     from prmers_tpu_torch.ops import fourstep as tfs
     host_tables(tfs.FourStepPlan.from_plan(plan))
     t1 = time.perf_counter()
-    (r100003,), short = long_chain.result(), short_chain.result()
-    short = [c[:4] for c in short]
-    r100003 = r100003[:4]
+    short = [c[:4] for c in short_chain.result()]
+    rc, out, _dt, doc, d = mesh_chain.result()
+    check_sharded_proof(1, rc, out, doc, d, phase=8)
     goldens.shutdown()
     log(f"[8] waited {time.perf_counter() - t1:.3f} s for the CLI goldens")
 
@@ -1015,9 +1349,7 @@ def anysize_drive(root: str, dev, card: str, beside=None) -> None:
            rc == 0 and j["status"] == "PRP")
     expect("M2699 cofactor with 4 known factors composite",
            rc2 == 1 and j2["status"] == "C")
-    expect_goldens(expect, short[4], short[5], r100003)
-    log(f"[8] M100003 PRP in {r100003[2]:.3f} s through the CLI, beside "
-        f"the other goldens ({card})")
+    expect_goldens(expect, short[4], short[5])
 
     # the main exponent through the any-size engine (PRMERS_NO_PALLAS)
     os.environ["PRMERS_NO_PALLAS"] = "1"
@@ -2111,10 +2443,15 @@ def main(argv) -> int:
         print(card)
         return 0
     if "--mesh-only" in argv:
-        mesh = mesh_drive(root, card)
-        print(json.dumps({"mesh": {s: {
+        single = {p: bench.measure(p, warm=4, iters=48)
+                  for p in (P_MAIN, P_R5)}
+        torch.cuda.empty_cache()
+        mesh = mesh_drive(root, card, dev, single, extras_at_1=True)
+        print(json.dumps({"single": single, "mesh": {s: {
             "ips": [r["ips"] for r in ranks],
             "block_ips": [r["block_ips"] for r in ranks],
+            "r5_ips": [r["r5_ips"] for r in ranks],
+            "xla_ips": [r["xla_ips"] for r in ranks],
             "collective_ms": ranks[0]["collective_ms"]}
             for s, ranks in mesh.items()}}))
         print(card)
@@ -2128,6 +2465,9 @@ def main(argv) -> int:
     pool = ThreadPoolExecutor(max_workers=4)
     expected = {p: pool.submit(drive_values, p) for p in (
         P_R5_BIG, P_BIG, P_R5, P_MAIN, P_CHAIN, P_R5_SMALL, P_GOLDEN)}
+    # phase 6's radix-5 and XLA-form mesh checks: their GMP values too
+    extras_pool = ThreadPoolExecutor(max_workers=2)
+    v5, extras = extras_jobs(extras_pool, expected[P_R5])
 
     mark(2)
     # ---- 2: every kernel against its plain version -----------------------
@@ -2404,10 +2744,11 @@ def main(argv) -> int:
 
     mark(4)
     # ---- 4: timings -------------------------------------------------------
+    ips4 = {}
     for p, warm, iters in ((P_MAIN, 16, 192), (P_BIG, 4, 48),
                            (P_HUGE, 4, 24), (P_R5, 4, 48), (P_R5_BIG, 4, 24)):
         tk.reset_calls()
-        ips = bench.measure(p, warm=warm, iters=iters)
+        ips = ips4[p] = bench.measure(p, warm=warm, iters=iters)
         if p == P_HUGE:
             # the 2^26 path (K5 at L2 = 128): this chain's wrapper counts
             counts["huge"] = dict(tk.calls)
@@ -2713,43 +3054,10 @@ def main(argv) -> int:
     def cli_prime(phase, label, tag, **kw):
         cli_finish(phase, label, cli_start(tag, **kw))
 
-    def golden_checkpoint() -> str:
-        """The PRP/LL driver in this process, on the engine the CLI takes
-        (K9), stopped through its Ctrl-C path before the chunk that would
-        pass GOLDEN_TAIL squarings from the end; returns the checkpoint it
-        writes there."""
-        from prmers_tpu_torch.core import checkpoints as ck
-        from prmers_tpu_torch.io.cli import parse_args
-        from prmers_tpu_torch.modes.prp_ll import R0, run_prp_or_ll
-        ck_dir = os.path.join(root, "build", "smoke_ckpt")
-        shutil.rmtree(ck_dir, ignore_errors=True)
-        opts = parse_args([str(P_GOLDEN), "-noproof", "-save-dir", ck_dir])
-        eng = create_engine(P_GOLDEN, 8, device=dev)
-        seq, done = eng.square_mul_seq, [0]
-
-        def stop_near_end(src, a_vec):
-            if src == R0:
-                if done[0] + len(a_vec) > P_GOLDEN - GOLDEN_TAIL:
-                    raise KeyboardInterrupt
-                done[0] += len(a_vec)
-            seq(src, a_vec)
-
-        eng.square_mul_seq = stop_near_end
-        t1 = time.perf_counter()
-        r = run_prp_or_ll(opts, eng=eng, log=lambda *a, **k: None)
-        path = ck.ckpt_filename(P_GOLDEN, "prp", False, ck_dir)
-        log(f"[5] M{P_GOLDEN} PRP in this process stopped at iteration "
-            f"{r.iteration} of {P_GOLDEN} in {time.perf_counter() - t1:.3f} "
-            f"s; checkpoint {path}")
-        if not r.interrupted or r.iteration < P_GOLDEN - 2 * GOLDEN_TAIL \
-                or not os.path.exists(path):
-            raise AssertionError("no checkpoint near the end of M756839")
-        return path
-
     # K9 in one process at a time: the checkpoint first, then the whole run
     # with its proof, whose proof build and check (host big-int, minutes)
     # go on beside phases 6-8 once its squarings are over
-    golden = golden_checkpoint()
+    golden = golden_checkpoint(root, dev, GOLDEN_TAIL)
     proof_job = cli_start("k9-proof", proof=True)
     cli_prime(5, "block carry", "block", env={"PRMERS_NO_ROWCARRY": "1"},
               resume=golden)
@@ -2760,97 +3068,138 @@ def main(argv) -> int:
 
     mark(6)
     # ---- 6: the mesh ------------------------------------------------------
-    # (a) the shard-local kernel forms on this card, s = 2 and 4
-    fpm = tfs.FourStepPlan.from_plan(cached_plan(P_MAIN))
-    kt = host_tables(fpm)
-    R1, R2, C = fpm.shape
+    t6 = time.perf_counter()
+    # (a) the shard-local kernel forms on this card, s = 2 and 4, at n =
+    # 2^23 and at the radix-5 5 * 2^22 (K5 in the split form on the r1
+    # view's whole split tables)
     rng = np.random.default_rng(6)
-    v = int.from_bytes(rng.bytes(P_MAIN // 8 + 1), "little") % \
-        ((1 << P_MAIN) - 1)
-    xm = dg.int_to_digits(v, cached_plan(P_MAIN).widths).reshape(R1, R2, C)
 
     def residues(shape):
         return gl.from_numpy_u64(rng.integers(0, gl.P, size=shape,
                                               dtype=np.uint64), dev)
 
-    def views(s, rank):
+    def mesh_tables(p, n):
+        """The host tables of the mesh's plan at p (the single-card
+        engine's, built once per carry unit: phase 2's) and a value's
+        digits."""
+        plan = build_plan(p, n=n)
+        fp = four_step_plan(plan, tfs.Pipeline(r2fold_max=0))
+        v = int.from_bytes(rng.bytes(p // 8 + 1), "little") % ((1 << p) - 1)
+        return host_tables(fp), dg.int_to_digits(v, plan.widths).reshape(
+            fp.shape)
+
+    def views(kt, s, rank):
         return tuple(tk.DevTables.from_host(kt, dev, view, rank, s)
                      for view in (tk.R2_VIEW, tk.R1_VIEW))
 
-    for s in (2, 4):
-        for rank in (0, s - 1):
-            t2, t1 = views(s, rank)
-            label = f"mesh s={s} rank={rank}"
-            m = R2 // s
-            x2 = gl.from_numpy_u64(np.ascontiguousarray(
-                xm[:, rank * m:(rank + 1) * m]), dev)
-            co = torch.from_numpy(rng.integers(
-                0, 1 << 40, size=t2.row_carry_shape, dtype=np.int64)).to(dev)
-            sp = tk.p1_carry_plain(t2, x2, co)
-            record("k1_p1c", label, tk.p1_carry_pass(t2, x2, co), sp,
-                   phase=6)
-            record("k4_axis0", f"{label} fwd", tk.axis0_pass(t2, x2, False),
-                   tk.axis0_plain(t2, x2, False), phase=6)
-            record("k4_axis0", f"{label} inverse", tk.axis0_pass(t2, sp, True),
-                   tk.axis0_plain(t2, sp, True), canon=False, phase=6)
-            amt = 2 if rank == 0 else 0
-            for a, sub2 in ((1, False), (3, False), (1, True)):
-                d, c = tk.p7_carry_pass(t2, sp, a=a, sub2=sub2, s2=amt)
-                dw, cw = tk.p7_carry_plain(t2, sp, a, sub2, amt)
-                what = f"{label} a={a} sub2={sub2}"
-                record("k3_p7c", what + " digits", d, dw, canon=False,
-                       phase=6)
-                record("k3_p7c", what + " carries", c, cw, canon=False,
-                       phase=6)
-            y = residues(t1.shape)
-            for which in ("p2", "p6"):
-                record("k5_axis1", f"{label} {which}",
-                       tk.axis1_pass(t1, y, which),
-                       tk.axis1_plain(t1, y, which), phase=6)
-            for mode in ("sqr", "fwd", "mul"):
-                um = y if mode == "mul" else None
-                record("k6_fused_c", f"{label} {mode}",
-                       tk.fused_c_pass(t1, y, mode, u=um, r2fold=False),
-                       tk.fused_c_plain(t1, y, mode, um, r2fold=False),
-                       phase=6)
-            for op in ("sqr", ""):
-                record("k6b_fused_c_invh", f"{label} op={op!r}",
-                       tk.fused_c_invh_pass(t1, y, op),
-                       tk.fused_c_invh_plain(t1, y, op), phase=6)
-            z = gl.canon64(y)
-            for a in (1, 3):
-                d, c = tk.block_carry_local(t1, z, a)
-                dw, cw = tk.block_carry_plain(t1, z, a, t1.k8_rounds)
-                record("k8_local", f"{label} a={a} digits", d, dw,
-                       canon=False, phase=6)
-                record("k8_local", f"{label} a={a} carries", c, cw,
-                       canon=False, phase=6)
-    # K8 at the shard shapes of s = 1, 2, 4 (rank 0's r1 blocks): held
-    # against its plain version on the timed input, then timed
-    for s in (1, 2, 4):
-        t1 = views(s, 0)[1]
-        z = gl.canon64(residues(t1.shape))
+    def check_views(kt, xm, s, rank, at, k5):
+        """Each kernel on rank's views of s against its plain version on
+        the same inputs, exact (phase 2's record)."""
+        t2, t1 = views(kt, s, rank)
+        label = f"mesh {at} s={s} rank={rank}"
+        m = kt.widths.shape[1] // s
+        x2 = gl.from_numpy_u64(np.ascontiguousarray(
+            xm[:, rank * m:(rank + 1) * m]), dev)
+        co = torch.from_numpy(rng.integers(
+            0, 1 << 40, size=t2.row_carry_shape, dtype=np.int64)).to(dev)
+        sp = tk.p1_carry_plain(t2, x2, co)
+        record("k1_p1c", label, tk.p1_carry_pass(t2, x2, co), sp, phase=6)
+        record("k4_axis0", f"{label} fwd", tk.axis0_pass(t2, x2, False),
+               tk.axis0_plain(t2, x2, False), phase=6)
+        record("k4_axis0", f"{label} inverse", tk.axis0_pass(t2, sp, True),
+               tk.axis0_plain(t2, sp, True), canon=False, phase=6)
+        amt = 2 if rank == 0 else 0
+        for a, sub2 in ((1, False), (3, False), (1, True)):
+            d, c = tk.p7_carry_pass(t2, sp, a=a, sub2=sub2, s2=amt)
+            dw, cw = tk.p7_carry_plain(t2, sp, a, sub2, amt)
+            what = f"{label} a={a} sub2={sub2}"
+            record("k3_p7c", what + " digits", d, dw, canon=False, phase=6)
+            record("k3_p7c", what + " carries", c, cw, canon=False, phase=6)
+        y = residues(t1.shape)
+        for which in ("p2", "p6"):
+            record(k5, f"{label} {which}", tk.axis1_pass(t1, y, which),
+                   tk.axis1_plain(t1, y, which), phase=6)
+        for mode in ("sqr", "fwd", "mul"):
+            um = y if mode == "mul" else None
+            record("k6_fused_c", f"{label} {mode}",
+                   tk.fused_c_pass(t1, y, mode, u=um, r2fold=False),
+                   tk.fused_c_plain(t1, y, mode, um, r2fold=False), phase=6)
+        for op in ("sqr", ""):
+            record("k6b_fused_c_invh", f"{label} op={op!r}",
+                   tk.fused_c_invh_pass(t1, y, op),
+                   tk.fused_c_invh_plain(t1, y, op), phase=6)
+        z = gl.canon64(y)
         for a in (1, 3):
             d, c = tk.block_carry_local(t1, z, a)
             dw, cw = tk.block_carry_plain(t1, z, a, t1.k8_rounds)
-            what = f"timed s={s} {t1.shape} a={a}"
-            record("k8_local", what + " digits", d, dw, canon=False, phase=6)
-            record("k8_local", what + " carries", c, cw, canon=False,
+            record("k8_local", f"{label} a={a} digits", d, dw, canon=False,
                    phase=6)
-        got = compare("k8_local", "n=2^23", f"s={s} {t1.shape} a=1",
-                      lambda: tk.block_carry_local(t1, z),
-                      lambda: tk.block_carry_plain(t1, z, 1, t1.k8_rounds),
-                      20, phase=6)
-        b = bound(0, 20 * z.numel() + 8 * t1.block_carry_shape[0])
-        log(f"[6] k8_local bound at s={s} {b[0]:.6f} ms ({b[1]}); kernel "
-            f"{got[0]:.6f} ms ({card})")
-        if s == 1:
-            ms["k8_local"], bounds["k8_local"] = got, b
-    del t1, t2, x2, co, sp, y, z, d, c, dw, cw
+            record("k8_local", f"{label} a={a} carries", c, cw, canon=False,
+                   phase=6)
+
+    kt, xm = mesh_tables(P_MAIN, 1 << 23)
+    kt5, xm5 = mesh_tables(P_R5, 5 << 22)
+    for s in (2, 4):
+        for rank in (0, s - 1):
+            check_views(kt, xm, s, rank, "n=2^23", "k5_axis1")
+            check_views(kt5, xm5, s, rank, "n=5*2^22", "k5_axis1[r5]")
     torch.cuda.empty_cache()
+    log(f"[6] (a) views in {time.perf_counter() - t6:.3f} s")
+    # K8 at the shard shapes of s = 1, 2, 4 (rank 0's r1 blocks) at 2^23
+    # and 5 * 2^22, and K5's split at the radix-5 ones (the mean of P2 and
+    # P6): each held against its plain version on the timed input, then
+    # timed beside its bound (K8 20 bytes per digit, as K7; K5 as phase 4
+    # prices it at 5 * 2^23)
+    for at, table in (("n=2^23", kt), ("n=5*2^22", kt5)):
+        for s in (1, 2, 4):
+            t1 = views(table, s, 0)[1]
+            z = gl.canon64(residues(t1.shape))
+            for a in (1, 3):
+                d, c = tk.block_carry_local(t1, z, a)
+                dw, cw = tk.block_carry_plain(t1, z, a, t1.k8_rounds)
+                what = f"timed {at} s={s} {t1.shape} a={a}"
+                record("k8_local", what + " digits", d, dw, canon=False,
+                       phase=6)
+                record("k8_local", what + " carries", c, cw, canon=False,
+                       phase=6)
+            got = compare("k8_local", at, f"s={s} {t1.shape} a=1",
+                          lambda: tk.block_carry_local(t1, z),
+                          lambda: tk.block_carry_plain(t1, z, 1,
+                                                       t1.k8_rounds),
+                          20, phase=6)
+            b = bound(0, 20 * z.numel() + 8 * t1.block_carry_shape[0])
+            log(f"[6] k8_local bound at {at} s={s} {b[0]:.6f} ms ({b[1]}); "
+                f"kernel {got[0]:.6f} ms ({card})")
+            if s == 1 and at == "n=2^23":
+                ms["k8_local"], bounds["k8_local"] = got, b
+            if at == "n=2^23":
+                continue
+            y = z
+            k5 = [compare("k5_axis1[r5]", at, f"s={s} {t1.shape} {w}",
+                          lambda w=w: tk.axis1_pass(t1, y, w),
+                          lambda w=w: tk.axis1_plain(t1, y, w), 10,
+                          phase=6) for w in ("p2", "p6")]
+            for w in ("p2", "p6"):
+                record("k5_axis1[r5]", f"timed {at} s={s} {w}",
+                       tk.axis1_pass(t1, y, w), tk.axis1_plain(t1, y, w),
+                       phase=6)
+            n1 = y.numel()
+            L2 = t1.shape[1]
+            b = bound((tfs.r2_split_products(L2) + 1.5) * n1, 16 * n1 + (
+                nbytes(t1.mf, t1.dft5_f, t1.tw_f, t1.sh_exp) +
+                nbytes(t1.mi, t1.dft5_i, t1.tw_i, t1.sh_exp,
+                       t1.t_r_inv)) / 2)
+            log(f"[6] k5_axis1[r5] at {at} s={s} {t1.shape}: kernel "
+                f"{(k5[0][0] + k5[1][0]) / 2:.6f} ms (P2 {k5[0][0]:.6f}, P6 "
+                f"{k5[1][0]:.6f}), plain {(k5[0][1] + k5[1][1]) / 2:.6f} "
+                f"ms, bound {b[0]:.6f} ms ({b[1]}) ({card})")
+    del kt, kt5, xm, xm5, t1, y, z, d, c, dw, cw
+    torch.cuda.empty_cache()
+    log(f"[6] (a) in {time.perf_counter() - t6:.3f} s")
 
     # (b) the ranks, at every s the cards allow
-    mesh = mesh_drive(root, card)
+    mesh = mesh_drive(root, card, dev,
+                      single={**ips4, P_MAIN: row_ips})
     r0 = mesh[1][0]
     counts["mesh"] = {k: r0["block_calls"][k] + r0["engine_calls"][k]
                       for k in r0["block_calls"]}
@@ -2858,6 +3207,17 @@ def main(argv) -> int:
         log(f"[6] PRP {ranks[0]['ips']:.6f} iter/s @ p={P_MAIN} through the "
             f"mesh at s={s} against {row_ips:.6f} through the single-card "
             f"row carry ({card})")
+    # the radix-5 and XLA-form paths at s = 1, in this process (no group:
+    # no collective, as on one rank), where phase 2 built the radix-5 host
+    # tables and phase 3's GMP values wait
+    ext = {"rank": 0, **mesh_rank_r5(extras[0], extras[1], v5,
+                                     lambda: [j.result() for j in extras])}
+    ext.update(mesh_rank_xla(extras[2], random.Random(P_MAIN).getrandbits(
+        P_MAIN - 1)))
+    extras_pool.shutdown()
+    check_extras([ext], 1, card, {**ips4, P_MAIN: row_ips})
+    log(f"[6] (b) in {time.perf_counter() - t6:.3f} s")
+    del extras, ext
 
     # (c) M756839 through the CLI on the mesh, one rank, resumed
     cli_prime(6, "mesh (-backend sharded, torchrun, 1 rank)", "mesh",
@@ -2866,6 +3226,18 @@ def main(argv) -> int:
               env={"NCCL_SOCKET_IFNAME": os.environ.get(
                   "NCCL_SOCKET_IFNAME", "lo")},
               args=("-backend", "sharded"), resume=golden)
+    log(f"[6] (c) in {time.perf_counter() - t6:.3f} s")
+    # (d) M9941 under -backend sharded with PRMERS_PROOF_SHARDED=1 runs
+    # beside phase 8's goldens; (e) the __graft_entry__ twin's compile
+    # check on this card
+    from prmers_tpu_torch import graft_entry
+    fn, args = graft_entry.entry()
+    got = dg.digits_to_int(gl.to_numpy_u64(fn(*args)[0]),
+                           cached_plan(graft_entry.P_ENTRY).widths)
+    log(f"[6] graft_entry.entry(): one any-size squaring of 3 at "
+        f"p={graft_entry.P_ENTRY} on {args[0].device} gives {got}")
+    if got != 9:
+        raise AssertionError(f"graft_entry.entry() gave {got}, not 9")
 
     mark(7)
     # ---- 7: the tools: the pass profiler, microbenchmarks, probes ---------

@@ -21,14 +21,18 @@ Host arithmetic uses python ints (mersenne reduction is trivial);
 verification's long squaring chain can run on an Engine when provided.
 
 Port: a copy of prmers_tpu/core/proof.py with these changes.
-  * The residue store is whole residues only. checkpoint_engine always
-    gathers the register through eng.get_digits (on the mesh every rank
-    calls it, a collective) and only rank 0 (parallel/dist) writes the
-    file; the per-process digit shards of :164-176 wait on the port of
-    parallel/shard_ckpt.py, so ProofSet refuses PRMERS_PROOF_SHARDED=1
-    with NotImplementedError rather than write whole residues under it.
-  * The shard writer's process index (:192-193) is dist.rank(); shard
-    stores the JAX package wrote still load.
+  * The packed residue file is written by rank 0 alone (parallel/dist):
+    checkpoint_engine, the reference's as it is, gathers the register
+    through eng.get_digits, which on the mesh every rank calls (a
+    collective), and checkpoint returns on the other ranks.
+  * The per-process digit shards of :164-176 are parallel/shard_ckpt's
+    rows of the port's engines (MeshEngine, ShardedEngine, TorchEngine's
+    slab): one range per rank. An engine without such rows raises
+    TypeError there, which falls back to the packed file as the
+    reference's AttributeError/TypeError does.
+  * The shard writer's process index (:192-193) is dist.rank(), and its
+    barriers are dist.barrier(tag); shard stores the JAX package wrote
+    load, and the JAX package loads the port's.
 """
 
 from __future__ import annotations
@@ -130,10 +134,6 @@ class ProofSet:
         self.power = power
         self.widths = widths
         self.known_factors = known_factors
-        if os.environ.get("PRMERS_PROOF_SHARDED") == "1":
-            raise NotImplementedError(
-                "PRMERS_PROOF_SHARDED=1: sharded proof residues are not "
-                "yet ported to prmers_tpu_torch; unset it")
         self.dir = os.path.join(save_dir, str(E), "proof")
         os.makedirs(self.dir, exist_ok=True)
         self.points = proof_points(E, power)
@@ -164,13 +164,31 @@ class ProofSet:
             f.write(buf)
 
     def checkpoint_engine(self, eng, it: int, reg: int = 0) -> None:
-        """Residue checkpoint directly from an engine register: the
-        packed uint32-words file (reference layout,
-        ProofSetMarin.cpp:100-123) of the gathered digits, written by
-        rank 0 (every rank calls this: on the mesh get_digits is a
-        collective)."""
+        """Residue checkpoint directly from an engine register.
+
+        Multi-host mesh runs (or PRMERS_PROOF_SHARDED=1) write
+        per-process digit-shard files instead of gathering the full
+        residue through the primary host: at p ~ 1G, power 10-12 the
+        gathered store is a ~10 GB-class primary bill per run (VERDICT
+        r4 weak #6); shards move only each host's own digit ranges and
+        the full residue materializes once, at proof-compute time on
+        the primary. Single-process runs keep the packed uint32-words
+        file (reference layout, ProofSetMarin.cpp:100-123)."""
         if not self.should_checkpoint(it):
             return
+        from ..parallel import dist as _dist
+        sharded = (os.environ.get("PRMERS_PROOF_SHARDED") == "1"
+                   or _dist.process_count() > 1)
+        if sharded:
+            from ..parallel import shard_ckpt
+            try:
+                rows, spectral = shard_ckpt._reg_digit_rows(eng, reg)
+            except (AttributeError, TypeError):
+                rows = None     # engine has no sharded digit rows
+            if rows is not None:
+                assert not spectral, "proof residue must be digit-domain"
+                self._write_shards(it, rows)
+                return
         self.checkpoint(eng.get_digits(reg), it)
 
     def _shard_dir(self, it: int) -> str:

@@ -18,10 +18,17 @@ The backends (`backend=`, or PRMERS_BACKEND):
   * "numpy": the host oracle, engine/np_engine.NumpyEngine (a copy of the
     reference's; it takes no device).
   * "sharded", and "auto" when the process group of parallel/dist has
-    more than one rank (:68-84, :151-153): the mesh engine
-    (parallel/mesh_engine.MeshEngine); a shape the mesh does not take
-    raises ValueError with the shape, for there is no XLA mesh engine to
-    fall back on.
+    more than one rank (:68-84, :151-153): the mesh engine, chosen by
+    PRMERS_SHARDED_IMPL as :177-189 do. "auto" (the default) takes
+    parallel/mesh_engine.MeshEngine where it takes the shape and the
+    pipeline (mesh_eligible with the pipeline: the row carry, s dividing
+    R1 and R2, a plan of the four-step engine), and the XLA-form
+    parallel/sharded.ShardedEngine, the any-shape fallback, everywhere
+    else (n below 2^15, M756839 at s = 2 with R2 = 1, the block carry or
+    the hybrid asked for); "pallas" always takes MeshEngine, whose shape
+    refusal then raises; "xla" always takes ShardedEngine. The route is
+    decided before an engine is made, so any other failure of MeshEngine
+    raises as it is.
 "pallas" and "jax" (after "auto" has chosen) page registers to the host
 when reg_count exceeds engine/paged.device_reg_budget (the card's free
 memory over the engine's bytes per register), as :158-176 do: the engine
@@ -29,8 +36,7 @@ gets the budget's count of slots and engine/paged.PagedEngine maps the
 logical registers onto them; PRMERS_GPU_ALLOC_DIAG=1 prints the [ALLOC]
 line, PRMERS_MAX_DEVICE_REGS and PRMERS_MEMLIM_MB set the budget.
 PRMERS_NO_PALLAS sends every p to the any-size engine (:40, :73), on any
-number of ranks. PRMERS_SHARDED_IMPL=xla, the reference's XLA mesh engine
-(:74, :180), is not ported and raises NotImplementedError.
+number of ranks.
 
 The arithmetic (`arith=`, or PRMERS_ARITH, as factory.py:131-150 read
 them): "gl64" gives the Goldilocks engines above; "fft3161" the paired
@@ -82,6 +88,7 @@ from ..core.profile import maybe_wrap
 from ..ops.fourstep import Pipeline
 from ..parallel import dist
 from ..parallel.mesh_engine import MeshEngine, mesh_eligible
+from ..parallel.sharded import ShardedEngine
 from .api import Engine
 from .engine3161 import Engine3161
 from .fourstep_engine import FourStepEngine, covers
@@ -156,10 +163,6 @@ def _create_engine(p: int, reg_count: int, device=None,
                 "PRMERS_NO_WFOLD and PRMERS_NO_FUSE give wrong results "
                 "(ROADMAP queue 3); unset it. The unfolded passes run "
                 "through python -m prmers_tpu_torch.tools.profile_passes")
-    if os.environ.get("PRMERS_SHARDED_IMPL") == "xla":
-        raise NotImplementedError(
-            "PRMERS_SHARDED_IMPL=xla selects the JAX package's XLA mesh "
-            "engine, which is not ported to prmers_tpu_torch; unset it")
     plan = cached_plan(p)
     if b == "numpy":
         return NumpyEngine(p, reg_count, plan=plan)
@@ -194,5 +197,9 @@ def _create_engine(p: int, reg_count: int, device=None,
         return cls(p, reg_count, plan=plan, device=device)
     pipe = pipeline_from_env() if pipe is None else pipe
     if b == "sharded":
-        return MeshEngine(p, reg_count, device=device, pipe=pipe)
+        impl = os.environ.get("PRMERS_SHARDED_IMPL", "auto")
+        if impl == "pallas" or (impl != "xla" and
+                                mesh_eligible(p, pipe=pipe)):
+            return MeshEngine(p, reg_count, device=device, pipe=pipe)
+        return ShardedEngine(p, reg_count, device=device)
     return FourStepEngine(p, reg_count, plan=plan, device=device, pipe=pipe)

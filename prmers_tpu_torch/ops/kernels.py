@@ -205,12 +205,19 @@ _I32_TABLES = ("er", "ec", "wt", "cum", "widths", "bwt", "bcum", "sh_exp")
 # keeps, with the axis cut to the rank's part (None: kept whole). Tables a
 # view leaves out are None in it, so a kernel given the wrong view fails.
 # The r2-sharded view serves K1, K3 and K4 on (R1, R2/s, C); the
-# r1-sharded one K5, K6, K6b and K8 on (R1/s, R2, C).
+# r1-sharded one K5, K6, K6b and K8 on (R1/s, R2, C). Every r2 DFT runs on
+# the r1-sharded view with the whole of L2, so at a radix-5 L2 that view
+# keeps the split's tables whole (dft5_f/i, tw_f/i, sh_exp; t_r_inv is cut
+# by rows as at any L2); None at a power-of-two L2, as on one card. The
+# r2-sharded view has no table with an r2 DFT in it: K1, K3 and K4 take
+# R2/s as an extent and cut every (R1, R2) or per-r2 table on its r2 axis.
 R2_VIEW = {"k1_mats": 0, "k1_cs": 1, "k1_rs": 1, "k3_mats": 0, "k3_rs": 1,
            "er": 1, "ec": None, "wt": 1, "cum": 1, "widths": 1}
 R1_VIEW = {"g2": None, "mf": 0, "mi": 0, "lane_f": None, "lane_i": None,
            "Mf": None, "Mi": None, "cs_f": None, "cs_i": None, "tri": 0,
-           "t_r_inv": 0, "ec": None, "widths": 0, "bwt": 0, "bcum": 0}
+           "t_r_inv": 0, "dft5_f": None, "dft5_i": None, "tw_f": None,
+           "tw_i": None, "sh_exp": None, "ec": None, "widths": 0, "bwt": 0,
+           "bcum": 0}
 
 
 @dataclasses.dataclass(eq=False)

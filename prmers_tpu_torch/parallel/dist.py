@@ -10,8 +10,9 @@ so the carry ring is one hop.
   init_from_env()        joins the group that torchrun (RANK, WORLD_SIZE,
                          LOCAL_RANK, MASTER_ADDR/PORT) or the JAX package's
                          variables (PRMERS_COORDINATOR, PRMERS_NUM_PROCS,
-                         PRMERS_PROC_ID, dist.py:29-43) describe; init()
-                         joins one given outright (the tests: file://)
+                         PRMERS_PROC_ID, dist.py:29-43) describe, on one
+                         host or across hosts; init() joins one given
+                         outright (the tests: file://)
   is_primary, rank, process_count, barrier, device, shutdown
   global_gather(x)       the r1-sharded tensor, whole, on every rank
   put_global(full)       this rank's rows of a host value all ranks hold
@@ -67,13 +68,27 @@ def init(rank: int, world_size: int, init_method: str,
     return dev
 
 
+def env_device(rank: int) -> str:
+    """The card of a rank the environment placed: cuda:LOCAL_RANK where
+    the launcher sets it (torchrun), else cuda:(rank % the host's cards).
+    The second is torchrun's host-by-host layout: hosts of c cards each
+    hold ranks h*c ... h*c + c - 1, so rank r runs on card r % c of its
+    host (the JAX package's variables name no local rank)."""
+    local = os.environ.get("LOCAL_RANK")
+    if local is not None:
+        return f"cuda:{int(local)}"
+    cards = torch.cuda.device_count()
+    if cards < 1:
+        raise RuntimeError(f"rank {rank} has no CUDA card on this host "
+                           "(pass device='cpu' for a gloo group)")
+    return f"cuda:{rank % cards}"
+
+
 def init_from_env(device=None) -> bool:
     """Join the group the environment describes; returns True if there is
     one (a group of one under `torchrun --nproc_per_node=1` too). The
-    device is cuda:LOCAL_RANK unless the caller passes one; without
-    LOCAL_RANK (the JAX package's variables) it is cuda:RANK, and a group
-    larger than this host's cards raises, for a group across hosts is not
-    ported."""
+    device is env_device(rank) unless the caller passes one, so a group
+    may span hosts: every collective goes through torch.distributed."""
     if initialized():
         return True
     env = os.environ
@@ -87,14 +102,7 @@ def init_from_env(device=None) -> bool:
         method = f"tcp://{env['PRMERS_COORDINATOR']}"
     else:
         return False
-    if device is None:
-        if "LOCAL_RANK" not in env and world > torch.cuda.device_count():
-            raise ValueError(
-                f"{world} ranks without LOCAL_RANK on a host with "
-                f"{torch.cuda.device_count()} cards: a group across hosts "
-                "is not ported (set LOCAL_RANK, or run one host's ranks)")
-        device = f"cuda:{env.get('LOCAL_RANK', rank)}"
-    init(rank, world, method, device)
+    init(rank, world, method, env_device(rank) if device is None else device)
     return True
 
 
@@ -124,7 +132,10 @@ def device(default=None) -> torch.device:
     return torchconf.device(default)
 
 
-def barrier() -> None:
+def barrier(tag: str | None = None) -> None:
+    """Wait for every rank. tag names the meeting point, as the JAX
+    package's barrier(tag) does (dist.py:60-64); torch.distributed's
+    barrier needs no name, so it only documents the call site."""
     if process_count() > 1:
         tdist.barrier()
 

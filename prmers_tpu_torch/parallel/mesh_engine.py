@@ -22,6 +22,8 @@ not read here. The engine needs the row carry, as the JAX's
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -37,13 +39,19 @@ from .sharded_kernels import (check_mesh, ring_roll, row_step,
                               sharded_tables)
 
 
-def mesh_eligible(p: int, s: int | None = None, n: int | None = None) -> bool:
+def mesh_eligible(p: int, s: int | None = None, n: int | None = None,
+                  pipe: tfs.Pipeline | None = None) -> bool:
     """Would MeshEngine take (p, s ranks)? (mesh_engine.py:48-69; s
-    defaults to the group's world size.)"""
+    defaults to the group's world size.) With pipe, under that pipeline:
+    the engine takes the row carry only (its constructor's refusal)."""
     s = dist.process_count() if s is None else s
+    pipe = tfs.Pipeline() if pipe is None else pipe
+    if not pipe.rowcarry:
+        return False
     try:
         plan = build_plan(p, n=n) if n else cached_plan(p)
-        check_mesh(four_step_plan(plan, tfs.Pipeline(r2fold_max=0)), s)
+        check_mesh(four_step_plan(
+            plan, dataclasses.replace(pipe, r2fold_max=0)), s)
     except (NotImplementedError, ValueError):
         return False
     return True
@@ -54,12 +62,20 @@ def ring_carry(y: torch.Tensor, wid: torch.Tensor, msk: torch.Tensor,
     """Carry propagation of the rank's flat digits y across the ring (the
     last rank's carry wraps to rank 0: the mod-M_p fold), O(absorb +
     log n) (mesh_engine.py:76-124): `absorb` shift-and-add rounds bring
-    every carry to 0 or 1, then one more shift and a generate/propagate
-    prefix within the rank (ops/carry._prefix_scan), and a cyclic (G, P)
-    fixpoint over the ranks' aggregates. The all-propagate cycle resolves
-    to no carry, keeping the all-ones form of 0 == M_p."""
-    d = y & msk
-    c = y >> wid
+    every carry to 0 or 1, then ring_settle's lookahead. y is below 2^63
+    here (settled digits plus injected carries, or a linear op's sum)."""
+    return ring_settle(y >> wid, y & msk, wid, msk, absorb)
+
+
+def ring_settle(c: torch.Tensor, d: torch.Tensor, wid: torch.Tensor,
+                msk: torch.Tensor, absorb: int) -> torch.Tensor:
+    """The rest of ring_carry from digits d < 2^width and each digit's
+    out-carry c (0 <= c < 2^63, not yet moved to the next digit): `absorb`
+    shift-and-add rounds over the ring, then one more shift and a
+    generate/propagate prefix within the rank (ops/carry._prefix_scan),
+    and a cyclic (G, P) fixpoint over the ranks' aggregates. The
+    all-propagate cycle resolves to no carry, keeping the all-ones form of
+    0 == M_p."""
     for _ in range(absorb):
         t = d + ring_roll(c)
         c = t >> wid

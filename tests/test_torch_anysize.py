@@ -305,17 +305,23 @@ def test_backends_and_no_pallas(clean_env):
 
 
 def test_factory_still_refuses(clean_env):
-    """PRMERS_SHARDED_IMPL=xla still raises; "pallas" raises for a plan
-    the four-step engine does not cover. "fft3161", once refused here,
-    gives Engine3161 (tests/test_torch_engine3161.py)."""
+    """"pallas" raises for a plan the four-step engine does not cover.
+    "fft3161", once refused here, gives Engine3161
+    (tests/test_torch_engine3161.py); PRMERS_SHARDED_IMPL=xla, once
+    refused, leaves "auto" on one rank on the any-size engine (the
+    reference's _mesh_auto_eligible is False under it) and gives the
+    XLA-form mesh engine (parallel/sharded.ShardedEngine) to "sharded"."""
     from prmers_tpu_torch.engine.engine3161 import Engine3161
+    from prmers_tpu_torch.parallel.sharded import ShardedEngine
     e = factory.create_engine(9941, 2, device="cpu", arith="fft3161")
     assert type(e) is Engine3161 and e.get_size() == 256
     with pytest.raises(NotImplementedError):
         factory.create_engine(9941, 2, device="cpu", backend="pallas")
     clean_env.setenv("PRMERS_SHARDED_IMPL", "xla")
-    with pytest.raises(NotImplementedError, match="PRMERS_SHARDED_IMPL"):
-        factory.create_engine(9941, 2, device="cpu")
+    assert type(factory.create_engine(9941, 2, device="cpu")) is \
+        te.TorchEngine
+    e = factory.create_engine(9941, 2, device="cpu", backend="sharded")
+    assert type(e) is ShardedEngine and e.get_size() == 512
 
 
 def test_default_device_is_cuda_for_the_any_size_engine():

@@ -338,21 +338,26 @@ def test_cli_refuses_filemers_and_gui(argv, tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("name,value", [("PRMERS_NO_PALLAS", "1"),
                                         ("PRMERS_SHARDED_IMPL", "xla")])
 def test_create_engine_refuses_xla_switches(name, value, monkeypatch):
-    """PRMERS_SHARDED_IMPL=xla, the JAX package's XLA mesh engine, raises,
-    as the unported pipeline switches do; PRMERS_NO_PALLAS, the XLA engine
-    in place of the kernel engine, gives the port's counterpart, the
-    any-size engine; PRMERS_SHARDED_IMPL at another value changes
-    nothing."""
+    """The JAX package's two XLA switches give the port's counterparts:
+    PRMERS_NO_PALLAS, the XLA engine in place of the kernel engine, the
+    any-size engine; PRMERS_SHARDED_IMPL=xla, once refused, the XLA-form
+    mesh engine (parallel/sharded.ShardedEngine) under "sharded", while
+    "auto" on one rank keeps the four-step engine; PRMERS_SHARDED_IMPL at
+    another value changes nothing."""
     from prmers_tpu_torch.engine.factory import create_engine
+    from prmers_tpu_torch.engine.fourstep_engine import FourStepEngine
     from prmers_tpu_torch.engine.torch_engine import TorchEngine
-    for k in ("PRMERS_NO_PALLAS", "PRMERS_SHARDED_IMPL"):
+    from prmers_tpu_torch.parallel.sharded import ShardedEngine
+    for k in ("PRMERS_NO_PALLAS", "PRMERS_SHARDED_IMPL", "PRMERS_BACKEND"):
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv(name, value)
     if name == "PRMERS_NO_PALLAS":
         assert type(create_engine(756839, 2, device="cpu")) is TorchEngine
     else:
-        with pytest.raises(NotImplementedError, match=name):
-            create_engine(756839, 2, device="cpu")
+        assert type(create_engine(756839, 2, device="cpu")) is \
+            FourStepEngine
+        assert type(create_engine(756839, 2, device="cpu",
+                                  backend="sharded")) is ShardedEngine
     monkeypatch.setenv("PRMERS_SHARDED_IMPL", "pallas")
     monkeypatch.delenv("PRMERS_NO_PALLAS", raising=False)
     assert create_engine(756839, 2, device="cpu").t.fp.n == 1 << 15

@@ -128,9 +128,8 @@ COPIES = {
     "engine/np_engine.py": {"changed": {"NumpyEngine._carry"}},
     "ops/ntt.py": {"dropped": {"_register_pytrees", "<_register_pytrees()>"},
                    "added": {"NttTables.to_device"}},
-    "core/proof.py": {"changed": {
-        "ProofSet.__init__", "ProofSet.checkpoint",
-        "ProofSet.checkpoint_engine", "ProofSet._write_shards"}},
+    "core/proof.py": {"changed": {"ProofSet.checkpoint",
+                                  "ProofSet._write_shards"}},
     "utils/primes.py": {},
     "ui/webgui.py": {},
     "io/interop.py": {},

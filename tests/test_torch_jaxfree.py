@@ -3,7 +3,9 @@
 prmers_tpu_torch (the mesh's parallel/ too) and running one CPU squaring
 through the four-step engine and one through the mesh engine leaves
 neither jax nor prmers_tpu in sys.modules, and so does one squaring
-through the any-size engine, one through the numpy oracle and one
+through the any-size engine, one through the numpy oracle, one through
+the XLA-form mesh engine (parallel/sharded.py, with a sharded checkpoint
+of parallel/shard_ckpt.py), one through graft_entry.entry and one
 through the fft3161 engine (Engine3161 on the CPU; the policy, tune and
 profile modules among those imported), a P-1 of
 M541 and an Edwards ECM run of M37 on its curve-batched engine (the
@@ -44,6 +46,20 @@ for eng in (TorchEngine(9941, 2, device="cpu"), NumpyEngine(9941, 2)):
     eng.set(0, 3)
     eng.square_mul(0, 3)
     assert eng.get_int(0) == 27
+from prmers_tpu_torch.parallel.sharded import ShardedEngine
+from prmers_tpu_torch.parallel import shard_ckpt
+import tempfile
+e = ShardedEngine(9941, 2, device="cpu")
+e.set(0, 3)
+e.square_mul(0, 3)
+ck = tempfile.mkdtemp()
+shard_ckpt.save_sharded(e, ck, {"iteration": 1})
+e.set(0, 1)
+assert shard_ckpt.load_sharded(e, ck) == {"iteration": 1}
+assert e.get_int(0) == 27
+from prmers_tpu_torch import graft_entry
+fn, args = graft_entry.entry(device="cpu")
+fn(*args)
 from prmers_tpu_torch.engine.engine3161 import Engine3161
 e = Engine3161(11213, 2, device="cpu")
 e.set(0, 3)
@@ -54,7 +70,8 @@ for name in ("modes.pm1", "modes.ecm", "modes.ecm_edwards", "modes.memtest",
              "utils.primes", "app", "core.field2", "ops.ntt2",
              "engine.engine3161", "engine.policy", "core.tune",
              "core.profile", "engine.batch", "ui.webgui",
-             "tools.validation_matrix"):
+             "tools.validation_matrix", "parallel.sharded",
+             "parallel.shard_ckpt", "graft_entry"):
     assert "prmers_tpu_torch." + name in sys.modules, name
 import tempfile
 from prmers_tpu_torch.io.options import Options

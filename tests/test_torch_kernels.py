@@ -529,19 +529,23 @@ def test_cuda_k3_k4_shift_match_plain(logn):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("logn,s", [(18, 2), (18, 4), (23, 2), (23, 4),
-                                    (26, 2)])
+                                    (26, 2), ("5x2^17", 2), ("5x2^18", 4),
+                                    ("5x2^22", 2), ("5x2^22", 4)])
 def test_cuda_shard_kernels_match_plain(logn, s):
     """On the card: the mesh's shard-local launches of the first and the
     last of s ranks, each against its plain version on the same inputs:
     K1, K3 (a = 1, 3 and sub2 with the rank's amount) and K4 both ways on
     the r2-sharded view (R1, R2/s, C); K5, K6, K6b and K8 (a = 1, 3) on
-    the r1-sharded view (R1/s, R2, C) (at n = 2^26 K5 at L2 = 128)."""
+    the r1-sharded view (R1/s, R2, C) (at n = 2^26 K5 at L2 = 128; at the
+    radix-5 n = 5 * 2^k, L2 = 10, 20 and 320, K5 in the split form on the
+    view's whole split tables)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    n = 1 << logn
+    n = 1 << logn if isinstance(logn, int) else \
+        5 << int(logn.split("^")[1])
     plan = build_plan(int(n * 16.5) | 1, n=n)
     kt = tfs.build_tables(tfs.FourStepPlan.from_plan(plan))
-    rng = np.random.default_rng(logn + s)
+    rng = np.random.default_rng(n.bit_length() + s)
 
     def same(got, want):
         return torch.equal(tgl.canon64(got), tgl.canon64(want))

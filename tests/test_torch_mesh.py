@@ -3,6 +3,12 @@ parallel/mesh_engine, K8) on the CPU: gloo ranks against the JAX
 package's mesh on the 8-device CPU mesh of tests/conftest.py, its kernels
 in Pallas interpret mode, and against big-int.
 
+Radix-5 plans (n = 5 * 2^k) run on the mesh too: their shard views at the
+synthetic (64, 10, 256) and (64, 20, 256) plans, MeshEngine at n = 655360
+(2 ranks) and 1310720 (4 ranks, with the block-carry ShardedStep) against
+big-int and FourStepEngine, and one block step against the JAX
+PallasShardedStep (slow, ~30 s).
+
 The ranks are processes running tests/torch_mesh_worker.py, which imports
 the port only (no jax), one torch thread each, meeting through a file://
 rendezvous in tmp_path so that xdist workers never race for a port. The
@@ -210,16 +216,29 @@ def test_init_from_jax_env(tmp_path):
 
 
 def test_init_from_env_refuses_ranks_beyond_the_cards(monkeypatch):
-    """Without LOCAL_RANK the card is cuda:RANK, so a group larger than
-    the host's cards (a launch across hosts) raises before it joins."""
+    """A group larger than the host's cards (a launch across hosts) is no
+    longer refused: without LOCAL_RANK rank r takes card r % cards, as
+    torchrun's host-by-host layout places it; with LOCAL_RANK that card.
+    dist.init is stubbed, so nothing joins."""
+    joined = []
+    monkeypatch.setattr(dist, "init", lambda *a: joined.append(a))
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("PRMERS_COORDINATOR", "127.0.0.1:1")
-    monkeypatch.setenv("PRMERS_NUM_PROCS", "2")
-    monkeypatch.setenv("PRMERS_PROC_ID", "1")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    with pytest.raises(ValueError, match="LOCAL_RANK"):
+    monkeypatch.setenv("PRMERS_NUM_PROCS", "8")
+    for cards, rank, card in ((1, 1, 0), (4, 5, 1), (4, 3, 3), (2, 7, 1)):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda c=cards: c)
+        monkeypatch.setenv("PRMERS_PROC_ID", str(rank))
+        assert dist.init_from_env()
+        assert joined.pop() == (rank, 8, "tcp://127.0.0.1:1",
+                                f"cuda:{card}")
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    assert dist.init_from_env() and joined.pop()[3] == "cuda:2"
+    monkeypatch.delenv("LOCAL_RANK")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
         dist.init_from_env()
+    assert dist.init_from_env("cpu") and joined.pop()[3] == "cpu"
     assert not dist.initialized()
 
 
@@ -227,17 +246,41 @@ def test_init_from_env_refuses_ranks_beyond_the_cards(monkeypatch):
 # the shard views of the tables and K8
 # ---------------------------------------------------------------------------
 
+def _full(plan, kt, seed):
+    """A plan's tables, whole, and one set of inputs."""
+    t = tk.DevTables.from_host(kt, "cpu")
+    rng = np.random.default_rng(seed)
+    x = dg.int_to_digits(_value(plan.p, rng), plan.widths).reshape(t.shape)
+    co = rng.integers(0, 1 << 40, size=t.row_carry_shape, dtype=np.uint64)
+    return dict(plan=plan, kt=kt, t=t, x=x, co=co,
+                y=_residues(rng, t.shape), u=_residues(rng, t.shape))
+
+
 @pytest.fixture(scope="module")
 def full18():
     """The port's tables at n = 2^18 (row carry), whole, and inputs."""
     plan = build_plan(P4, n=N4)
-    kt = host_tables(tfs.FourStepPlan.from_plan(plan))
-    t = tk.DevTables.from_host(kt, "cpu")
-    rng = np.random.default_rng(18)
-    x = dg.int_to_digits(_value(P4, rng), plan.widths).reshape(t.shape)
-    co = rng.integers(0, 1 << 40, size=t.row_carry_shape, dtype=np.uint64)
-    return dict(plan=plan, kt=kt, t=t, x=x, co=co,
-                y=_residues(rng, t.shape), u=_residues(rng, t.shape))
+    return _full(plan, host_tables(tfs.FourStepPlan.from_plan(plan)), 18)
+
+
+# the radix-5 view plans: (R, C) with C cut to 256, as
+# tests/test_torch_radix5.py builds them, (64, 10, 256) and (64, 20, 256)
+R5_VIEW_PLANS = {"64x10x256": (640, 256), "64x20x256": (1280, 256)}
+_R5_FULL: dict = {}
+
+
+def _full_r5(plan_id):
+    if plan_id not in _R5_FULL:
+        R, C = R5_VIEW_PLANS[plan_id]
+        n = R * C
+        p = int(n * 16.5) | 1
+        plan = build_plan(p, n=n)
+        fp = tfs.FourStepPlan(p=p, n=n, R=R, C=C, rs=tfs.make_split(R),
+                              cs=tfs.make_split(C), widths=plan.widths,
+                              max_word=plan.max_word)
+        assert fp.rs.L2 % 5 == 0
+        _R5_FULL[plan_id] = _full(plan, tfs.build_tables(fp), R)
+    return _R5_FULL[plan_id]
 
 
 def _views(f, s, rank):
@@ -245,19 +288,17 @@ def _views(f, s, rank):
                  for view in (tk.R2_VIEW, tk.R1_VIEW))
 
 
-@pytest.mark.parametrize("s,rank", [(2, 1), (4, 0), (4, 3)])
-@pytest.mark.parametrize("kern", ["k1", "k3", "k4", "k5_k6", "k8"])
-def test_shard_views_match_full_plain(full18, kern, s, rank):
-    """Each kernel on a rank's view (the wrappers, which take the plain
+def _check_view(f, kern, s, rank):
+    """One kernel on a rank's view (the wrappers, which take the plain
     versions for CPU tensors) against the rank's slice of the full plain
     kernel: r2 slices for K1, K3, K4, r1 slices for K5, K6, K6b, K8."""
-    t = full18["t"]
-    t2, t1 = _views(full18, s, rank)
+    t = f["t"]
+    t2, t1 = _views(f, s, rank)
     R1, R2, C = t.shape
     r1 = slice(rank * R1 // s, (rank + 1) * R1 // s)
     r2 = slice(rank * R2 // s, (rank + 1) * R2 // s)
     assert t2.shape == (R1, R2 // s, C) and t1.shape == (R1 // s, R2, C)
-    x, co, y, u = (_t(full18[k]) for k in ("x", "co", "y", "u"))
+    x, co, y, u = (_t(f[k]) for k in ("x", "co", "y", "u"))
     if kern == "k1":
         # the rolled carries, moved, rolled back one unit for K1's roll
         c2 = tk.roll_row_carries(co)[:, r2].contiguous()
@@ -297,12 +338,36 @@ def test_shard_views_match_full_plain(full18, kern, s, rank):
                                tk.fused_c_invh_plain(t, y, op)[r1])
     else:
         rounds = tfs.k8_rounds(t.fp)
-        z = _t(_canon(full18["y"]))
+        z = _t(_canon(f["y"]))
         for a in (1, 3):
             d, c = tk.block_carry_plain(t, z, a, rounds)
             ds, cs = tk.block_carry_local(t1, z[r1].contiguous(), a)
             assert torch.equal(ds, d[r1]) and torch.equal(cs, c[r1])
             assert tk.calls["k8_local"] == 0      # the plain version ran
+    return t1
+
+
+@pytest.mark.parametrize("s,rank", [(2, 1), (4, 0), (4, 3)])
+@pytest.mark.parametrize("kern", ["k1", "k3", "k4", "k5_k6", "k8"])
+def test_shard_views_match_full_plain(full18, kern, s, rank):
+    """Each kernel on a rank's view against the rank's slice of the full
+    plain kernel at n = 2^18 (_check_view)."""
+    _check_view(full18, kern, s, rank)
+
+
+@pytest.mark.parametrize("plan_id,s,rank", [
+    ("64x10x256", 2, 0), ("64x10x256", 2, 1), ("64x20x256", 2, 1),
+    ("64x20x256", 4, 0), ("64x20x256", 4, 3)])
+@pytest.mark.parametrize("kern", ["k1", "k3", "k4", "k5_k6", "k8"])
+def test_radix5_shard_views_match_full_plain(plan_id, kern, s, rank):
+    """The radix-5 views (L2 = 5 * 2^b, R2/s = 5 or 10): each kernel on a
+    rank's view against the rank's slice of the full plain kernel
+    (_check_view); the r1-sharded view keeps the r2 split's tables whole
+    for K5, the r2-sharded one cuts nothing of an r2 DFT."""
+    f = _full_r5(plan_id)
+    t1 = _check_view(f, kern, s, rank)
+    for name in ("dft5_f", "dft5_i", "tw_f", "tw_i", "sh_exp"):
+        assert torch.equal(getattr(t1, name), getattr(f["t"], name)), name
 
 
 @pytest.mark.parametrize("s", [2, 4])
@@ -552,6 +617,98 @@ def test_engine_four_ranks_bigint(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# radix 5 on the mesh (n = 5 * 2^k)
+# ---------------------------------------------------------------------------
+
+N5_2, N5_4 = 5 << 17, 5 << 18       # (64, 10, 1024) and (64, 20, 1024)
+P5_2, P5_4 = int(N5_2 * 16.2) | 1, int(N5_4 * 16.2) | 1
+
+
+def test_radix5_engine_matches_fourstep_engine(tmp_path):
+    """MeshEngine on 2 ranks at n = 655360, (64, 10, 1024), R2/s = 5,
+    against the single-card FourStepEngine (its r2 DFT folded into K2; the
+    mesh runs K5, K6, K5): the unsettled digits and row carries after
+    squarings x 3 and x 1, then a multiplicand and mul against big-int."""
+    mp = (1 << P5_2) - 1
+    rng = np.random.default_rng(55)
+    v, w = _value(P5_2, rng), _value(P5_2, rng)
+    e = FourStepEngine(P5_2, 3, plan=build_plan(P5_2, n=N5_2), device="cpu")
+    assert e.t.shape == (64, 10, 1024)
+    e.set(0, v)
+    e.square_mul_seq(0, [3, 1])
+    state = (_np(e.regs[0][0]), _np(e.regs[0][1]))
+    ops = [["set", 0, v], ["set", 1, w], ["square_mul_seq", 0, [3, 1]],
+           ["state", 0], ["set_multiplicand", 2, 1], ["mul", 0, 2],
+           ["int", 0]]
+    port = _ranks(tmp_path, "engine", 2, p=P5_2, n=N5_2, regs=3, ops=ops)
+    x = gmp.mulmod(v, v * 3, mp)
+    x = gmp.mulmod(gmp.mulmod(x, x, mp), w, mp)
+    for r, res in enumerate(port):
+        d, co = res["out"][0]
+        assert (d == state[0][r * 32:(r + 1) * 32]).all()
+        assert (co == state[1][r * 32:(r + 1) * 32]).all()
+        assert res["out"][1] == x
+        assert res["calls"]["k2_fused_c"] == 0
+
+
+def test_radix5_four_ranks_bigint(tmp_path):
+    """On 4 ranks at n = 1310720, (64, 20, 1024), R2/s = 5: MeshEngine
+    (squarings x 3, the fused LL step, a sparse sub through the ring) and
+    the block-carry ShardedStep (K4, K5, K6, K5, K4 inverse, K8) against
+    big-int and the single-card FourStepEngine's block carry (compared
+    after settle: the two round rules differ)."""
+    mp = (1 << P5_4) - 1
+    rng = np.random.default_rng(56)
+    v = _value(P5_4, rng)
+    plan = build_plan(P5_4, n=N5_4)
+    ops = [["set", 0, v], ["square_mul_seq", 0, [1, 3]], ["int", 0],
+           ["square_sub2_seq", 0, 1], ["int", 0], ["set", 1, 81],
+           ["sub", 1, 100], ["int", 1]]
+    port = _ranks(tmp_path, "engine", 4, p=P5_4, n=N5_4, regs=2, ops=ops)
+    a = gmp.mulmod(v, v, mp)
+    a = gmp.mulmod(a, a * 3, mp)
+    ll = (gmp.mulmod(a, a, mp) - 2) % mp
+    for res in port:
+        assert res["out"] == [a, ll, (81 - 100) % mp]
+    blk = _ranks(tmp_path, "block_step", 4, p=P5_4, n=N5_4,
+                 digits=dg.int_to_digits(v, plan.widths), a=[3, 1])
+    e = FourStepEngine(P5_4, 1, plan=plan, device="cpu", pipe=BLOCK)
+    e.set(0, v)
+    e.square_mul_seq(0, [3, 1])
+    want = gmp.mulmod(v, v * 3, mp)
+    want = gmp.mulmod(want, want, mp)
+    assert e.get_int(0) == want
+    for res in blk:
+        assert res["ints"][1] == want
+        assert res["calls"]["k7_block_carry"] == 0
+
+
+@pytest.mark.slow
+def test_radix5_block_step_matches_pallas_sharded_step(tmp_path,
+                                                       monkeypatch):
+    """The block-carry ShardedStep on 2 ranks at n = 655360 against the JAX
+    PallasShardedStep under PRMERS_NO_ROWCARRY on a 2-device mesh in
+    interpret mode, one step x 3: each rank's digits and block carries bit
+    for bit (slow, as the reference's own radix-5 mesh test,
+    tests/test_sharded.py:182)."""
+    from prmers_tpu.parallel.sharded_pallas import PallasShardedStep
+    monkeypatch.setenv("PRMERS_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("PRMERS_NO_ROWCARRY", "1")
+    plan = build_plan(P5_2, n=N5_2)
+    v = _value(P5_2, np.random.default_rng(57))
+    digits = dg.int_to_digits(v, plan.widths)
+    port = _ranks(tmp_path, "block_step", 2, p=P5_2, n=N5_2, digits=digits,
+                  a=[3])
+    j = PallasShardedStep(P5_2, _mesh(2), n=N5_2)
+    j.set_digits(digits)
+    j.step(1, 3)
+    _same_states([r["states"][0] for r in port],
+                 (j.x0, j.x1, j.co0, j.co1), 2)
+    want = gmp.mulmod(v, v * 3, (1 << P5_2) - 1)
+    assert port[0]["ints"][0] == port[1]["ints"][0] == j.get_int() == want
+
+
+# ---------------------------------------------------------------------------
 # shapes, factory, checkpoints, conversion
 # ---------------------------------------------------------------------------
 
@@ -566,10 +723,14 @@ def test_mesh_eligible_matches_jax(p, s):
 
 def test_factory_backends(monkeypatch):
     """"sharded" (argument or PRMERS_BACKEND) gives the mesh engine, on a
-    group of one here; "auto" without a group the four-step engine; the
-    mesh refuses the block carry and shapes it does not take; "jax" and
-    "numpy" give the any-size engine and the numpy oracle."""
-    for k in ("PRMERS_NO_ROWCARRY", "PRMERS_XLA_CARRY", "PRMERS_BACKEND"):
+    group of one here; "auto" without a group the four-step engine; where
+    MeshEngine refuses the pipeline (the block carry, the hybrid) the
+    XLA-form ShardedEngine runs, and under PRMERS_SHARDED_IMPL=pallas the
+    refusal raises; "jax" and "numpy" give the any-size engine and the
+    numpy oracle."""
+    from prmers_tpu_torch.parallel.sharded import ShardedEngine
+    for k in ("PRMERS_NO_ROWCARRY", "PRMERS_XLA_CARRY", "PRMERS_BACKEND",
+              "PRMERS_SHARDED_IMPL"):
         monkeypatch.delenv(k, raising=False)
     assert dist.process_count() == 1
     e = factory.create_engine(756839, 2, device="cpu", backend="sharded")
@@ -582,13 +743,16 @@ def test_factory_backends(monkeypatch):
     monkeypatch.setenv("PRMERS_BACKEND", "sharded")
     assert isinstance(factory.create_engine(756839, 2, device="cpu"),
                       tme.MeshEngine)
-    monkeypatch.setenv("PRMERS_NO_ROWCARRY", "1")
-    with pytest.raises(ValueError, match="row carry"):
-        factory.create_engine(756839, 2, device="cpu")
-    monkeypatch.delenv("PRMERS_NO_ROWCARRY")
-    monkeypatch.setenv("PRMERS_XLA_CARRY", "1")
-    with pytest.raises(ValueError, match="R1, R2, C"):
-        factory.create_engine(756839, 2, device="cpu")
+    for name, refusal in (("PRMERS_NO_ROWCARRY", "row carry"),
+                          ("PRMERS_XLA_CARRY", "R1, R2, C")):
+        monkeypatch.setenv(name, "1")
+        assert type(factory.create_engine(756839, 2, device="cpu")) is \
+            ShardedEngine
+        monkeypatch.setenv("PRMERS_SHARDED_IMPL", "pallas")
+        with pytest.raises(ValueError, match=refusal):
+            factory.create_engine(756839, 2, device="cpu")
+        monkeypatch.delenv("PRMERS_SHARDED_IMPL")
+        monkeypatch.delenv(name)
     from prmers_tpu_torch.engine.np_engine import NumpyEngine
     from prmers_tpu_torch.engine.torch_engine import TorchEngine
     for b, cls in (("jax", TorchEngine), ("numpy", NumpyEngine)):

@@ -3,7 +3,9 @@
 package: a port proof verifies under the reference's Proof.verify and the
 reference's under the port's, the files are byte for byte the same, the
 M9941 golden hashes (tests/test_proof.py:13-17), the result JSON's proof
-fields, and the LL-safe verdicts of tests/test_llsafe_cofactor.py."""
+fields, sharded proof residues (PRMERS_PROOF_SHARDED=1: one rank, and
+M9941 on 2 gloo ranks under --run-slow), and the LL-safe verdicts of
+tests/test_llsafe_cofactor.py."""
 
 import hashlib
 import json
@@ -137,12 +139,71 @@ def test_app_writes_the_proof(tmp_path, monkeypatch):
 
 
 def test_proof_sharded_raises(tmp_path, monkeypatch):
-    """PRMERS_PROOF_SHARDED=1 asks for the per-process residue shards,
-    which are not ported: the run stops rather than write whole residues."""
-    monkeypatch.setenv("PRMERS_PROOF_SHARDED", "1")
-    with pytest.raises(NotImplementedError, match="PRMERS_PROOF_SHARDED"):
-        app.run(parse_args(["1279", "-save-dir", str(tmp_path), "-backend",
-                            "jax"]), device="cpu", log=quiet)
+    """PRMERS_PROOF_SHARDED=1, once refused, now writes each residue as
+    per-rank digit shards (core/proof.py:164-176; TorchEngine's slab is one
+    range): no packed residue file, a committed shard manifest at every
+    point, and the same proof bytes and hashes as the packed run."""
+    monkeypatch.delenv("PRMERS_PROOF_SHARDED", raising=False)
+    runs = {}
+    for tag in ("packed", "sharded"):
+        if tag == "sharded":
+            monkeypatch.setenv("PRMERS_PROOF_SHARDED", "1")
+        d = tmp_path / tag
+        logs = []
+        r, j = app.run(parse_args(["1279", "-save-dir", str(d), "-backend",
+                                   "jax"]), device="cpu",
+                       log=lambda *a: logs.append(" ".join(map(str, a))))
+        assert r.is_prime
+        runs[tag] = (d, [x for x in logs if x.startswith("proof [")],
+                     (d / "m1279-2.proof").read_bytes())
+    d = runs["sharded"][0] / "1279" / "proof"
+    names = sorted(os.listdir(d))
+    assert names and all(x.endswith(".shards") for x in names)
+    for x in names:
+        assert os.path.exists(d / x / "manifest.json")
+        assert os.path.exists(d / x / "shard_0.bin")
+    assert runs["sharded"][1:] == runs["packed"][1:]
+
+
+def test_sharded_residue_written_on_one_rank(tmp_path):
+    """The shard writer on one rank (no group): its two barriers take the
+    JAX package's tags (dist.barrier(tag)), the manifest commits, and
+    load gives the value back; the JAX package's ProofSet reads the port's
+    store."""
+    e = TorchEngine(1279, 1, device="cpu")
+    v = 0x1234567890ABCDEF << 600
+    e.set(0, v)
+    ps = tproof.ProofSet(1279, 2, widths=e.widths, save_dir=str(tmp_path))
+    it = ps.points[1]
+    ps._write_shards(it, [(0, e.get_digits(0))])
+    assert not os.path.exists(ps._file(it))
+    assert ps.load(it) == v and ps.is_complete() is False
+    js = jproof.ProofSet(1279, 2, widths=jcached_plan(1279).widths,
+                         save_dir=str(tmp_path))
+    assert js.load(it) == v
+
+
+@pytest.mark.slow
+def test_sharded_proof_m9941_two_ranks(tmp_path):
+    """M9941 through the CLI under -backend sharded with
+    PRMERS_PROOF_SHARDED=1 on 2 gloo ranks (the XLA-form ShardedEngine: n =
+    512 is below the four-step engine): prime, each residue as two rank
+    shards, and the golden hashes of tests/test_proof.py:13-17 (slow, as
+    the reference marks its M9941 proof: ~2 min of 9941 squarings with ten
+    collectives each)."""
+    from test_torch_mesh import _ranks
+    d = tmp_path / "run"
+    res = _ranks(tmp_path, "cli", 2,
+                 argv=["9941", "-save-dir", str(d), "-backend", "sharded"],
+                 env={"PRMERS_PROOF_SHARDED": "1"})
+    lines = res[0]["log"]
+    assert any("using ShardedEngine" in x for x in lines)
+    assert [x for x in lines if x.startswith("proof [")] == GOLDEN_9941
+    assert '"status":"P"' in res[0]["json"]
+    shards = [x for x in os.listdir(d / "9941" / "proof")]
+    assert shards and all(
+        sorted(os.listdir(d / "9941" / "proof" / x)) ==
+        ["manifest.json", "shard_0.bin", "shard_1.bin"] for x in shards)
 
 
 def test_proof_written_by_rank_zero_only(tmp_path, monkeypatch):

@@ -460,13 +460,21 @@ def test_radix5_plans_pick_the_jax_branches(p, shape, r2fold, split, ct,
 
 
 def test_mesh_refuses_radix5():
-    """The mesh at n = 5 * 2^k is not ported: check_mesh raises, so
-    mesh_eligible is False and "sharded" names no engine there."""
+    """The mesh takes n = 5 * 2^k on the terms of any plan (check_mesh: s
+    dividing R1 = 64 and R2 = 320 at 5 * 2^22) and refuses a world size
+    that does not divide them; mesh_eligible follows, and "sharded" gives
+    MeshEngine at p = 3600001, (32, 5, 1024), on a group of one (the
+    XLA-form ShardedEngine where the mesh refuses, as for any plan)."""
     fp = fse.four_step_plan(types.SimpleNamespace(
-        p=332192831, n=5 << 22, widths=None, max_word=0), tfs.Pipeline())
-    for s in (1, 2, 4):
-        with pytest.raises(ValueError, match="not yet ported"):
+        p=332192831, n=5 << 22, widths=None, max_word=0),
+        tfs.Pipeline(r2fold_max=0))
+    assert fp.shape == (64, 320, 1024)
+    for s in (1, 2, 4, 8, 64):
+        sk.check_mesh(fp, s)
+    for s in (3, 128):
+        with pytest.raises(ValueError, match="must divide"):
             sk.check_mesh(fp, s)
-    assert not tme.mesh_eligible(P_ENGINE, 1)
-    with pytest.raises(ValueError, match="not yet ported"):
-        factory.create_engine(P_ENGINE, 2, device="cpu", backend="sharded")
+    assert tme.mesh_eligible(P_ENGINE, 1)
+    assert not tme.mesh_eligible(P_ENGINE, 2)      # R2 = 5
+    e = factory.create_engine(P_ENGINE, 2, device="cpu", backend="sharded")
+    assert type(e) is tme.MeshEngine and e.tables.t1.dft5_f is not None
