@@ -18,7 +18,20 @@ chip_smoke.py --mm31` runs phase 1 and the engine at MM31, p = 2^31 - 1, n = 5 *
 GMP, with the host table build's time and peak memory, then P-1 of MM31
 (-b1 100 -b2 5000 -pm1-ultralowmem -nogcd-stage1, ~7,400 squarings and
 one gcd of 2^31-bit numbers) through the CLI's entry, which must find
-295257526626031).
+295257526626031). Two flags run phase 1 and then the device-validation
+tools of prmers_tpu_torch/tools/, each as `python -m` in a fresh
+directory under build/smoke_tools/ (no tune records: "auto" takes its
+default), their lines logged as they come: `--gl-ladder` the Gerbicz-Li
+window ladder (gl_smoke: every bench exponent's PRP to its first passed
+check, 127 ... 600000001, and those up to 3021377 again under the other
+arithmetic); `--device-ladder` the golden ladder (device_golden quick:
+the BASELINE.md goldens, error injection, kill/resume), the A/B ladder
+at p = 136279841 (ab_ladder: one child per pipeline switch) and the
+one-rank mesh against the single engine at n = 2^19, 2^21, 2^23
+(ab_ladder --mesh), the settle probe (settle_probe), the lane-carry check
+at n = 2^25 (lanecarry_check) and tools/chainpm1.sh on M541 (B1 300, then
+899 with -b1old) through the port's CLI, which must find 4312790327. Each
+flag fails when a tool reports a failure, after the rest have run.
 
 It drives eight paths of the port: the n = 2^23 path (K1, K2, K3 with
 whole-row carries), the C = 8192 big-shape path of n = 2^25 and 2^26
@@ -2359,6 +2372,108 @@ def fft3161_drive(root: str, dev, card: str, chains=None, jobs=None):
     return errs, ms, bounds, counts
 
 
+# --gl-ladder and --device-ladder: the device-validation tools of
+# prmers_tpu_torch/tools/ and the repository's tools/chainpm1.sh on the port
+CHAIN_PM1 = ("541", "300", "599", "899")   # B1 300, then 899
+CHAIN_PM1_FACTOR = 4312790327
+
+
+def tool_dir(root: str, tag: str):
+    """(a fresh directory build/smoke_tools/<tag>, an environment whose
+    Python path starts at the repository root)."""
+    d = os.path.join(root, "build", "smoke_tools", tag)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    path = [root] + [v for v in [os.environ.get("PYTHONPATH")] if v]
+    return d, dict(os.environ, PYTHONUNBUFFERED="1",
+                   PYTHONPATH=os.pathsep.join(path))
+
+
+def tool_run(root: str, card: str, tag: str, args, timeout: float) -> dict:
+    """`python -m prmers_tpu_torch.tools.<args>` in a subprocess whose
+    working directory is a fresh one under build/smoke_tools/ (no tune
+    records there, so the policy's choice is its default), each line
+    logged as it comes under [tag]; returns the tool's last line, its JSON,
+    with its exit code and seconds. Killed at timeout."""
+    d, env = tool_dir(root, tag)
+    t1 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"prmers_tpu_torch.tools.{args[0]}",
+         *args[1:]], cwd=d, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    last = ""
+    try:
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            log(f"[{tag}] {line}")
+            last = line or last
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    dt = time.perf_counter() - t1
+    try:
+        out = json.loads(last)
+    except ValueError:
+        out = {}
+    out.update(rc=proc.returncode, seconds=dt,
+               ok=proc.returncode == 0 and out.get("ok") is True)
+    log(f"[{tag}] {' '.join(args)}: rc={proc.returncode} ok={out['ok']} "
+        f"in {dt:.3f} s ({card})")
+    return out
+
+
+def gl_ladder(root: str, card: str) -> None:
+    """--gl-ladder: the GL window of every bench exponent (tools.gl_smoke),
+    one row each; every row OK."""
+    if not tool_run(root, card, "gl", ["gl_smoke"], timeout=1100)["ok"]:
+        raise AssertionError("the GL ladder failed")
+
+
+def chain_pm1(root: str, card: str) -> bool:
+    """tools/chainpm1.sh, unchanged, against the port's CLI (PRMERS_BIN):
+    M541's P-1 stage 1 at B1 300, then extended to 899 with -b1old from
+    the first run's resume file, which must find 4312790327."""
+    d, env = tool_dir(root, "chainpm1")
+    env["PRMERS_BIN"] = f"{sys.executable} -m prmers_tpu_torch"
+    t1 = time.perf_counter()
+    r = subprocess.run(["bash", os.path.join(root, "tools", "chainpm1.sh"),
+                        *CHAIN_PM1], cwd=d, env=env, capture_output=True,
+                       text=True, timeout=600)
+    dt = time.perf_counter() - t1
+    for line in r.stdout.splitlines():
+        if line.startswith("["):
+            log(f"[chainpm1] {line}")
+    ok = r.returncode == 0 and \
+        f"[FOUND] Factor {CHAIN_PM1_FACTOR} at B1=899" in r.stdout
+    log(f"[chainpm1] tools/chainpm1.sh {' '.join(CHAIN_PM1)}: "
+        f"rc={r.returncode} ok={ok} in {dt:.3f} s ({card})")
+    if not ok:
+        log(f"[chainpm1] {(r.stdout + r.stderr)[-2000:]}")
+    return ok
+
+
+def device_ladder(root: str, card: str) -> None:
+    """--device-ladder: the golden ladder (quick), the A/B ladder at
+    P_MAIN and the one-rank mesh at 2^19, 2^21, 2^23, the settle probe,
+    the lane-carry check and chainpm1.sh; each runs even when one before
+    it failed, and any failure fails the flag at the end."""
+    runs = [("golden", ["device_golden", "quick"], 600),
+            ("ab", ["ab_ladder", str(P_MAIN)], 900),
+            ("mesh", ["ab_ladder", "--mesh", "19", "21", "23"], 300),
+            ("settle", ["settle_probe"], 300),
+            ("lanecarry", ["lanecarry_check"], 600)]
+    failed = [tag for tag, args, timeout in runs
+              if not tool_run(root, card, tag, args, timeout)["ok"]]
+    if not chain_pm1(root, card):
+        failed.append("chainpm1")
+    if failed:
+        raise AssertionError(f"the device ladder failed: {failed}")
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2414,6 +2529,14 @@ def main(argv) -> int:
         f"{time.perf_counter() - t0:.3f} s ({build.library_path()})")
     if "--mm31" in argv:
         mm31(dev, card)
+        print(card)
+        return 0
+    if "--gl-ladder" in argv:
+        gl_ladder(root, card)
+        print(card)
+        return 0
+    if "--device-ladder" in argv:
+        device_ladder(root, card)
         print(card)
         return 0
     if "--tools-only" in argv:

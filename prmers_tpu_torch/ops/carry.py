@@ -113,6 +113,16 @@ def carry_full(y: torch.Tensor, widths: torch.Tensor,
     widths = widths.to(torch.int64)
     if masks is None:
         masks = (1 << widths) - 1
+    c, d = first_round(y, widths, masks, a)
+    return settle(c, d, widths, masks,
+                  None if rounds is None else rounds - 1)
+
+
+def first_round(y: torch.Tensor, widths: torch.Tensor, masks: torch.Tensor,
+                a: int = 1):
+    """carry_full's split of y times a into digits and out-carries and its
+    first absorb round, on the 32-bit halves of each value: (c, d) for
+    settle. widths and masks int64."""
     y0, y1 = y & _M32, (y >> 32) & _M32
     d = y0 & masks
     # c = y >> w as words: cl the low one, ch the high one
@@ -128,8 +138,7 @@ def carry_full(y: torch.Tensor, widths: torch.Tensor,
     lo = d + torch.roll(cl, 1, -1)
     d = lo & masks
     c = (lo >> widths) + (torch.roll(ch, 1, -1) << (32 - widths))
-    return settle(c, d, widths, masks,
-                  None if rounds is None else rounds - 1)
+    return c, d
 
 
 def settle(c: torch.Tensor, d: torch.Tensor, widths: torch.Tensor,

@@ -21,7 +21,24 @@ and tools/validation_matrix.py's twin, `validation_matrix`, which runs no
 kernel of its own: every mode on every backend and arithmetic, outcomes
 compared (PRMERS_PLATFORM=cpu runs its CPU columns without a card).
 
-Every tool needs a card and raises without one. A kernel's time is taken
+The device-validation tools, twins of the reference's tools that drive the
+production path end to end (each prints its rows, then one JSON line):
+
+  gl_smoke         tools/gl_smoke.py: each bench exponent's PRP until its
+                   first Gerbicz-Li check passes
+  device_golden    tools/device_golden.py: the BASELINE.md goldens, the
+                   error injection and a kill/resume mid-run
+  ab_ladder        tools/ab_ladder.py: PRP iter/s for each pipeline switch,
+                   one child each, and (--mesh) the one-rank mesh against
+                   the single engine (tools/mesh_engine_device_check.py)
+  settle_probe     tools/settle_probe.py: carry_full with the loop and with
+                   static rounds, device ms and rounds
+  lanecarry_check  tools/lanecarry_device_check.py and lanecarry_repro.py:
+                   the T = 2 row carry against the hybrid at the 2^25 plan
+
+Every tool needs a card and raises without one; the device-validation
+tools run on the CPU where PRMERS_PLATFORM=cpu asks for it (`tool_device`),
+as the tests run them. A kernel's time is taken
 by CUDA events around each launch queued behind a device sleep (device
 time, not the host's enqueue): the median of the pairs, with their mean
 and largest beside it. The timed thunks allocate their outputs before the
@@ -64,6 +81,29 @@ def require_card():
     if not torch.cuda.is_available():
         raise RuntimeError("this tool measures the card: no CUDA device")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def on_cpu() -> bool:
+    """The CPU asked for explicitly (the reference's PRMERS_PLATFORM=cpu,
+    as tools/validation_matrix.py reads it)."""
+    import os
+    return os.environ.get("PRMERS_PLATFORM") == "cpu"
+
+
+def tool_device():
+    """The device a device-validation tool runs on: the CPU under
+    PRMERS_PLATFORM=cpu, else the card (require_card raises without one)."""
+    import torch
+    return torch.device("cpu") if on_cpu() else require_card()
+
+
+def device_name(dev) -> str:
+    """The card's name and power limit as nvidia-smi gives them, or
+    "cpu"."""
+    if dev.type == "cpu":
+        return "cpu"
+    from ..bench import card
+    return card()
 
 
 def sm_clock_hz() -> float:

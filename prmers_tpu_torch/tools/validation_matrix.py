@@ -33,6 +33,8 @@ import sys
 import tempfile
 import time
 
+from . import on_cpu
+
 
 def cases(profile: str):
     yield "prp", dict(exponent=9941, mode="prp", proof=False)
@@ -53,10 +55,6 @@ def cases(profile: str):
         yield "ecm_montgomery", dict(exponent=37, mode="ecm", b1=20,
                                      b2=400, curves=6, curve_seed=5,
                                      edwards=False)
-
-
-def on_cpu() -> bool:
-    return os.environ.get("PRMERS_PLATFORM") == "cpu"
 
 
 def backends():

@@ -10,8 +10,8 @@ through the fft3161 engine (Engine3161 on the CPU; the policy, tune and
 profile modules among those imported), a P-1 of
 M541 and an Edwards ECM run of M37 on its curve-batched engine (the
 modes, host paging, the interop files, the prime sieve, the batched
-engine, the web GUI and the validation matrix among the modules
-imported). The
+engine, the web GUI, the validation matrix and the device-validation
+tools among the modules imported). The
 machine with the CUDA card has no jax at all, and the port keeps its own
 copies of the host modules it needs."""
 
@@ -71,7 +71,9 @@ for name in ("modes.pm1", "modes.ecm", "modes.ecm_edwards", "modes.memtest",
              "engine.engine3161", "engine.policy", "core.tune",
              "core.profile", "engine.batch", "ui.webgui",
              "tools.validation_matrix", "parallel.sharded",
-             "parallel.shard_ckpt", "graft_entry"):
+             "parallel.shard_ckpt", "graft_entry", "tools.gl_smoke",
+             "tools.device_golden", "tools.ab_ladder", "tools.settle_probe",
+             "tools.lanecarry_check"):
     assert "prmers_tpu_torch." + name in sys.modules, name
 import tempfile
 from prmers_tpu_torch.io.options import Options
