@@ -59,19 +59,22 @@ Phases; any failure raises and the script exits non-zero with no result:
      (one nvcc per prmers_tpu_torch/csrc/*.cu, all at once, timed);
   2. every kernel wrapper (K1; K2 and K6 in modes sqr/fwd/mul; K5 P2 and
      P6; K6b with head op sqr/mul/none on K6 "fwd"'s output; K3 with a =
-     1, a = 3 and sub2; at a power-of-two length K1, K5, K2's r2
-     launches, K3's first launch and both K4 launches run
-     csrc/axis_fft.cuh's shift butterflies, their plain versions the
-     dense matrices) against its plain torch version on the
-     same inputs on the card, at n = 2^15, 2^18, 2^23, 2^25 (p = 600000001) and 2^26
-     (p = 1000000007), at two forced pipelines (T = 4 carry units at
+     1, a = 3 and sub2, in place, one launch (its r1 inverse and its
+     tiled row carry, the tiles' edge carries through a scratch); at a
+     power-of-two length K1, K5, K2's r2 launches, K3's r1 inverse and
+     both K4 launches run csrc/axis_fft.cuh's shift butterflies, their
+     plain versions the dense matrices) against its plain torch version
+     on the same inputs on the card, at n = 2^15, 2^18, 2^23, 2^25 (p =
+     600000001) and 2^26 (p = 1000000007), at two forced pipelines (T = 4 carry units at
      n = 2^16; the split C-transform with T = 2 at 2^18), and at the
      radix-5 n = 5 * 2^16 (L2 = 5), 5 * 2^17, 2^18, 2^19, 2^20, 2^21 (L2 =
      10, 20, 40, 80, 160), 5 * 2^22 (L2 = 320, p = 332192831) and 5 * 2^23
      (p = 700000001, K5 at L2 = 320, K6 at ca = 16), K2 and K5 there (the
      r2 DFT in the split form, csrc/r2_split.cuh) as k2_fused_c[r5] and
      k5_axis1[r5]. K3 takes the C-transform's lazy output, as on the
-     main path. Tolerance:
+     main path; at 2^23 and 2^25 it runs K3_REPEATS times on one input,
+     each launch against the plain version (a fault in the order
+     between its tiles would show now and then). Tolerance:
      none. The arithmetic is exact mod P: K1/K2/K5/K6/K6b outputs are
      compared after canon, K3's digits and unit carries bit for bit. The
      host table build time and peak memory are logged at every size. K9
@@ -244,8 +247,9 @@ Phases; any failure raises and the script exits non-zero with no result:
      per word beside its registers (tables, an op's temporaries) against
      engine/paged.OVERHEAD_BYTES, what the paging budget charges. The
      CLI chains above run their ECM goldens under PRMERS_ECM_NO_BATCH=1
-     (the reference's numpy runs were the classic loop); a third chain
-     runs the validation matrix's quick profile
+     (the reference's numpy runs were the classic loop); a third chain,
+     started at phase 5 (after phase 4's timings), runs the validation
+     matrix's quick profile
      (tools/validation_matrix.py: numpy/gl64, jax/gl64 on the card,
      numpy/fft3161 and pallas/gl64 where the four-step engine takes the
      plan, which no quick case's is), which must exit 0: every column
@@ -331,6 +335,7 @@ P_MM31 = 2147483647     # n = 5 * 2^25, (64, 320, 8192), T = 2 (--mm31)
 MM31_PM1_FACTOR = 295257526626031   # P-1 -b1 100 -b2 5000 (BASELINE.md)
 GOLDEN_TAIL = 20000     # squarings the resumed CLI runs of M756839 take
 DRIVE_K = 8             # the sparse chain's squarings in a phase-3 drive
+K3_REPEATS = 200        # phase 2's launches of K3 on one input (2^23, 2^25)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 OPS_PER_PRODUCT = 128   # 64 int8 MACs per mod-P product (limb planes)
@@ -1484,14 +1489,14 @@ def ecm_found(out: str):
     return None
 
 
-def modes_chains(root: str):
+def modes_chains(root: str, matrix=None):
     """Phase 9's CLI runs on the any-size engine, two chains of
     subprocesses: P-1 (M541 with its resume files, the .mers of its
     stage-1 residue through -filemers, M367 on V-trace and ultralowmem,
     M367 paged onto 4 device slots) and ECM (M29 and M37, Edwards and
     Montgomery, on the classic loop) with the worktodo loop; and a third,
-    the validation matrix's quick profile. Returns the running
-    futures."""
+    the validation matrix's quick profile (matrix_chain), unless the
+    caller started it (matrix). Returns the running futures."""
     from prmers_tpu_torch.core.plan import cached_plan
     from prmers_tpu_torch.io import interop
     from prmers_tpu_torch.utils import digits as dg
@@ -1532,7 +1537,21 @@ def modes_chains(root: str):
                            fresh=False))
         return out
 
-    def matrix_chain():
+    pool = ThreadPoolExecutor(max_workers=2)
+    chains = (pool.submit(pm1_chain), pool.submit(ecm_chain),
+              matrix if matrix is not None else matrix_chain(root))
+    pool.shutdown(wait=False)
+    return chains
+
+
+def matrix_chain(root: str):
+    """The validation matrix's quick profile (tools/validation_matrix.py)
+    in a subprocess on a thread of its own; returns the running future of
+    (exit code, output, seconds, TSV path). Its CPU columns take minutes
+    of one core (M9941's PRP on the numpy fft3161 oracle), so the default
+    run starts it at phase 5, after phase 4's timings; its card columns
+    are seconds of small squarings."""
+    def run():
         d = os.path.join(root, "build", "smoke_any", "matrix")
         shutil.rmtree(d, ignore_errors=True)
         os.makedirs(d)
@@ -1546,11 +1565,10 @@ def modes_chains(root: str):
         return r.returncode, r.stdout + r.stderr, \
             time.perf_counter() - t1, tsv
 
-    pool = ThreadPoolExecutor(max_workers=3)
-    chains = (pool.submit(pm1_chain), pool.submit(ecm_chain),
-              pool.submit(matrix_chain))
+    pool = ThreadPoolExecutor(max_workers=1)
+    fut = pool.submit(run)
     pool.shutdown(wait=False)
-    return chains
+    return fut
 
 
 def check_chains(chains) -> None:
@@ -2597,6 +2615,10 @@ def main(argv) -> int:
     errs = {e[0]: 0.0 for e in ENTRIES}
 
     def max_abs_err(a, b) -> float:
+        # equal words are told on the card; only a mismatch comes to the
+        # host (two 512 MiB copies a check at n = 2^26 otherwise)
+        if a.shape == b.shape and torch.equal(a, b):
+            return 0.0
         a = gl.to_numpy_u64(a).reshape(-1)
         b = gl.to_numpy_u64(b).reshape(-1)
         bad = np.nonzero(a != b)[0]
@@ -2671,9 +2693,13 @@ def main(argv) -> int:
                    tk.fused_c_invh_plain(t, spec, op, um))
         z = tk.fused_mid(t, sp.clone(), "sqr")   # lazy, as K3 gets it
         for a, sub2 in ((1, False), (3, False), (1, True)):
-            d, c = tk.p7_carry_pass(t, z, a=a, sub2=sub2)
+            # in place, as the engines call it
+            y = z.clone()
+            d, c = tk.p7_carry_pass(t, y, a=a, sub2=sub2, out=y)
             dw, cw = tk.p7_carry_plain(t, z, a, sub2)
             what = f"{label} a={a} sub2={sub2}"
+            if d is not y:
+                raise AssertionError(f"{k3} {what} did not run in place")
             record(k3, what + " digits", d, dw, canon=False)
             record(k3, what + " carries", c, cw, canon=False)
         # the block-carry kernels on the same tables: K4 forward on the
@@ -2725,6 +2751,29 @@ def main(argv) -> int:
          tfs.Pipeline(r2fold_max=2048, carry_max=1 << 17, fc_split=True))
     main_in = case("n=2^23", P_MAIN, 1 << 23)
     big_in = case("n=2^25", P_BIG, cached_plan(P_BIG).n)
+
+    def k3_repeat(entry, label, inputs, reps=K3_REPEATS):
+        """K3 launched reps times on one input, each launch's digits and
+        unit carries bit for bit against the plain version: a broken
+        order between its tiles shows as a wrong edge word now and then,
+        not every time."""
+        t, z = inputs[0], inputs[5]
+        dw, cw = tk.p7_carry_plain(t, z)
+        out = torch.empty_like(z)
+        co = torch.empty(t.row_carry_shape, dtype=torch.int64, device=dev)
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in range(reps):
+            tk.p7_carry_pass(t, z, out=out, co_out=co)
+            bad += (out != dw).sum() + (co != cw).sum()
+        log(f"[2]   {entry} {label} {reps} launches on one input: "
+            f"{int(bad)} words differ from the plain version")
+        if int(bad):
+            record(entry, f"{label} repeat", out, dw, canon=False)
+            raise AssertionError(f"{entry} {label}: {int(bad)} words of "
+                                 f"{reps} launches differ")
+
+    k3_repeat("k3_p7c", "n=2^23", main_in)
+    k3_repeat("k3_p7c[T>1]", "n=2^25", big_in)
     huge_in = case("n=2^26", P_HUGE, cached_plan(P_HUGE).n)
     torch.cuda.empty_cache()
     case("n=5*2^16", P_R5_SMALL, 5 << 16)
@@ -3041,8 +3090,8 @@ def main(argv) -> int:
     # K1, K3 and K5 at the fewest products their function needs
     # (profile_passes.axis_bound: the shift butterflies' log2(L) / 2 per
     # digit and the scales) against the register and the tables they read
-    # (the scales, not k1_mats, k3_mats or g2; K3 also K3b's widths and
-    # carries): by bytes
+    # (the scales, not k1_mats, k3_mats or g2; K3 also its carry's widths
+    # and carries, not its scratch): by bytes
     bounds = {}
     for (t, co), pre in ((main_in[:3:2], ""), (big_in[:3:2], "[T>1]")):
         L1, L2, ca, n, _ = shape_of(t)
@@ -3099,6 +3148,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     mark(5)
+    # phase 9's validation matrix, minutes of host work, from here on
+    matrix9 = matrix_chain(root)
     # ---- 5: M756839 through the CLI: whole on K9 with its proof, resumed on
     # the block carry
     def cli_start(tag, launcher=(), env=None, args=(), resume=None,
@@ -3233,9 +3284,12 @@ def main(argv) -> int:
                tk.axis0_plain(t2, sp, True), canon=False, phase=6)
         amt = 2 if rank == 0 else 0
         for a, sub2 in ((1, False), (3, False), (1, True)):
-            d, c = tk.p7_carry_pass(t2, sp, a=a, sub2=sub2, s2=amt)
+            y = sp.clone()               # in place, as the mesh step runs it
+            d, c = tk.p7_carry_pass(t2, y, a=a, sub2=sub2, s2=amt, out=y)
             dw, cw = tk.p7_carry_plain(t2, sp, a, sub2, amt)
             what = f"{label} a={a} sub2={sub2}"
+            if d is not y:
+                raise AssertionError(f"k3_p7c {what} did not run in place")
             record("k3_p7c", what + " digits", d, dw, canon=False, phase=6)
             record("k3_p7c", what + " carries", c, cw, canon=False, phase=6)
         y = residues(t1.shape)
@@ -3388,7 +3442,7 @@ def main(argv) -> int:
     chains9, chains10 = [], []
 
     def beside():
-        chains9.append(modes_chains(root))
+        chains9.append(modes_chains(root, matrix=matrix9))
         chains10.append(fft3161_chains(root))
     anysize_drive(root, dev, card, beside=beside)
     cli_finish(5, "K9 with its proof (-proofverify)", proof_job)

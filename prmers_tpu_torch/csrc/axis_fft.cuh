@@ -1,8 +1,8 @@
 // The length-L axis DFT (L = 2^LL, 1 <= L <= 128) of K1, of K2's two r2
-// launches, of the two K5 passes at a power-of-two L2, of K3's first
-// launch (K3a), of both K4 launches and of the shift form of K4u / K5u
-// (the unfolded passes, k4u_pass.cu), as register-pass shift butterflies
-// with at most two products per digit.
+// launches, of the two K5 passes at a power-of-two L2, of K3's r1 inverse
+// (K3a, the first half of K3's one launch), of both K4 launches and of
+// the shift form of K4u / K5u (the unfolded passes, k4u_pass.cu), as
+// register-pass shift butterflies with at most two products per digit.
 //
 // Replaces, on those launches, axis_dft.cuh's dense tile (L full mod-P
 // products per digit by the folded matrices k1_mats, k3_mats, g2 and tri),
@@ -36,9 +36,10 @@
 // a 128-point DIF (the last of its inverse) takes gl_mul_w128pow: two
 // shifts and a subtraction.
 //
-// K3a's output is K3b's input (k3b_carry.cuh), canonical: its double and
-// canon follow the row scale, so it equals the dense tile's bit for bit.
-// The double's mask is that of the natural-order output row k.
+// AX_K3A's output is the row carry's input (K3's one launch, k3_p7c.cu;
+// K9's k3b_unit), canonical: its double and canon follow the row scale, so
+// it equals the dense tile's bit for bit. The double's mask is that of the
+// natural-order output row k.
 //
 // The schedule, for L >= 16 (L <= 8 is one register pass):
 //   pass 1  the thread of column c and row ty (0 ... 7) holds the T = L/8
@@ -185,8 +186,8 @@ __device__ __forceinline__ u64 axf_pre(const AxisArgs& g, u64 v, int o,
 // The epilogue of output (o, k, s, c) at idx: x k1_rs[k, s] (K1, K4F), x mf
 // (K2A), x t_r_inv[o, k] (K2C), or K3A's x k3_rs[k, s], double where the
 // output row's weight wraps, canon and, with with_a (uniform over the
-// grid), x a and canon: canonical out, as K3b takes it; K4u / K5u's
-// ax_pass_post.
+// grid), x a and canon: canonical out, as the row carry takes it; K4u /
+// K5u's ax_pass_post.
 template <int MODE, int PART>
 __device__ __forceinline__ u64 axf_post(const AxisArgs& g, u64 v, int o,
                                         int k, int s, int c, size_t idx) {
@@ -203,6 +204,49 @@ __device__ __forceinline__ u64 axf_post(const AxisArgs& g, u64 v, int o,
         if (g.with_a) v = gl_canon(gl_mul(v, g.a));
     }
     return v;
+}
+
+// The inverse tile at L >= 16 up to its epilogue: the loads, the prologue
+// and pass 2's levels on each group, the exchange, pass 1's mirror. After
+// it the thread (tx, ty) holds in v[t] output row k = ty + 8t of column cb
+// * AX_TC + tx, so row k's 32 columns are the lanes of warp ty. Its one
+// barrier follows all of its loads. axis_fft_tile stores the values after
+// axf_post; K3's one launch (k3_p7c.cu) runs the row carry on them first.
+template <int MODE, int LL, int PART>
+__device__ __forceinline__ void axf_inv_values(const AxisArgs& g, int o,
+                                               int s, int cb, int tx, int ty,
+                                               u64* xs, u64* v) {
+    constexpr int L = 1 << LL;
+    constexpr int T = L / 8;
+    constexpr int G = T >= 8 ? T / 8 : 1;
+    constexpr bool LEVELS = PART == AXF_FULL;
+    static_assert(LL >= 4, "one register pass below L = 16");
+    const int c = cb * AX_TC + tx;
+    const size_t base = ((size_t)o * L * g.S + s) * g.C + c;
+    const size_t rs = (size_t)g.S * g.C;
+    if (T >= 8 || ty < T) {
+        u64 w[G][8];
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+                w[gi][i] = g.x[base + (8 * (ty + 8 * gi) + i) * rs];
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+            const int j0 = 8 * (ty + 8 * gi);
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+                w[gi][i] = axf_pre<MODE, PART>(g, w[gi][i], o, j0 + i, s, c,
+                                               base + (j0 + i) * rs);
+            if constexpr (LEVELS) gl_dit_shift_inv<3>(w[gi], 1);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) xs[(j0 + i) * AX_TC + tx] = w[gi][i];
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < T; ++t) v[t] = xs[(ty + 8 * t) * AX_TC + tx];
+    if constexpr (LEVELS) axf_dit_stride<LL>(v, ty);
 }
 
 // One tile of the pass: the (o, s) pair and column block cb (32 columns
@@ -245,9 +289,9 @@ __device__ __forceinline__ void axis_fft_tile(const AxisArgs& g, int o, int s,
         const int c = cb * AX_TC + tx;
         const size_t base = ((size_t)o * L * S + s) * C + c;
         const size_t rs = (size_t)S * C;    // one step of j
-        // pass 2 runs on rows ty < T only where a row has no full group
-        const bool grp = T >= 8 || ty < T;
         if constexpr (!INV) {
+            // pass 2 runs on rows ty < T only where a row has no full group
+            const bool grp = T >= 8 || ty < T;
             u64 v[T];
 #pragma unroll
             for (int t = 0; t < T; ++t) v[t] = g.x[base + (ty + 8 * t) * rs];
@@ -278,31 +322,8 @@ __device__ __forceinline__ void axis_fft_tile(const AxisArgs& g, int o, int s,
                 }
             }
         } else {
-            if (grp) {
-                u64 w[G][8];
-#pragma unroll
-                for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-                    for (int i = 0; i < 8; ++i)
-                        w[gi][i] = g.x[base + (8 * (ty + 8 * gi) + i) * rs];
-#pragma unroll
-                for (int gi = 0; gi < G; ++gi) {
-                    const int j0 = 8 * (ty + 8 * gi);
-#pragma unroll
-                    for (int i = 0; i < 8; ++i)
-                        w[gi][i] = axf_pre<MODE, PART>(
-                            g, w[gi][i], o, j0 + i, s, c, base + (j0 + i) * rs);
-                    if constexpr (LEVELS) gl_dit_shift_inv<3>(w[gi], 1);
-#pragma unroll
-                    for (int i = 0; i < 8; ++i)
-                        xs[(j0 + i) * AX_TC + tx] = w[gi][i];
-                }
-            }
-            __syncthreads();
             u64 v[T];
-#pragma unroll
-            for (int t = 0; t < T; ++t) v[t] = xs[(ty + 8 * t) * AX_TC + tx];
-            if constexpr (LEVELS) axf_dit_stride<LL>(v, ty);
+            axf_inv_values<MODE, LL, PART>(g, o, s, cb, tx, ty, xs, v);
 #pragma unroll
             for (int t = 0; t < T; ++t) {
                 const int k = ty + 8 * t;

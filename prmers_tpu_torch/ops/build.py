@@ -42,7 +42,7 @@ SIGNATURES = {
                       _I, _I, _P],
     "prmers_k2_fused_c": [_P, _P, _P, _I] + [_P] * 10 + [_I] * 3 + [_P],
     "prmers_k3_p7c": [_P, _P, _P, _P, _P, _P, _U32, _P, _I, _U64, _I, _I,
-                      _U64, _I, _I, _I, _I, _P],
+                      _U64, _I, _I, _I, _I, _P, _LL, _P],
     "prmers_k5_axis1": [_P] * 7 + [_I] * 4 + [_P],
     "prmers_axis_fft_move": [_P] * 5 + [_I] * 5 + [_P],
     "prmers_r2_split_part": [_P] * 7 + [_I] * 5 + [_P],

@@ -18,15 +18,17 @@ Each wrapper takes its plain torch version for a CPU tensor, and launches
 its CUDA kernel (csrc/, ops/build.py) for a CUDA tensor; there is no other
 branch. `calls` counts, per kernel, the wrapper calls that launched it: one
 per call, however many grid launches the kernel takes (K2 three, two in
-mode "fwd"; K3 two; the others one).
+mode "fwd"; the others one).
 
   K1  p1_carry_pass         csrc/k1_p1c.cu      carry inject, wrap halve,
                             (axis_fft.cuh)      r1 DFT
   K2  fused_c_pass          csrc/k2_fused_c.cu  r2 DFT x mf, C-transform
       (r2fold)                                  with the mode, mirror
   K3  p7_carry_pass         csrc/k3_p7c.cu      r1 inverse DFT, double,
-                            (axis_fft.cuh)      canon, x a or + (M_p - 2),
-                                                carry per unit
+                            (axis_fft.cuh,      canon, x a or + (M_p - 2),
+                            k3_tile.cuh)        carry per unit, in one
+                                                launch (edge words between
+                                                tiles in DevTables.k3_scratch)
   K5  axis1_pass            csrc/k5_axis1.cu    P2 (r2 DFT x mf) or P6
                             (axis_fft.cuh)      (x mi, r2 inverse) alone
   K6  fused_c_pass          csrc/k6_fused_c.cu  the C-transform with the
@@ -90,8 +92,8 @@ same factored tables; square_chain_model is its torch model.
 
 The radix-5 plans (n = 5 * 2^k, R2 = L2 = 5 * 2^b up to 320) go through
 the same wrappers: no wrapper, plain version or kernel other than the r2
-DFT needs a power-of-two R2. K1, K3's first launch and K4 take R2 as the
-grid's r2 extent, K3b, K7 and the row kernel count rows or units of it.
+DFT needs a power-of-two R2. K1, K3 and K4 take R2 as the grid's r2
+extent, K3's carry, K7 and the row kernel count rows or units of it.
 The plain r2 DFT multiplies by the natural-order matrices g2 and tri
 (ops/fourstep.dft_matrix), the JAX's; the CUDA r2 launches (K2a/K2c, K5)
 run csrc/r2_split.cuh's 5 x 2^b split on the split tables instead
@@ -140,7 +142,8 @@ SOURCES = {
     # launches, axis_fft.cuh's at a power-of-two L2 and r2_split.cuh's at
     # a radix-5 one, and k6_fused_c.cu the K6 entry points)
     "k2_fused_c": "prmers_tpu_torch/csrc/fused_c_row.cuh",
-    # K3: K3a on axis_fft.cuh, K3b (k3b_carry.cuh) launched beside it
+    # K3: one launch, the r1 inverse of axis_fft.cuh and the tiled row
+    # carry of k3_tile.cuh
     "k3_p7c": "prmers_tpu_torch/csrc/k3_p7c.cu",
     "k5_axis1": "prmers_tpu_torch/csrc/axis_fft.cuh",
     "k6_fused_c": "prmers_tpu_torch/csrc/fused_c_row.cuh",
@@ -260,6 +263,10 @@ class DevTables:
     k1_rs: torch.Tensor | None = None
     k3_rs: torch.Tensor | None = None
     unfolded: "UnfoldedView | None" = None
+    # K3's scratch (csrc/k3_p7c.cu: its ticket, epoch, flags and edge
+    # words), zeros, made once with the tables that K3 reads; the kernel
+    # keeps it ready for its next launch, so no call resets it
+    k3_scratch: torch.Tensor | None = None
 
     @classmethod
     def from_host(cls, kt: tfs.KernelTables, device, view: dict | None = None,
@@ -283,6 +290,10 @@ class DevTables:
                         np.take(a, np.arange(rank * m, (rank + 1) * m), ax))
             tabs[name] = (gl.from_numpy_u64(a, device) if name in _U64_TABLES
                           else torch.from_numpy(a.astype("int32")).to(device))
+        if tabs["k3_rs"] is not None:
+            words = k3_scratch_words(tuple(tabs["widths"].shape), kt.rounds)
+            tabs["k3_scratch"] = torch.zeros(words, dtype=torch.int64,
+                                             device=device)
         return cls(fp=kt.fp, k=kt.k, ct=kt.ct, rounds=kt.rounds, bk=kt.bk,
                    k8_rounds=kt.k8_rounds, **tabs)
 
@@ -1016,13 +1027,87 @@ def p7_carry_plain(t: DevTables, x: torch.Tensor, a: int = 1,
     return carry_plain(t, p7_dft_plain(t, x, a), sub2, s2)
 
 
+K3_TW = 32      # digits of a tile row in K3's one launch (csrc/k3_tile.cuh)
+K3_HDR = 4      # its scratch words before the flags (csrc/k3_p7c.cu)
+
+
+def k3_scratch_words(shape: tuple, rounds: int) -> int:
+    """Words of K3's scratch for an (L1, R2, C) register: the header, a
+    flag a tile and rounds + 1 edge words a tile row (tiles of K3_TW
+    columns of one r2 slab, all L1 rows)."""
+    L1, R2, C = shape
+    tiles = R2 * C // K3_TW
+    return K3_HDR + tiles * (1 + L1 * (rounds + 1))
+
+
+def carry_tiles_model(t: DevTables, y: torch.Tensor, sub2: bool = False,
+                      s2: int = 2):
+    """K3's carry as its one launch computes it (csrc/k3_p7c.cu), for the
+    tests: canonical y cut into tiles of K3_TW digits of a row; each tile's
+    rounds with zeros in give the carries that leave its last digit in
+    rounds 0 ... rounds (its edge words); each tile then runs the rounds
+    again from the split with the edge words of the tile before it in its
+    unit entering its first digit (zeros for a unit's first tile); a
+    unit's out-carry is the sum of its last tile's edge words. Returns
+    (digits, unit out-carries), as carry_plain."""
+    R1, R2, C = t.shape
+    nb, tpu = C // K3_TW, t.ct // K3_TW
+    tiles = (R1, R2, nb, K3_TW)
+    w = t.widths.to(torch.int64).reshape(tiles)
+    y0, y1 = gl.split(y.reshape(tiles))
+    if sub2:
+        add = (1 << w) - 1
+        add[0, 0, 0, 0] -= s2            # the register's digit 0
+        y0, y1 = gl.norm(y0 + add, y1)
+    _, edges = _tile_rounds(y0, y1, w, t.rounds, None)
+    cin = torch.zeros_like(edges)
+    cin[:, :, 1:] = edges[:, :, :-1]
+    cin[:, :, ::tpu] = 0                 # a unit's first tile
+    d, _ = _tile_rounds(y0, y1, w, t.rounds, cin)
+    co = edges.sum(-1).reshape(R1, R2, nb // tpu, tpu)[..., -1]
+    return d.reshape(t.shape), co
+
+
+def _tile_rounds(y0, y1, w, rounds: int, cin):
+    """csrc/k3_tile.cuh's k3_row_carry on every tile row at once (the last
+    axis): the split of y = (y0, y1) by the widths w, then rounds + 1
+    shifts, the first digit taking cin[..., r] in round r (zeros with cin
+    None), the last one's residual added unsplit; returns (digits, the
+    carry that left the last digit in each round, (..., rounds + 1))."""
+    mk = (1 << w) - 1
+    d = y0 & mk
+    c = gl.join(((y0 >> w) | (y1 << (32 - w))) & gl.M32, y1 >> w)
+    outs = []
+    for r in range(rounds + 1):
+        outs.append(c[..., -1])
+        sh = torch.zeros_like(c)
+        sh[..., 1:] = c[..., :-1]
+        if cin is not None:
+            sh[..., 0] = cin[..., r]
+        if r < rounds:
+            yy = d + sh
+            d, c = yy & mk, yy >> w
+        else:
+            d = (d + (sh & gl.M32)) & gl.M32
+    return d, torch.stack(outs, -1)
+
+
+def p7_carry_model(t: DevTables, x: torch.Tensor, a: int = 1,
+                   sub2: bool = False, s2: int = 2):
+    """K3 as its one launch computes it: p7_dft_model, then
+    carry_tiles_model (bit for bit equal to p7_carry_plain)."""
+    return carry_tiles_model(t, p7_dft_model(t, x, a), sub2, s2)
+
+
 def p7_carry_pass(t: DevTables, x: torch.Tensor, a: int = 1,
                   sub2: bool = False, out: torch.Tensor | None = None,
                   co_out: torch.Tensor | None = None, s2: int = 2):
     """K3 on the C-transform's output: returns (digits, unit out-carries
     (R1, R2, T)). With sub2, s2 is what comes off the register's digit 0:
     2, or 0 on a mesh rank that does not hold global digit 0
-    (sharded_pallas.py:493-498)."""
+    (sharded_pallas.py:493-498). On the card one launch, which hands the
+    carries between tiles through t.k3_scratch: one call at a time on a
+    DevTables' scratch (the engines' one stream)."""
     if sub2 and a != 1:
         raise ValueError("the LL sub2 step never rides the x a path")
     if not 0 < a < (1 << 32):
@@ -1045,7 +1130,8 @@ def p7_carry_pass(t: DevTables, x: torch.Tensor, a: int = 1,
         x.data_ptr(), out.data_ptr(), co_out.data_ptr(),
         t.k3_rs.data_ptr(), t.er.data_ptr(), t.ec.data_ptr(), t.fp.n,
         t.widths.data_ptr(), t.rounds, a, int(a != 1), int(sub2), s2,
-        R1, R2, C, t.ct, _stream())
+        R1, R2, C, t.ct, t.k3_scratch.data_ptr(), t.k3_scratch.numel(),
+        _stream())
     calls["k3_p7c"] += 1
     build.check(err, "k3_p7c")
     return out, co_out

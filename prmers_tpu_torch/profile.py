@@ -17,7 +17,8 @@ package's switches ask for, e.g. `PRMERS_NO_ROWCARRY=1 python -m
 prmers_tpu_torch.profile 136279841` for the block-carry pipeline. The
 line names it and gives each port kernel's wrapper calls per squaring
 (k4_axis0 and k7_block_carry there: on the device K4 inverse runs as
-`axis_fft_kernel<3, ...>`, the name of K3a, and K4 forward as
+`axis_fft_kernel<3, ...>` (mode AX_K3A, K3's r1 inverse without its
+carry; K3 itself is `k3_kernel<...>`), and K4 forward as
 `axis_fft_kernel<4, ...>`).
 
 With `-backend sharded`, under `python -m torch.distributed.run

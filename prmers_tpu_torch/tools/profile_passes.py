@@ -51,11 +51,11 @@ turns as --r5's.
 
 `python -m prmers_tpu_torch.tools.profile_passes --axis [reps]` times
 the axis DFTs of csrc/axis_fft.cuh (register-pass shift butterflies):
-the r1 passes K1, K3a ("k3", launched as K4 inverse: K3's first launch
-with no x a) and K4 forward with block carries ("k4f") at n = 2^23 and
-2^25, and K5's P2 and P6 (the r2 passes) at n = 2^23, 2^25 and 2^26 (L2
-= 128), each beside its bound (axis_bound) and held against the dense
-plain version; then, under
+the r1 passes K1, K3a ("k3", launched as K4 inverse: K3's r1 inverse
+with no x a and no carry) and K4 forward with block carries ("k4f") at
+n = 2^23 and 2^25, and K5's P2 and P6 (the r2 passes) at n = 2^23, 2^25
+and 2^26 (L2 = 128), each beside its bound (axis_bound) and held against
+the dense plain version; then, under
 "parts", each pass's move-only body (kernels.axis_fft_move: the same
 loads, shared-memory exchange and stores with an add for each product,
 no butterflies, into a second buffer) beside its bytes bound, held to

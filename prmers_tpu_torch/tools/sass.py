@@ -28,7 +28,14 @@ counted).
 
 `python -m prmers_tpu_torch.tools.sass` prints one JSON line with the
 card's name and power limit and each op's count, its loop and its
-opcodes.
+opcodes. With `--kernels` it prints instead the instructions of K3's
+kernel (k3_p7c.cu's k3_kernel, one entry a shape and a round count) and
+of K4 inverse's (k4_axis0.cu's axis_fft_kernel in mode AX_K3A: K3's r1
+inverse without its carry) at L1 = 32 and 64 (`kernel_counts`): every
+instruction of the function once, NOP left out. Both are straight-line
+code but for their branches (the wrap double, x a, sub2, the tile's
+place in its unit) and K3's flag wait, so a thread issues at most that
+many, fewer where a branch is not taken.
 """
 
 from __future__ import annotations
@@ -223,10 +230,38 @@ def rep_slots() -> dict:
     return {k: v["slots_per_rep"] for k, v in library_counts().items()}
 
 
+def kernel_counts() -> dict:
+    """{source: {mangled name: {"issued": n, "opcodes": {...}}}}: K3's
+    kernels and K4 inverse's (axis_fft_kernel<3, 5 or 6, 0>), each
+    instruction once, NOP left out."""
+    out = {}
+    for source, pat in (("k3_p7c", r"k3_kernel"),
+                        ("k4_axis0", r"axis_fft_kernelILi3ELi[56]ELi0E")):
+        found = {}
+        for name, insns in functions(library_sass(source)).items():
+            if not re.search(pat, name):
+                continue
+            ops: dict = {}
+            for _a, op, _t, _l in insns:
+                if op != "NOP":
+                    ops[op] = ops.get(op, 0) + 1
+            found[name] = {"issued": sum(ops.values()),
+                           "opcodes": dict(sorted(ops.items()))}
+        if not found:
+            raise RuntimeError(f"no {pat} in the SASS of {source}")
+        out[source] = found
+    return out
+
+
 def main(argv=None) -> int:
     from ..bench import card
     from . import require_card
+    argv = sys.argv[1:] if argv is None else argv
     require_card()
+    if "--kernels" in argv:
+        print(json.dumps({"tool": "sass", "card": card(),
+                          "kernels": kernel_counts()}))
+        return 0
     print(json.dumps({"tool": "sass", "card": card(),
                       "rep_loops": library_counts()}))
     return 0

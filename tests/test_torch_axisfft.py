@@ -436,7 +436,8 @@ def _function_body(text: str, name: str) -> str:
 
 def test_entry_points_run_the_shift_form():
     """The K1, K5, K2, K3 and K4 entry points launch axis_fft.cuh at a
-    power-of-two length and take no matrix; the tile the kernel runs
+    power-of-two length (K3 its own one launch on axis_fft.cuh's inverse
+    tile) and take no matrix; the tile the kernel runs
     (and all after it) has no dot-product accumulator; axis_dft.cuh has no launcher and no tile left, and K9
     runs axis_fft.cuh's tile in its four axis phases."""
     def read(name):
@@ -454,10 +455,12 @@ def test_entry_points_run_the_shift_form():
                        ("k3_p7c.cu", "prmers_k3_p7c"),
                        ("k4_axis0.cu", "prmers_k4_axis0")):
         body = _function_body(read(src), entry)
-        assert "axis_fft_launch<" in body and "axis_dft_launch" not in body
+        launch = "k3_launch_rounds<" if entry == "prmers_k3_p7c" else \
+            "axis_fft_launch<"
+        assert launch in body and "axis_dft_launch" not in body
         for word in ("mats", "g2", "tri", "k1_mats", "k3_mats"):
             assert not re.search(r"\b%s\b" % word, body), (src, word)
-    assert "axis_fft_launch<AX_K3A>" in read("k3_p7c.cu")
+    assert "axf_inv_values<AX_K3A, LL, AXF_FULL>" in read("k3_p7c.cu")
     k4 = read("k4_axis0.cu")
     assert "axis_fft_launch<AX_K3A>" in k4 and "axis_fft_launch<AX_K4F>" in k4
     dft = read("axis_dft.cuh")

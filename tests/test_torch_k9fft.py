@@ -150,8 +150,9 @@ def _code(text):
 def test_k9_runs_the_standalone_bodies():
     """k9_chain.cuh calls axis_fft_tile in K1's, K2a's, K2c's and K3a's
     modes, fused_c_row_group (the fused row form) or the split's three
-    bodies, and k3b_unit, the bodies axis_fft_kernel, fused_c_row_kernel
-    and k3b_kernel run; it names no dense table and no dot-product
+    bodies, and k3b_unit, the bodies axis_fft_kernel and
+    fused_c_row_kernel run (K3's one launch runs its own tiled carry); it
+    names no dense table and no dot-product
     accumulator, and no scratch buffer; the split's bodies read no dense
     table either."""
     code = _code(_read("k9_chain.cuh"))
@@ -175,7 +176,8 @@ def test_k9_runs_the_standalone_bodies():
                 row.index("fused_c_row_kernel(")]
     for word in ("lane_f", "lane_i", "Mf", "Mi", "gl_acc_madd", "GlAcc"):
         assert not re.search(r"\b%s\b" % word, split), word
-    assert "k3b_unit<PER>(" in _read("k3_p7c.cu")
+    assert "k3b_unit<" not in _read("k3_p7c.cu")
+    assert "void k3b_unit(" in _read("k3b_carry.cuh")
 
 
 def test_engine_entry_takes_no_profiler_option():

@@ -10,6 +10,7 @@ equal fourstep.square_ref. A CUDA twin compares each kernel with its plain
 version on the card and skips on a machine without one.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -487,12 +488,15 @@ def test_cuda_axis_fft_matches_plain(L):
 @pytest.mark.gpu
 @pytest.mark.parametrize("logn", [15, 18])
 def test_cuda_k3_k4_shift_match_plain(logn):
-    """On the card: K3 (K3a as csrc/axis_fft.cuh's shift butterflies, then
-    K3b) at L1 = 32 (n = 2^15) and 64 (2^18) with a = 1, a = 3 and sub2,
-    in place on lazy words, digits and carries bit for bit against the
-    plain version; K4 forward without and with (R1, 1) block carries (mod
-    P) and K4 inverse (bit for bit), in place; at L1 = 64 the move-only
-    bodies of K3a and K4 forward launch (they compute no transform)."""
+    """On the card: K3 (one launch: the r1 inverse as csrc/axis_fft.cuh's
+    shift butterflies, then the row carry by tiles with edge words, csrc/
+    k3_p7c.cu) at L1 = 32 (n = 2^15) and 64 (2^18) with a = 1, a = 3 and
+    sub2, in place on lazy words, each twice (the scratch's second launch
+    and on), digits and carries bit for bit against the plain version, one
+    wrapper call a launch; K4 forward without and with (R1, 1) block
+    carries (mod P) and K4 inverse (bit for bit), in place; at L1 = 64 the
+    move-only bodies of K3a and K4 forward launch (they compute no
+    transform)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -508,10 +512,13 @@ def test_cuda_k3_k4_shift_match_plain(logn):
                                         dtype=np.int64)).to(dev)
     for a, sub2 in ((1, False), (3, False), (1, True)):
         dw, cw = tk.p7_carry_plain(t, z, a, sub2)
-        y = z.clone()
-        d, c = tk.p7_carry_pass(t, y, a=a, sub2=sub2, out=y)
-        assert d is y and torch.equal(d, dw) and torch.equal(c, cw), \
-            (a, sub2)
+        for _ in range(2):
+            y = z.clone()
+            before = tk.calls["k3_p7c"]
+            d, c = tk.p7_carry_pass(t, y, a=a, sub2=sub2, out=y)
+            assert tk.calls["k3_p7c"] == before + 1
+            assert d is y and torch.equal(d, dw) and torch.equal(c, cw), \
+                (a, sub2)
     for c in (None, bco):
         want = tk.axis0_plain(t, x, False, co=c)
         y = x.clone()
@@ -528,13 +535,72 @@ def test_cuda_k3_k4_shift_match_plain(logn):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rounds", [1, 2, 4, 5, 6])
+def test_cuda_k3_any_rounds_match_plain(rounds):
+    """On the card: K3 at n = 2^18 (L1 = 64) and 2^15 (L1 = 32) with the
+    round count forced (the plans' own is 2 to 4: unrolled at 2, 3, 4, a
+    loop elsewhere) on tables with a scratch of that count, in place, a =
+    1, 3 and sub2, digits and carries bit for bit against the plain
+    version; the plan's own scratch, too small for more rounds, refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for logn in (18, 15):
+        n = 1 << logn
+        plan = build_plan(int(n * 16.5) | 1, n=n)
+        t0 = tk.DevTables.from_host(
+            tfs.build_tables(tfs.FourStepPlan.from_plan(plan)), "cuda")
+        t = dataclasses.replace(t0, rounds=rounds, k3_scratch=torch.zeros(
+            tk.k3_scratch_words(t0.shape, rounds), dtype=torch.int64,
+            device="cuda"))
+        rng = np.random.default_rng(400 + rounds + logn)
+        z = _t(rng.integers(0, 1 << 64, size=t.shape,
+                            dtype=np.uint64)).cuda()
+        for a, sub2 in ((1, False), (3, False), (1, True)):
+            dw, cw = tk.p7_carry_plain(t, z, a, sub2)
+            y = z.clone()
+            d, c = tk.p7_carry_pass(t, y, a=a, sub2=sub2, out=y)
+            assert torch.equal(d, dw) and torch.equal(c, cw), (logn, a, sub2)
+        if rounds > t0.rounds:
+            with pytest.raises(RuntimeError, match="k3_p7c"):
+                tk.p7_carry_pass(dataclasses.replace(t0, rounds=rounds), z)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logn", [23, 25])
+def test_cuda_k3_repeat_launches_equal(logn):
+    """On the card: K3 launched 200 times on one input at n = 2^23 (T = 1)
+    and 2^25 (T = 2), every launch's digits and unit carries bit for bit
+    against the plain version: a fault in the order between its tiles (an
+    edge word read before it is written) shows now and then, not every
+    time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 1 << logn
+    plan = build_plan(int(n * 16.5) | 1, n=n)
+    t = tk.DevTables.from_host(
+        tfs.build_tables(tfs.FourStepPlan.from_plan(plan)), "cuda")
+    assert t.row_carry_shape[2] == (1 if logn == 23 else 2)
+    rng = np.random.default_rng(300 + logn)
+    z = _t(rng.integers(0, 1 << 64, size=t.shape, dtype=np.uint64)).cuda()
+    dw, cw = tk.p7_carry_plain(t, z)
+    out = torch.empty_like(z)
+    co = torch.empty(t.row_carry_shape, dtype=torch.int64, device="cuda")
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(200):
+        tk.p7_carry_pass(t, z, out=out, co_out=co)
+        bad += (out != dw).sum() + (co != cw).sum()
+    assert int(bad) == 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("logn,s", [(18, 2), (18, 4), (23, 2), (23, 4),
                                     (26, 2), ("5x2^17", 2), ("5x2^18", 4),
                                     ("5x2^22", 2), ("5x2^22", 4)])
 def test_cuda_shard_kernels_match_plain(logn, s):
     """On the card: the mesh's shard-local launches of the first and the
     last of s ranks, each against its plain version on the same inputs:
-    K1, K3 (a = 1, 3 and sub2 with the rank's amount) and K4 both ways on
+    K1, K3 (a = 1, 3 and sub2 with the rank's amount; in place, one
+    launch) and K4 both ways on
     the r2-sharded view (R1, R2/s, C); K5, K6, K6b and K8 (a = 1, 3) on
     the r1-sharded view (R1/s, R2, C) (at n = 2^26 K5 at L2 = 128; at the
     radix-5 n = 5 * 2^k, L2 = 10, 20 and 320, K5 in the split form on the
@@ -567,9 +633,11 @@ def test_cuda_shard_kernels_match_plain(logn, s):
             assert torch.equal(got, want) if inverse else same(got, want)
         for a, sub2 in ((1, False), (3, False), (1, True)):
             amt = 2 if rank == 0 else 0
-            d, c = tk.p7_carry_pass(t2, s2, a=a, sub2=sub2, s2=amt)
+            y = s2.clone()              # in place, as the mesh step runs it
+            d, c = tk.p7_carry_pass(t2, y, a=a, sub2=sub2, s2=amt, out=y)
             dw, cw = tk.p7_carry_plain(t2, s2, a, sub2, amt)
-            assert torch.equal(d, dw) and torch.equal(c, cw), (a, sub2)
+            assert d is y and torch.equal(d, dw) and torch.equal(c, cw), \
+                (a, sub2)
         y = _t(rng.integers(0, GP, size=t1.shape, dtype=np.uint64)).cuda()
         for which in ("p2", "p6"):
             assert same(tk.axis1_pass(t1, y, which),
